@@ -1,0 +1,81 @@
+"""MRF training-data stream (counterpart of ``repro.data.pipeline``).
+
+Each batch draws (T1, T2) log-uniformly from the physiological prior,
+simulates fingerprints with the Bloch recursion and applies the SNR/phase
+augmentations, on the device of the ``torch.Generator`` it is given.  The
+seekable ``batch_at`` / ``make_batch_factory`` arrive with the training
+slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.data.epg import (MRFSequence, augment, simulate_fingerprints,
+                                  to_features)
+from repro_torch.kernels.common import resolve_device
+
+# Physiological brain ranges used by the Barbieri-family MRF papers (ms).
+T1_RANGE_MS = (100.0, 4000.0)
+T2_RANGE_MS = (10.0, 600.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class MRFSampleStream:
+    seq: MRFSequence
+    batch_size: int
+    snr_range: tuple = (2.0, 50.0)
+    t1_range: tuple = T1_RANGE_MS
+    t2_range: tuple = T2_RANGE_MS
+
+    @property
+    def feature_dim(self) -> int:
+        return 2 * self.seq.n_frames
+
+
+def _log_uniform(generator, n, lo, hi, device):
+    u = torch.rand((n,), generator=generator, device=device,
+                   dtype=torch.float32)
+    return torch.exp(math.log(lo) + (math.log(hi) - math.log(lo)) * u)
+
+
+def sample_batch(stream: MRFSampleStream, generator: torch.Generator):
+    """One batch on ``generator``'s device: features (B, 2F) and targets
+    (B, 2) in NORMALISED units (T1/T1_max, T2/T2_max)."""
+    dev = generator.device
+    b = stream.batch_size
+    lo1, hi1 = stream.t1_range
+    lo2, hi2 = stream.t2_range
+    t1 = _log_uniform(generator, b, lo1, hi1, dev)
+    t2 = _log_uniform(generator, b, lo2, hi2, dev)
+    t2 = torch.minimum(t2, t1)  # T2 <= T1 (physical constraint in tissue)
+    sig = simulate_fingerprints(stream.seq, t1, t2, device=dev)
+    sig = augment(generator, sig, stream.snr_range)
+    x = to_features(sig)
+    y = torch.stack([t1 / hi1, t2 / hi2], dim=-1).to(torch.float32)
+    return x, y
+
+
+def denormalize_targets(y, t1_range: tuple = T1_RANGE_MS,
+                        t2_range: tuple = T2_RANGE_MS) -> torch.Tensor:
+    """Normalised (T1/T1_max, T2/T2_max) targets/predictions -> milliseconds.
+
+    The single place that knows how ``sample_batch`` normalised its targets.
+    ``y``: (..., 2) tensor; returns float32 of the same shape and device.
+    """
+    y = torch.as_tensor(y, dtype=torch.float32)
+    scale = torch.tensor([t1_range[1], t2_range[1]], dtype=torch.float32,
+                         device=y.device)
+    return y * scale
+
+
+def make_eval_set(seq: MRFSequence, n: int = 5000, seed: int = 123,
+                  snr: float = 20.0, *, device="cuda"):
+    """The paper's held-out evaluation: n never-before-seen synthetic
+    signals at a fixed SNR."""
+    dev = resolve_device(device)
+    stream = MRFSampleStream(seq=seq, batch_size=n, snr_range=(snr, snr))
+    return sample_batch(stream, torch.Generator(device=dev).manual_seed(seed))

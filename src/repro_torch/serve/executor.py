@@ -1,0 +1,242 @@
+"""Execution layer of the recon serving stack: the double-buffered
+asynchronous wave executor (counterpart of ``repro.serve.executor``).
+
+:meth:`WaveExecutor.dispatch` stages one wave's voxel pool on the device
+(one concatenate that also pads the ragged tail up to its bucket), enqueues
+every bucket tile's forward and its copy into pinned host memory on the
+current CUDA stream, records one event per tile, and returns an
+:class:`InflightWave` **without blocking** — so the engine can stage and
+dispatch wave N+1 while the card still computes wave N.
+
+:meth:`InflightWave.wait` synchronizes once, on the event recorded after
+the wave's last tile, and reads the host copies; :meth:`InflightWave
+.wait_tiles` is the synchronous baseline that synchronizes tile by tile.
+
+Tiles come from :func:`plan_tiles` over a fixed bucket set, so every
+forward sees one of ``len(buckets)`` shapes.  Backends: ``float``
+(``mrf_net.forward`` in fp32, TF32 off) and ``int8`` with ``int8_impl``
+``fused`` (the whole-network CUDA kernel, denormalization fused into its
+epilogue), ``layered`` (the per-layer CUDA kernel chain) or ``lax`` (plain
+PyTorch).  All int8 implementations serve bit-identical maps.  On the CPU
+the kernels' plain versions run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import mrf_net
+from repro_torch.data.pipeline import (T1_RANGE_MS, T2_RANGE_MS,
+                                       denormalize_targets)
+from repro_torch.kernels.common import (disable_tf32, resolve_device,
+                                        resolve_int8_impl)
+from repro_torch.kernels.qat_dense.ops import (int_forward_fused,
+                                               int_forward_lax,
+                                               int_forward_layered,
+                                               prepad_int_layers)
+
+BACKENDS = ("float", "int8")
+
+# Four shapes cover any request mix: full tiles at 1024, the tail padded to
+# the smallest fit.
+DEFAULT_BUCKETS = (128, 256, 512, 1024)
+
+
+def plan_tiles(n: int, buckets: Sequence[int]) -> list:
+    """Tile ``n`` voxels into (offset, count, bucket) micro-batches.
+
+    Full tiles use the largest bucket; the remainder uses the smallest
+    bucket that fits (padded by the executor).  Covers [0, n) exactly.
+    """
+    buckets = sorted(int(b) for b in buckets)
+    if not buckets or buckets[0] <= 0:
+        raise ValueError(f"buckets must be positive: {buckets}")
+    bmax = buckets[-1]
+    tiles = []
+    off = 0
+    while n - off >= bmax:
+        tiles.append((off, bmax, bmax))
+        off += bmax
+    rem = n - off
+    if rem:
+        fit = next(b for b in buckets if b >= rem)
+        tiles.append((off, rem, fit))
+    return tiles
+
+
+@dataclasses.dataclass(eq=False)
+class InflightWave:
+    """Handle to one dispatched wave.
+
+    ``host[i]`` is the (bucket, 2) host tensor that receives tile ``i``'s
+    denormalized (T1 ms, T2 ms) predictions once ``events[i]`` has
+    completed (on the CPU the events are ``None`` and the values final);
+    only the first ``count`` rows of each are real voxels.
+    """
+
+    tiles: list          # (offset, count, bucket) in pool coordinates
+    host: list           # per-tile host tensors (pinned on CUDA)
+    events: list         # per-tile torch.cuda.Event, or None on the CPU
+    total: int           # real (unpadded) voxel count of the wave
+
+    def wait(self) -> np.ndarray:
+        """Block once for the whole wave; return the (total, 2) predictions.
+
+        One synchronization — on the event recorded after the last tile —
+        whatever the tile count: the pipelined path's contract.
+        """
+        if self.events and self.events[-1] is not None:
+            self.events[-1].synchronize()
+        pred = np.empty((self.total, 2), np.float32)
+        for (off, count, _), out in zip(self.tiles, self.host):
+            pred[off:off + count] = out.numpy()[:count]
+        return pred
+
+    def wait_tiles(self):
+        """Per-tile sync generator: yields (offset, count, block) as each
+        tile lands.  The synchronous baseline — one sync per tile."""
+        for (off, count, _), out, ev in zip(self.tiles, self.host,
+                                            self.events):
+            if ev is not None:
+                ev.synchronize()
+            yield off, count, out.numpy()[:count]
+
+
+class WaveExecutor:
+    """Dispatches voxel waves through the per-bucket forward on ``device``.
+
+    ``backend="float"`` needs ``params`` (the mrf_net list);
+    ``backend="int8"`` needs ``int_layers`` (a ``qat.export_int8`` /
+    ``qat.load_int8_artifact`` list), which are moved to ``device`` and
+    padded once here.  ``int8_impl`` picks the full-integer implementation
+    (``None`` = ``"fused"``).  ``device`` defaults to ``"cuda"`` and raises
+    without a card.
+    """
+
+    def __init__(self, *, backend: str = "float", params=None, int_layers=None,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 int8_impl: str | None = None, device="cuda"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        if backend == "float" and params is None:
+            raise ValueError("float backend needs params")
+        if backend == "int8" and int_layers is None:
+            raise ValueError("int8 backend needs int_layers "
+                             "(qat.export_int8 or qat.load_int8_artifact)")
+        self.device = resolve_device(device)
+        disable_tf32()
+        self.backend = backend
+        self.params = None if params is None else [
+            {k: v.to(self.device) for k, v in layer.items()}
+            for layer in params]
+        self.int_layers = None if int_layers is None else [
+            dataclasses.replace(layer, **{
+                f: (None if getattr(layer, f) is None
+                    else getattr(layer, f).to(self.device))
+                for f in ("w_q", "b_q", "s_in", "s_w", "s_out")})
+            for layer in int_layers]
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        self.int8_impl = (resolve_int8_impl(int8_impl)
+                          if backend == "int8" else None)
+        # weights are static: pad K/N and pack the fused image exactly once
+        self._prepadded = (prepad_int_layers(self.int_layers)
+                           if backend == "int8" else None)
+        self.in_dim = int(self.params[0]["w"].shape[0] if backend == "float"
+                          else self.int_layers[0].w_q.shape[0])
+        self._fwd = self._make_forward()
+        self.bucket_shapes_run: set = set()
+        self.n_tiles_dispatched = 0
+
+    def _make_forward(self):
+        # denormalization runs on the device inside the forward (or the
+        # fused kernel's epilogue), so tile outputs are already (T1, T2) in
+        # ms and each tile crosses to the host exactly once
+        if self.backend == "float":
+            params = self.params
+
+            def fwd(x):
+                return denormalize_targets(mrf_net.forward(params, x))
+        elif self.int8_impl == "fused":
+            pre = self._prepadded
+            # the (T1_max, T2_max) row denormalize_targets applies,
+            # multiplied after the head scale inside the kernel — bit-exact
+            # vs composing denormalize_targets outside (tested)
+            dscale = torch.tensor([T1_RANGE_MS[1], T2_RANGE_MS[1]],
+                                  dtype=torch.float32, device=self.device)
+
+            def fwd(x):
+                return int_forward_fused(pre, x, denorm_scale=dscale)
+        elif self.int8_impl == "lax":
+            ints = self.int_layers
+            for layer in ints:
+                _ = layer.b_absmax  # read once here, not per tile
+
+            def fwd(x):
+                return denormalize_targets(int_forward_lax(ints, x))
+        else:  # "layered": per-layer kernel chain on the prepadded net
+            pre = self._prepadded
+
+            def fwd(x):
+                return denormalize_targets(int_forward_layered(pre, x))
+        return fwd
+
+    def cache_size(self) -> int:
+        """Distinct bucket shapes run so far; bounded by ``len(buckets)``."""
+        return len(self.bucket_shapes_run)
+
+    # -- staging + dispatch ------------------------------------------------
+
+    def stage(self, features_list: Sequence) -> tuple:
+        """Host->device staging of one wave: returns (pool, tiles, total).
+
+        One concatenate builds the whole pool on the device: the per-request
+        feature blocks *and* the zero rows that pad the ragged tail to its
+        bucket, so every tile is then a contiguous static-shape slice.
+        """
+        total = sum(int(f.shape[0]) for f in features_list)
+        tiles = plan_tiles(total, self.buckets)
+        padded_total = (tiles[-1][0] + tiles[-1][2]) if tiles else 0
+        parts = [torch.as_tensor(f, dtype=torch.float32, device=self.device)
+                 for f in features_list]
+        if padded_total > total:
+            parts.append(torch.zeros((padded_total - total, self.in_dim),
+                                     dtype=torch.float32, device=self.device))
+        if parts:
+            pool = torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
+        else:
+            pool = torch.zeros((0, self.in_dim), dtype=torch.float32,
+                               device=self.device)
+        return pool.contiguous(), tiles, total
+
+    def dispatch(self, features_list: Sequence) -> InflightWave:
+        """Stage one wave and enqueue all its tiles; never blocks.
+
+        Each tile's output is copied into pinned host memory on the same
+        stream and followed by an event, so ``wait()`` needs one
+        synchronization and ``wait_tiles()`` one per tile.
+        """
+        pool, tiles, total = self.stage(features_list)
+        on_cuda = self.device.type == "cuda"
+        host, events = [], []
+        for off, _count, bucket in tiles:
+            # only the trailing tile is padded, so pool offsets == voxel
+            # offsets and every slice is a contiguous (bucket, in_dim) view
+            with torch.no_grad():
+                out = self._fwd(pool[off:off + bucket])
+            if on_cuda:
+                buf = torch.empty(out.shape, dtype=torch.float32,
+                                  pin_memory=True)
+                buf.copy_(out, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+            else:
+                buf, ev = out, None
+            host.append(buf)
+            events.append(ev)
+            self.bucket_shapes_run.add(bucket)
+        self.n_tiles_dispatched += len(tiles)
+        return InflightWave(tiles=tiles, host=host, events=events, total=total)

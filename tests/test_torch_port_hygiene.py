@@ -1,0 +1,154 @@
+"""Structural guarantees of the PyTorch port (``src/repro_torch``).
+
+* The port imports neither JAX nor the JAX package — nor does
+  ``chip_smoke.py``.
+* Every CUDA source that kernels.build names exists, and the flags keep IEEE
+  arithmetic (no fast math) for ``sm_90a``.
+* Devices are explicit: asking for CUDA without a card raises instead of
+  falling back to the CPU.
+* The port's identifiers stay clear of ``scripts/dead_exports_allowlist.txt``,
+  whose gate counts an identifier anywhere under ``src/`` or ``tests/`` as
+  a use of the JAX symbol of that name.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import qat
+from repro_torch.data.epg import default_sequence, simulate_fingerprints
+from repro_torch.kernels import build
+from repro_torch.kernels.common import (INT8_IMPL_CHOICES, resolve_device,
+                                        resolve_int8_impl)
+from repro_torch.kernels.qat_dense.kernel import qat_dense_call
+from repro_torch.launch import serve as launcher
+from repro_torch.serve.executor import WaveExecutor
+from repro_torch.serve.recon import ReconEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.lineno, node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files
+           for line, mod in _imported_roots(ast.parse(f.read_text()))
+           if mod in ("jax", "jaxlib", "repro")]
+    assert bad == []
+
+
+def test_kernel_sources_exist_and_build_flags_are_exact():
+    named = {build.CSRC / src for src in build.SOURCES.values()}
+    assert all(p.is_file() for p in named)
+    assert set(build.CSRC.glob("*.cu")) == named
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    for src in named:
+        text = src.read_text()
+        assert "Replaces: src/repro/kernels/qat_dense/" in text
+        assert "roundf(" not in text.replace("rintf(", "")
+
+
+def test_int8_impl_resolution_has_no_rig_fallback():
+    assert resolve_int8_impl(None) == "fused"
+    for impl in INT8_IMPL_CHOICES:
+        assert resolve_int8_impl(impl) == impl
+    with pytest.raises(ValueError):
+        resolve_int8_impl("pallas")
+
+
+def _net():
+    g = torch.Generator().manual_seed(0)
+    from repro_torch.core import mrf_net
+    params = mrf_net.init_params(g, mrf_net.layer_sizes(32))
+    return params, qat.export_int8(
+        params, qat.init_qat_state(len(params), device="cpu"))
+
+
+def test_cuda_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    params, ints = _net()
+    path = qat.save_int8_artifact(tmp_path / "net", ints)
+    calls = [
+        lambda: resolve_device("cuda"),
+        lambda: qat.init_qat_state(3),
+        lambda: qat.load_int8_artifact(path),
+        lambda: simulate_fingerprints(default_sequence(8), [800.0], [80.0]),
+        lambda: WaveExecutor(backend="int8", int_layers=ints),
+        lambda: ReconEngine(backend="float", params=params),
+        lambda: launcher.main(["--arch", "mrf-fpga", "--artifact", str(path)]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def test_kernel_wrappers_refuse_devices_they_cannot_serve():
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        qat_dense_call(torch.empty((4, 8), dtype=torch.int8, **meta),
+                       torch.empty((8, 4), dtype=torch.int8, **meta),
+                       torch.empty((4,), dtype=torch.int32, **meta),
+                       torch.empty((4,), **meta))
+
+
+def _allowlisted_names():
+    names = set()
+    for raw in (ROOT / "scripts" / "dead_exports_allowlist.txt").read_text(
+            ).splitlines():
+        key = raw.split(" -- ")[0].strip()
+        if key and not key.startswith("#") and not key.startswith("module:"):
+            names.add(key.rsplit(".", 1)[-1])
+    return names
+
+
+def test_port_identifiers_leave_the_dead_exports_gate_alone():
+    allow = _allowlisted_names()
+    assert {"IntLayer", "QATConfig", "PaddedIntNet"} <= allow
+    files = sorted(PORT.rglob("*.py")) + sorted(
+        (ROOT / "tests").glob("test_torch_*.py"))
+    hits = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            name = (node.id if isinstance(node, ast.Name) else
+                    node.attr if isinstance(node, ast.Attribute) else None)
+            names = [name] if name else []
+            if isinstance(node, ast.ImportFrom):
+                names = [a.asname or a.name for a in node.names]
+            hits += [f"{f.relative_to(ROOT)}:{node.lineno} {n}"
+                     for n in names if n in allow]
+    assert hits == []
+
+
+def test_plain_versions_need_no_build(monkeypatch):
+    """A CPU run never reaches kernels.build: CPU hosts need no nvcc."""
+    monkeypatch.setattr(build, "load", lambda name: pytest.fail(
+        f"CPU path tried to load kernel {name}"))
+    x = torch.from_numpy(np.arange(32, dtype=np.int8).reshape(4, 8))
+    w = torch.ones((8, 4), dtype=torch.int8)
+    out = qat_dense_call(x, w, torch.zeros(4, dtype=torch.int32),
+                         torch.full((4,), 0.5), relu=True)
+    assert out.dtype == torch.int8 and out.shape == (4, 4)
