@@ -236,8 +236,9 @@ def event_ms(fn) -> float:
 def device_ms(fn, kernel: str | None) -> float:
     """Device time per call from the profiler's CUDA activity: the median
     duration of ``kernel``'s launches, or (``kernel=None``) the summed
-    duration of every device activity over REPS calls, per call.  Falls
-    back to :func:`event_ms` when the profiler records no device activity.
+    duration of every device activity over REPS calls, per call.  Fails
+    when the profiler records no device activity: wall time between CUDA
+    events (:func:`event_ms`) is reported beside it, never in its place.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -251,8 +252,7 @@ def device_ms(fn, kernel: str | None) -> float:
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not evs:
-        log("profiler saw no device activity: timing with CUDA events")
-        return event_ms(fn)
+        fail("the profiler recorded no device activity: no device time")
     if kernel is None:
         return sum(e.time_range.elapsed_us() for e in evs) / REPS / 1e3
     durs = [e.time_range.elapsed_us() for e in evs if kernel in e.name]
@@ -261,19 +261,22 @@ def device_ms(fn, kernel: str | None) -> float:
     return statistics.median(durs) / 1e3
 
 
-def timing_phase(net, launches: dict, errs: dict, device) -> list:
+def timing_phase(net, int_layers, launches: dict, errs: dict,
+                 device) -> list:
     """Phase 5: B4 at bucket 1024 with the denorm row (as served), B5 at the
-    first hidden layer's shape at M=1024."""
+    first hidden layer's shape at M=1024.  B4's bound counts the net at its
+    true widths (``int_layers``): int8 weights, int32 bias and fp32 scale per
+    output, never the kernel's padded shared-memory image."""
     from repro_torch.kernels.qat_dense import fused, kernel, ref
 
     m = 1024
     gen = torch.Generator(device=device).manual_seed(11)
     x = torch.randn((m, net.in_dim), generator=gen, device=device)
     drow = torch.tensor([4000.0, 600.0], device=device)
-    macs = sum(int(w.shape[0]) * int(w.shape[1]) for w in net.packed[::3])
-    b4_bytes = x.numel() * 4 + net.image.numel() + drow.numel() * 4 \
-        + m * net.out_dim * 4
-    b4_ops = 2 * m * macs
+    shapes = [tuple(int(d) for d in layer.w_q.shape) for layer in int_layers]
+    b4_bytes = x.numel() * 4 + sum(k * n + 8 * n for k, n in shapes) \
+        + drow.numel() * 4 + m * net.out_dim * 4
+    b4_ops = 2 * m * sum(k * n for k, n in shapes)
     saved = fused.fused_forward_call.launches
     b4_call = lambda: fused.fused_forward_call(x, net, drow=drow)
     b4 = {"ms": device_ms(b4_call, "fused_forward_kernel"),
@@ -345,9 +348,10 @@ def main() -> int:
                 log(f"  ptxas {kname}: {ln.strip()}")
 
     from repro_torch.core import mrf_net
-    nets = {arch: ops.prepad_int_layers(calibrated_net(hidden, 1, device))
-            for arch, hidden in (("mrf-fpga", mrf_net.ADAPTED_HIDDEN),
-                                 ("mrf-original", mrf_net.ORIGINAL_HIDDEN))}
+    layers = {arch: calibrated_net(hidden, 1, device)
+              for arch, hidden in (("mrf-fpga", mrf_net.ADAPTED_HIDDEN),
+                                   ("mrf-original", mrf_net.ORIGINAL_HIDDEN))}
+    nets = {arch: ops.prepad_int_layers(ls) for arch, ls in layers.items()}
     errs = check_kernels(nets, device)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -356,7 +360,8 @@ def main() -> int:
         if n <= 0:
             fail(f"kernel {kname} was never launched on the main path")
 
-    rows = timing_phase(nets["mrf-fpga"], launches, errs, device)
+    rows = timing_phase(nets["mrf-fpga"], layers["mrf-fpga"], launches, errs,
+                        device)
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "

@@ -112,6 +112,8 @@ def fused_forward_call(x, net, *, drow=None):
     build.check_device(x.device)
     m = x.shape[0]
     out = torch.empty((m, net.out_dim), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out  # nothing to launch, nothing to count
     err = _entry()(x.data_ptr(), m, net.in_dim, net.s_in_host,
                    net.image.data_ptr(), net.image.numel(), net.n_layers,
                    net.act_words, None if drow is None else drow.data_ptr(),

@@ -71,6 +71,8 @@ def qat_dense_call(x_q, w_q, b_q, scale, *, relu: bool = True,
     n = w_q.shape[1]
     out = torch.empty((m, n), device=x_q.device,
                       dtype=torch.float32 if float_out else torch.int8)
+    if m == 0 or n == 0:
+        return out  # nothing to launch, nothing to count
     err = _entry()(x_q.data_ptr(), w_q.data_ptr(), b_q.data_ptr(),
                    scale.data_ptr(), out.data_ptr(), m, n, k, int(relu),
                    int(float_out),

@@ -96,9 +96,8 @@ class ReconEngine:
     ``max_wait_ms`` is the admission deadline from enqueue.  ``int8_impl``
     selects the int8 implementation (``None`` = ``"fused"``).
     ``max_retries`` bounds the solo requeues a ticket gets after a failed
-    wave (0: a failed wave fails its tickets); ``retry_backoff_s`` sleeps
-    ``retry_backoff_s * 2**(retries-1)`` before a retry wave.  ``device``
-    defaults to ``"cuda"`` and raises without a card.
+    wave (0: a failed wave fails its tickets).  ``device`` defaults to
+    ``"cuda"`` and raises without a card.
     """
 
     def __init__(self, *, backend: str = "float", params=None, int_layers=None,
@@ -106,17 +105,13 @@ class ReconEngine:
                  max_wave_voxels: int | None = None,
                  max_wait_ms: float | None = None, inflight_depth: int = 2,
                  int8_impl: str | None = None, max_retries: int = 1,
-                 retry_backoff_s: float = 0.0, clock=time.perf_counter,
-                 device="cuda"):
+                 clock=time.perf_counter, device="cuda"):
         if mode not in SERVE_MODES:
             raise ValueError(f"mode {mode!r} not in {SERVE_MODES}")
         if inflight_depth < 1:
             raise ValueError(f"inflight_depth must be >= 1: {inflight_depth}")
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0: {max_retries}")
-        if retry_backoff_s < 0:
-            raise ValueError(f"retry_backoff_s must be >= 0: "
-                             f"{retry_backoff_s}")
         self.mode = mode
         self.executor = WaveExecutor(backend=backend, params=params,
                                      int_layers=int_layers, buckets=buckets,
@@ -127,7 +122,6 @@ class ReconEngine:
                                   max_wait_ms=max_wait_ms,
                                   validator=self._validate, clock=clock)
         self.max_retries = int(max_retries)
-        self.retry_backoff_s = float(retry_backoff_s)
         self._depth = 1 if mode == "sync" else int(inflight_depth)
         self._inflight: collections.deque = collections.deque()
         # stats of waves poll() retired (or that died at dispatch) since
@@ -297,10 +291,6 @@ class ReconEngine:
         if retried:
             self._early_stats["n_retries"] += retried
             self.n_retries_total += retried
-            if self.retry_backoff_s > 0:
-                worst = max(t.retries for t in wave
-                            if t.state == RequestState.PENDING)
-                time.sleep(self.retry_backoff_s * 2 ** (worst - 1))
         return failed
 
     def _dispatch(self, wave: list) -> bool:

@@ -69,6 +69,24 @@ def test_qat_dense_matches_plain(cuda, mkn, relu, float_out):
     assert torch.equal(got, want)
 
 
+def test_empty_outputs_launch_and_count_nothing(cuda):
+    net = _net(mrf_net.ADAPTED_HIDDEN, cuda)
+    before = (fused.fused_forward_call.launches,
+              kernel.qat_dense_call.launches)
+    out = fused.fused_forward_call(torch.zeros((0, 64), device=cuda), net)
+    assert out.shape == (0, net.out_dim)
+    x = torch.zeros((0, 8), dtype=torch.int8, device=cuda)
+    w = torch.zeros((8, 4), dtype=torch.int8, device=cuda)
+    b = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    s = torch.ones((4,), device=cuda)
+    assert kernel.qat_dense_call(x, w, b, s).shape == (0, 4)
+    assert kernel.qat_dense_call(torch.zeros((4, 8), dtype=torch.int8,
+                                             device=cuda), w[:, :0], b[:0],
+                                 s[:0]).shape == (4, 0)
+    assert (fused.fused_forward_call.launches,
+            kernel.qat_dense_call.launches) == before
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((4, 8), dtype=torch.int8, device=cuda)
     w = torch.zeros((8, 4), dtype=torch.int8, device=cuda)
