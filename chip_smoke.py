@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the CUDA kernels,
-holds each against its plain PyTorch version, serves MRF maps end to end
-through ``repro_torch.launch.serve`` and times the kernels.
+holds each against its plain PyTorch version, trains and serves MRF nets end
+to end through ``repro_torch.launch.train`` / ``repro_torch.launch.serve``
+and times the kernels.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -9,16 +10,32 @@ Phases (any failure raises, and the script exits non-zero without the
 final result line):
 
 1. device facts (name, capability, ``nvidia-smi`` name and power limit);
-2. build the kernels from ``src/repro_torch/csrc`` with ``nvcc``;
-3. each kernel against its plain version on identical tensors on the card,
-   at the serving path's shapes (bit-exact: integer arithmetic);
-4. a calibrated mrf-fpga int8 artifact (random He-uniform weights, QAT
-   observer calibration on simulated fingerprints) served through the
-   launcher — sync and pipelined via the fused kernel, sync via the
-   layered kernel chain, and mrf-original via the fused kernel — each run
-   checked bit for bit against the CPU integer oracle, with the kernels'
+2. build the kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
+   process per source, started together;
+3. the serving kernels (B4, B5) against their plain versions on identical
+   tensors on the card, at the serving path's shapes (bit-exact: integer
+   arithmetic);
+3b. the training kernel (B1 one step, B2 K SGD steps, B3 K Adam steps) against
+   its plain version at mrf-fpga and mrf-original full width (losses and
+   params atol 1e-5, Adam moments atol 1e-6 / rtol 1e-5), a K=4 launch
+   against 4 single-step launches and a launch against its repeat (bit for
+   bit);
+4. the serving path: a calibrated mrf-fpga int8 artifact (random He-uniform
+   weights, QAT observer calibration on simulated fingerprints) served
+   through the launcher — sync and pipelined via the fused kernel, sync via
+   the layered kernel chain, and mrf-original via the fused kernel — each
+   run checked bit for bit against the CPU integer oracle, with the kernels'
    launch counts read just before and after;
-5. kernel times on the device (profiler, median of 30 launches) beside
+4b. the training path through the launcher at full width, batch 256, tile
+   128 — fused SGD and Adam chunked (50 steps per launch), fused SGD
+   stepwise, float, qat-int8 and fused mrf-original — each with its launch
+   counts and a falling loss; chunked == stepwise and crash + restart ==
+   uninterrupted (``engine.train``), bit for bit; and the paper's
+   per-sample stream (``fused_train_step`` at tile 1);
+4c. train, then serve: the serve launcher QAT-trains mrf-fpga (600 steps),
+   exports and serves it through B4 bit-exact against the CPU oracle, and
+   trains and serves a float net;
+5. kernel times on the device (profiler, median of the launches) beside
    their bounds, their plain versions' device times and the wall time of
    one wrapper call between CUDA events.
 
@@ -31,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -45,7 +63,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
+FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+N_SMS = 132
 REPS = 30
+TRAIN_REPS = 10             # training kernels: ms-long launches
 BUCKETS = (128, 256, 512, 1024)
 
 
@@ -154,9 +175,10 @@ def check_kernels(nets, device) -> dict:
     return errs
 
 
-def serve(argv) -> dict:
+def serve(argv, expect: str = "oracle: bit-exact") -> dict:
     """One launcher run with the kernels' counts reset just before it;
-    returns its report plus the counts read just after."""
+    returns its report plus the counts read just after.  ``expect``: the
+    launcher's line that says its maps passed their check."""
     from repro_torch.kernels.qat_dense import fused, kernel
     from repro_torch.launch import serve as launcher
 
@@ -172,7 +194,7 @@ def serve(argv) -> dict:
     if rc != 0:
         fail(f"launcher {' '.join(argv)} returned {rc}")
     lines = [ln for ln in out.splitlines() if ln.startswith("serve_report ")]
-    if not lines or "oracle: bit-exact" not in out:
+    if not lines or expect not in out:
         fail(f"launcher {' '.join(argv)}: no oracle check / report")
     report = json.loads(lines[-1].split(" ", 1)[1])
     report["launches"] = counts
@@ -217,13 +239,375 @@ def serve_phase(tmp: pathlib.Path, device) -> dict:
     return launches
 
 
-def event_ms(fn) -> float:
+def train_counters() -> dict:
+    """The training kernel's wrappers (B1, B2, B3), each with its count."""
+    from repro_torch.kernels.fused_train import kernel, multistep
+
+    return {"fused_train": kernel.fused_train_call,
+            "fused_train_multistep": multistep.fused_train_multistep_call,
+            "fused_train_adam": multistep.fused_train_adam_call}
+
+
+def max_err(got, want) -> float:
+    from repro_torch.tree import leaves
+
+    pairs = list(zip(leaves(got), leaves(want)))
+    if len(pairs) != len(leaves(want)):
+        fail("kernel and plain version return different structures")
+    return max((float((a.double() - b.double()).abs().max())
+                for a, b in pairs if b.numel()), default=0.0)
+
+
+def bitequal(a, b, what: str) -> None:
+    from repro_torch.tree import leaves
+
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb) or not all(torch.equal(x, y)
+                                     for x, y in zip(la, lb)):
+        fail(f"{what}: not bit-identical (max abs err {max_err(a, b)})")
+
+
+def training_data(device, steps: int, seed: int = 5):
+    """``steps`` batches of 256 simulated mrf-fpga fingerprints, back to
+    back: x (steps*256, 64), y (steps*256, 2)."""
+    from repro_torch.data.epg import default_sequence
+    from repro_torch.data.pipeline import MRFSampleStream, batch_at
+
+    stream = MRFSampleStream(seq=default_sequence(32), batch_size=256)
+    batches = [batch_at(stream, seed, s, device=device) for s in range(steps)]
+    return (torch.cat([b["x"] for b in batches]),
+            torch.cat([b["y"] for b in batches]))
+
+
+def check_training_kernels(device) -> dict:
+    """Phase 3b: B1, B2 and B3 against the plain version at full width;
+    K=4 in one launch bit-equals 4 single-step launches, and a launch
+    bit-equals its repeat.  Returns each kernel's max abs error."""
+    from repro_torch.core import mrf_net
+    from repro_torch.kernels.fused_train import kernel, ops, ref
+    from repro_torch.optim import adam
+
+    counters = train_counters()
+    errs = {name: 0.0 for name in counters}
+    x, y = training_data(device, 4)
+    for arch, hidden in (("mrf-fpga", mrf_net.ADAPTED_HIDDEN),
+                         ("mrf-original", mrf_net.ORIGINAL_HIDDEN)):
+        gen = torch.Generator(device=device).manual_seed(3)
+        params = mrf_net.init_params(gen, mrf_net.layer_sizes(32, hidden))
+        flat, widths = ops.pack_params(params)
+        # B1: tile 1 (the paper's per-sample stream) and tile 128
+        for tile, rows in ((1, 32), (128, 256)):
+            for qat in (False, True):
+                what = f"B1 {arch} tile {tile} qat={qat}"
+                before = counters["fused_train"].launches
+                got = kernel.fused_train_call(
+                    x[:rows], y[:rows], flat, widths=widths, lr=1e-2,
+                    tile_batch=tile, qat=qat)
+                want_p, _, _, want_l = ref.fused_train_plain(
+                    x[:rows], y[:rows], flat, widths, lr=1e-2,
+                    tile_batch=tile, qat=qat)
+                again = kernel.fused_train_call(
+                    x[:rows], y[:rows], flat, widths=widths, lr=1e-2,
+                    tile_batch=tile, qat=qat)
+                torch.cuda.synchronize()
+                if counters["fused_train"].launches != before + 2:
+                    fail(f"{what}: launch counter did not advance")
+                err = max_err(got, (want_p, want_l))
+                if err > 1e-5:
+                    fail(f"{what}: max abs err {err} vs plain > 1e-5")
+                bitequal(again, got, f"{what}, two identical launches")
+                errs["fused_train"] = max(errs["fused_train"], err)
+        # B2 / B3: K=4 steps of 256 at tile 128 in one launch
+        for optimizer, name in (("sgd", "fused_train_multistep"),
+                                ("adam", "fused_train_adam")):
+            what = f"{name} {arch} K=4"
+            fresh = (lambda: adam(1e-3).init(params)) if optimizer == "adam" \
+                else (lambda: None)
+            before = counters[name].launches
+            got_p, got_s, got_l = ops.fused_train_multistep(
+                params, fresh(), x, y, n_steps=4, lr=1e-3,
+                optimizer=optimizer, tile_batch=128)
+            moments = step0 = None
+            if optimizer == "adam":
+                moments = (torch.zeros_like(flat), torch.zeros_like(flat))
+                step0 = torch.zeros((1,), dtype=torch.int32, device=device)
+            want_p, want_mu, want_nu, want_l = ref.fused_train_plain(
+                x, y, flat, widths, lr=1e-3, tile_batch=128, moments=moments,
+                step0=step0)
+            err = max_err((ops.pack_params(got_p)[0], got_l.reshape(-1)),
+                          (want_p, want_l))
+            if err > 1e-5:
+                fail(f"{what}: params/losses max abs err {err} > 1e-5")
+            if optimizer == "adam":
+                for got_m, want_m in ((got_s.mu, want_mu), (got_s.nu, want_nu)):
+                    packed = ops.pack_params(got_m)[0]
+                    if not torch.allclose(packed, want_m, atol=1e-6,
+                                          rtol=1e-5):
+                        fail(f"{what}: moments beyond atol 1e-6, rtol 1e-5 "
+                             f"(max abs err {max_err(packed, want_m)})")
+                    err = max(err, max_err(packed, want_m))
+                if int(got_s.step) != 8:
+                    fail(f"{what}: Adam step {int(got_s.step)}, expected 8")
+            errs[name] = max(errs[name], err)
+            seq_p, seq_s, rows = params, fresh(), []
+            for k in range(4):
+                sl = slice(256 * k, 256 * (k + 1))
+                seq_p, seq_s, tl = ops.fused_train_multistep(
+                    seq_p, seq_s, x[sl], y[sl], n_steps=1, lr=1e-3,
+                    optimizer=optimizer, tile_batch=128)
+                rows.append(tl[0])
+            again = ops.fused_train_multistep(
+                params, fresh(), x, y, n_steps=4, lr=1e-3,
+                optimizer=optimizer, tile_batch=128)
+            torch.cuda.synchronize()
+            if counters[name].launches != before + 6:
+                fail(f"{what}: launch counter did not advance per launch")
+            bitequal((seq_p, seq_s, torch.stack(rows)),
+                     (got_p, got_s, got_l), f"{what} vs 4 single steps")
+            bitequal(again, (got_p, got_s, got_l),
+                     f"{what}, two identical launches")
+    log(f"training kernels == plain versions within atol 1e-5; K-step == K "
+        f"single-step launches and repeats bit-exact ({errs})")
+    return errs
+
+
+def train(argv) -> dict:
+    """One training-launcher run with the training kernel's counts reset
+    just before it; returns its report plus the counts read just after.
+    Fails unless the run ends with a finite loss below its first logged
+    loss."""
+    from repro_torch.launch import train as launcher
+
+    counters = train_counters()
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launcher.main(argv)
+    counts = {name: c.launches for name, c in counters.items()}
+    out = buf.getvalue()
+    lines = out.splitlines()
+    log("\n".join(lines[:1] + lines[-3:]))
+    if rc != 0:
+        fail(f"train launcher {' '.join(argv)} returned {rc}")
+    if not lines or not lines[-1].startswith("train_report "):
+        fail(f"train launcher {' '.join(argv)}: no report")
+    report = json.loads(lines[-1].split(" ", 1)[1])
+    first, last = report["first_loss"], report["last_loss"]
+    if not (last is not None and math.isfinite(last) and last < first):
+        fail(f"train launcher {' '.join(argv)}: loss {first} -> {last} did "
+             f"not fall to a finite value")
+    report["launches"] = counts
+    return report
+
+
+def train_phase(tmp: pathlib.Path, device) -> tuple:
+    """Phase 4b: the training path at full width; returns (each kernel's
+    launches summed over the runs, the runs' reports)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import mrf_net
+    from repro_torch.ft.runner import RunnerConfig
+    from repro_torch.kernels.fused_train import ops
+    from repro_torch.models.mrf import build_mrf
+    from repro_torch.train import engine
+
+    base = ["--device", "cuda", "--batch", "256", "--lr", "1e-3"]
+    fused = ["--backend", "fused", "--tile-batch", "128"]
+    runs = [
+        ("mrf-fpga fused sgd chunked", ["--arch", "mrf-fpga", *fused,
+         "--optimizer", "sgd", "--steps", "200", "--chunk-steps", "50"],
+         {"fused_train_multistep": 4}),
+        ("mrf-fpga fused adam chunked", ["--arch", "mrf-fpga", *fused,
+         "--optimizer", "adam", "--steps", "200", "--chunk-steps", "50"],
+         {"fused_train_adam": 4}),
+        ("mrf-fpga fused sgd stepwise", ["--arch", "mrf-fpga", *fused,
+         "--optimizer", "sgd", "--steps", "20"],
+         {"fused_train_multistep": 20}),
+        ("mrf-fpga float adam", ["--arch", "mrf-fpga", "--backend", "float",
+         "--steps", "100"], {}),
+        ("mrf-fpga qat-int8 adam", ["--arch", "mrf-fpga", "--backend",
+         "qat-int8", "--steps", "100"], {}),
+        ("mrf-original fused sgd chunked", ["--arch", "mrf-original", *fused,
+         "--optimizer", "sgd", "--steps", "50", "--chunk-steps", "50"],
+         {"fused_train_multistep": 1}),
+    ]
+    launches = {name: 0 for name in train_counters()}
+    reports = []
+    for i, (label, argv, want) in enumerate(runs):
+        rep = train([*argv, *base, "--ckpt-dir", str(tmp / f"train_{i}")])
+        want = {name: want.get(name, 0) for name in launches}
+        if rep["launches"] != want:
+            fail(f"{label}: launches {rep['launches']}, expected {want}")
+        for name, n in rep["launches"].items():
+            launches[name] += n
+        rep["run"] = label
+        reports.append(rep)
+        log(f"train {label}: {rep['samples_per_s']:.1f} samples/s, loss "
+            f"{rep['first_loss']:.6f} -> {rep['last_loss']:.6f}, launches "
+            f"{rep['launches']}")
+
+    # the paper's per-sample stream: one B1 launch over 1,024 samples
+    counters = train_counters()
+    for c in counters.values():
+        c.launches = 0
+    gen = torch.Generator(device=device).manual_seed(4)
+    params = mrf_net.init_params(gen, mrf_net.layer_sizes(32))
+    x, y = training_data(device, 4, seed=6)
+    t0 = time.perf_counter()
+    _, losses = ops.fused_train_step(params, x, y, lr=1e-2, tile_batch=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    head, tail = float(losses[:256].mean()), float(losses[-256:].mean())
+    if counters["fused_train"].launches != 1 or not tail < head:
+        fail(f"per-sample stream: {counters['fused_train'].launches} B1 "
+             f"launches, mean loss {head} -> {tail}")
+    launches["fused_train"] += 1
+    log(f"train per-sample stream (fused_train_step, tile 1): 1024 samples "
+        f"in {wall * 1e3:.3f} ms, mean loss {head:.6f} -> {tail:.6f}")
+
+    # chunked == stepwise and crash + restart == uninterrupted, on the card
+    fns = build_mrf(get_config("mrf-fpga"))
+    for optimizer in ("sgd", "adam"):
+        finals = {}
+        for mode, chunk, inject in (("stepwise", 1, None),
+                                    ("chunked", 5, None),
+                                    ("crash+restart", 5, 13)):
+            cfg = engine.EngineConfig(backend="fused", lr=1e-3,
+                                      optimizer=optimizer, tile_batch=128,
+                                      chunk_steps=chunk)
+            rcfg = RunnerConfig(total_steps=20, ckpt_dir=str(
+                tmp / f"pair_{optimizer}_{mode}"), ckpt_every=10,
+                inject_fault_at=inject)
+            state, step, _ = engine.train(fns, cfg, rcfg, seed=7,
+                                          batch_size=256, device=device)
+            if step != 20:
+                fail(f"fused {optimizer} {mode}: stopped at step {step}")
+            finals[mode] = state
+        bitequal(finals["chunked"], finals["stepwise"],
+                 f"fused {optimizer}: chunked vs stepwise, 20 steps")
+        bitequal(finals["crash+restart"], finals["chunked"],
+                 f"fused {optimizer}: crash at 13 + restart vs uninterrupted")
+        log(f"train fused {optimizer}: chunked == stepwise and crash + "
+            f"restart == uninterrupted, bit for bit (20 steps)")
+    return launches, reports
+
+
+def train_then_serve(device) -> int:
+    """Phase 4c: the serve launcher trains its own nets and serves them;
+    returns B4's launches."""
+    base = ["--arch", "mrf-fpga", "--device", "cuda", "--phantom-n", "256",
+            "--requests", "8"]
+    rep = serve([*base, "--backend", "int8"])
+    if rep["launches"] != {"fused_forward": rep["tiles"], "qat_dense": 0}:
+        fail(f"train+serve int8: launches {rep['launches']} for "
+             f"{rep['tiles']} tiles")
+    log(f"train+serve int8 (600 QAT steps): {rep['voxels_per_s']} voxels/s, "
+        f"p50 {rep['p50_ms']} ms, launches {rep['launches']}")
+    rep_f = serve([*base, "--backend", "float"],
+                  expect="float engine == mrf_net.forward oracle")
+    if rep_f["launches"] != {"fused_forward": 0, "qat_dense": 0}:
+        fail(f"train+serve float launched int8 kernels: {rep_f['launches']}")
+    log(f"train+serve float (600 steps): {rep_f['voxels_per_s']} voxels/s, "
+        f"p50 {rep_f['p50_ms']} ms")
+    return rep["launches"]["fused_forward"]
+
+
+def training_timing(launches: dict, errs: dict, device) -> list:
+    """Phase 5 for the training kernel at mrf-fpga full width: B1 over 1,024
+    samples at tile 1, B2 and B3 over K=50 steps of 256 at tile 128.  The
+    device time per launch comes from CUDA events around back-to-back
+    launches: one profiler session per launch recorded all of B1's but at
+    most one in ten of B2's and B3's (their count is reported).  The
+    bound counts x and y read once, the net (and Adam's moments) read and
+    written once, the losses written; the operations are the products of
+    the forward, dW and dh (59,584 FLOP a sample) plus the update (2 FLOP a
+    parameter a tile for SGD, 16 for Adam), at the card's fp32 rate and at
+    one SM's (1/132 of it): one block walks the tiles in order."""
+    from repro_torch.core import mrf_net
+    from repro_torch.kernels.fused_train import kernel, multistep, ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    widths = mrf_net.layer_sizes(32)
+    flat, _ = ops.pack_params(mrf_net.init_params(gen, widths))
+    n = flat.numel()
+    macs = sum(k * m for k, m in zip(widths[:-1], widths[1:]))
+    per_sample = 2 * macs + 2 * macs + 2 * sum(
+        k * m for k, m in zip(widths[1:-1], widths[2:]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, y = training_data(device, 50, seed=8)
+    torch.cuda.synchronize()
+    log(f"  staging 50 batches of 256 (batch_at): "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms of host wall time")
+    zeros = torch.zeros_like(flat)
+    step0 = torch.zeros((1,), dtype=torch.int32, device=device)
+    cases = [
+        ("fused_train", "src/repro/kernels/fused_train/kernel.py:145",
+         "1024 samples, tile 1, mrf-fpga", 1024, 1, None),
+        ("fused_train_multistep",
+         "src/repro/kernels/fused_train/multistep.py:58",
+         "K=50 x 256 samples, tile 128, mrf-fpga", 12_800, 128, None),
+        ("fused_train_adam", "src/repro/kernels/fused_train/multistep.py:172",
+         "K=50 x 256 samples, tile 128, mrf-fpga", 12_800, 128, "adam"),
+    ]
+    counters = train_counters()
+    rows = []
+    for name, replaces, shape, n_rows, tile, opt in cases:
+        xs, ys = x[:n_rows], y[:n_rows]
+        kw = dict(widths=widths, lr=1e-3, tile_batch=tile)
+        if name == "fused_train":
+            call = lambda: kernel.fused_train_call(xs, ys, flat, **kw)  # noqa: E731
+        elif name == "fused_train_multistep":
+            call = lambda: multistep.fused_train_multistep_call(  # noqa: E731
+                xs, ys, flat, **kw)
+        else:
+            call = lambda: multistep.fused_train_adam_call(  # noqa: E731
+                step0, xs, ys, flat, zeros, zeros, **kw)
+        plain = lambda: ref.fused_train_plain(  # noqa: E731
+            xs, ys, flat, widths, lr=1e-3, tile_batch=tile,
+            moments=(zeros, zeros) if opt else None,
+            step0=step0 if opt else None)
+        n_tiles = n_rows // tile
+        nbytes = 4 * (n_rows * (widths[0] + widths[-1]) + 2 * n
+                      + (4 * n + 1 if opt else 0) + n_tiles)
+        nops = n_rows * per_sample + n_tiles * n * (16 if opt else 2)
+        saved = counters[name].launches
+        seen = profiled_launches(call, "fused_train_kernel", TRAIN_REPS)
+        t = {"ms": back_to_back_ms(call, TRAIN_REPS),
+             "wall_ms": event_ms(call, reps=TRAIN_REPS),
+             "plain_ms": device_ms(plain, None, reps=2, warmup=1),
+             "plain_wall_ms": event_ms(plain, reps=2),
+             "profiler_ms": statistics.median(seen) if seen else None}
+        counters[name].launches = saved
+        log(f"  {name}: the profiler recorded {len(seen)} of {TRAIN_REPS} "
+            f"launches (median {t['profiler_ms']} ms); CUDA events around "
+            f"{TRAIN_REPS} back-to-back launches: {t['ms']:.6f} ms each")
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / FP32_FLOPS_PER_S * 1e3
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/fused_train.cu",
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"],
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "library_ms": None, "wall_ms": t["wall_ms"],
+                     "profiler_ms": t["profiler_ms"],
+                     "plain_wall_ms": t["plain_wall_ms"],
+                     "profiler_launches_seen": len(seen),
+                     "bound_one_sm_ms": t_ops * N_SMS,
+                     "shape": shape, "bytes": nbytes, "ops": nops,
+                     "samples": n_rows})
+    return rows
+
+
+def event_ms(fn, reps: int = REPS) -> float:
     """Median wall time of one call between CUDA events: the device time
     plus whatever host launch overhead keeps the card waiting."""
     for _ in range(3):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start, end = torch.cuda.Event(True), torch.cuda.Event(True)
         start.record()
         fn()
@@ -233,31 +617,65 @@ def event_ms(fn) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str | None) -> float:
+def back_to_back_ms(fn, reps: int) -> float:
+    """Device time per launch from CUDA events around ``reps`` back-to-back
+    calls: the host enqueues each launch while the previous one runs, so
+    for ms-long kernels the stream holds no gaps worth counting."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_launches(fn, kernel: str, reps: int) -> list:
+    """Durations (ms) of ``kernel`` that the profiler records, one session
+    per call (a diagnostic beside :func:`back_to_back_ms`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    durs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        durs += [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return durs
+
+
+def device_ms(fn, kernel: str | None, reps: int = REPS,
+              warmup: int = 3) -> float:
     """Device time per call from the profiler's CUDA activity: the median
     duration of ``kernel``'s launches, or (``kernel=None``) the summed
-    duration of every device activity over REPS calls, per call.  Fails
+    duration of every device activity over ``reps`` calls, per call.  Fails
     when the profiler records no device activity: wall time between CUDA
     events (:func:`event_ms`) is reported beside it, never in its place.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not evs:
         fail("the profiler recorded no device activity: no device time")
     if kernel is None:
-        return sum(e.time_range.elapsed_us() for e in evs) / REPS / 1e3
+        return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
     durs = [e.time_range.elapsed_us() for e in evs if kernel in e.name]
-    if len(durs) != REPS:
-        fail(f"profiler saw {len(durs)} launches of {kernel}, expected {REPS}")
+    if len(durs) != reps:
+        fail(f"profiler saw {len(durs)} launches of {kernel}, expected {reps}")
     return statistics.median(durs) / 1e3
 
 
@@ -353,20 +771,35 @@ def main() -> int:
                                    ("mrf-original", mrf_net.ORIGINAL_HIDDEN))}
     nets = {arch: ops.prepad_int_layers(ls) for arch, ls in layers.items()}
     errs = check_kernels(nets, device)
+    errs.update(check_training_kernels(device))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = serve_phase(pathlib.Path(tmp), device)
+        t_train = time.perf_counter()
+        train_launches, reports = train_phase(pathlib.Path(tmp), device)
+        launches["fused_forward"] += train_then_serve(device)
+        log(f"training phases: {time.perf_counter() - t_train:.1f} s")
+    launches.update(train_launches)
     for kname, n in launches.items():
         if n <= 0:
             fail(f"kernel {kname} was never launched on the main path")
 
     rows = timing_phase(nets["mrf-fpga"], layers["mrf-fpga"], launches, errs,
                         device)
+    rows += training_timing(launches, errs, device)
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "
             f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})  [{smi}]")
+        if "samples" in r:
+            per_sample = r["ms"] / r["samples"]
+            log(f"  {r['name']}: {per_sample * 1e3:.4f} us a sample, one-SM "
+                f"bound {r['bound_one_sm_ms']:.6f} ms; projection, not a "
+                f"measurement: 250 M samples x {per_sample * 1e3:.4f} us = "
+                f"{per_sample * 250e6 / 1e3:.1f} s")
+    for rep in reports:
+        log(f"train_run {json.dumps(rep)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -40,10 +40,18 @@ def _round_ste(x):
     return x + (torch.round(x) - x).detach()
 
 
+def _clip(x, lo: float, hi: float):
+    """``jnp.clip`` with its gradient: a value that meets a bound exactly
+    gets half the gradient (``torch.clamp`` would pass all of it).  After
+    the rounding every x / s in [qmax - 0.5, qmax + 0.5) meets the bound."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 def fake_quantize(x, scale, qmax: float = 127.0):
     """Symmetric fake-quant with STE. ``scale`` broadcasts against x."""
     s = torch.clamp_min(scale, 1e-12)
-    q = torch.clamp(_round_ste(x / s), -qmax - 1, qmax)
+    q = _clip(_round_ste(x / s), -qmax - 1, qmax)
     return q * s
 
 

@@ -2,15 +2,20 @@
 
 Each batch draws (T1, T2) log-uniformly from the physiological prior,
 simulates fingerprints with the Bloch recursion and applies the SNR/phase
-augmentations, on the device of the ``torch.Generator`` it is given.  The
-seekable ``batch_at`` / ``make_batch_factory`` arrive with the training
-slice.
+augmentations, on the device of the ``torch.Generator`` it is given.
+
+The stream is seekable: ``batch_at(stream, seed, step)`` draws the batch of
+a global step from a generator seeded by :func:`batch_seed` of the pair, so
+the same ``(seed, step)`` gives the same batch on every call.  Restart after
+a crash and chunked training (which stages ``n`` steps' batches ahead) rely
+on that.  The draws differ from the JAX package's (Philox, not threefry).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -57,6 +62,36 @@ def sample_batch(stream: MRFSampleStream, generator: torch.Generator):
     x = to_features(sig)
     y = torch.stack([t1 / hi1, t2 / hi2], dim=-1).to(torch.float32)
     return x, y
+
+
+def batch_seed(seed: int, step: int) -> int:
+    """The generator seed of the batch at ``step`` of stream ``seed``:
+    ``(seed + 1) * 2**32 + step``.  Distinct for every pair with
+    ``0 <= step < 2**32``, and never a small seed such as an init seed."""
+    if not 0 <= seed < 2 ** 31 or not 0 <= step < 2 ** 32:
+        raise ValueError(f"seed {seed} / step {step} outside [0, 2**31) / "
+                         f"[0, 2**32)")
+    return (seed + 1) * 2 ** 32 + step
+
+
+def batch_at(stream: MRFSampleStream, seed: int, step: int, *,
+             device="cuda") -> dict:
+    """The ``{"x", "y"}`` batch of global ``step``, drawn on ``device``."""
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(batch_seed(seed, int(step)))
+    x, y = sample_batch(stream, gen)
+    return {"x": x, "y": y}
+
+
+def make_batch_factory(stream: MRFSampleStream, seed: int, *,
+                       device="cuda") -> Callable[[int], dict]:
+    """Seekable batch factory, the ``ft.runner`` data contract:
+    ``factory(step)`` is ``batch_at(stream, seed, step)``."""
+    dev = resolve_device(device)
+
+    def at(step: int) -> dict:
+        return batch_at(stream, seed, step, device=dev)
+    return at
 
 
 def denormalize_targets(y, t1_range: tuple = T1_RANGE_MS,

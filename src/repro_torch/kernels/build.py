@@ -28,7 +28,8 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 
 #: kernel name -> source file under ``csrc/``
-SOURCES = {"qat_dense": "qat_dense.cu", "fused_forward": "fused_forward.cu"}
+SOURCES = {"qat_dense": "qat_dense.cu", "fused_forward": "fused_forward.cu",
+           "fused_train": "fused_train.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

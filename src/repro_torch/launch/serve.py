@@ -1,32 +1,37 @@
 """Serving launcher of the port: the MRF reconstruction family
 (counterpart of the MRF branch of ``repro.launch.serve``).
 
-``python -m repro_torch.launch.serve --arch mrf-fpga --backend int8
---artifact net.npz`` loads a servable int8 artifact (the ``.npz`` format of
-``repro.core.qat.save_int8_artifact``, written by either package),
-reconstructs a request wave of phantom slices through the queued engine on
-``--device`` (default ``cuda``), and cross-checks every served map against
+``python -m repro_torch.launch.serve --arch mrf-fpga --backend int8`` QAT-
+trains a net through the port's engine (600 steps, 60 with ``--smoke``, or
+``--train-steps``), exports it to a full-integer int8 artifact, round-trips
+the artifact through disk and serves it; ``--artifact net.npz`` serves a
+kept artifact instead (the ``.npz`` format of
+``repro.core.qat.save_int8_artifact``, written by either package).  A
+request wave of phantom slices goes through the queued engine on
+``--device`` (default ``cuda``), and every served map is checked against
 the plain integer oracle ``qat.int_forward`` — computed on a CPU copy, so
 the check does not run through the kernel it checks — bit for bit.
-``--serve-mode pipelined`` serves the same trace through the
-double-buffered executor and also asserts that its maps are bit-identical
-to sync serving.
+``--backend float`` trains a float net and serves it through the
+executor's float backend, checked against ``mrf_net.forward`` on a CPU
+copy within rtol 1e-5 of the map's scale.  ``--serve-mode pipelined``
+serves the same trace through the double-buffered executor and also
+asserts that its maps are bit-identical to sync serving.
 
 The last line printed is ``serve_report {json}``: throughput, latency
-percentiles and the tiles served.  QAT training (the source of artifacts
-and of float weights) arrives with the training slice.
+percentiles and the tiles served.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
-from repro_torch.core import qat
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.core import mrf_net, qat
 from repro_torch.data.epg import default_sequence
 from repro_torch.data.phantom import acquire_slice, make_phantom, tissue_errors
 from repro_torch.data.pipeline import denormalize_targets
@@ -39,34 +44,74 @@ def _maps_equal(a, b) -> bool:
     return np.array_equal(a.t1_ms, b.t1_ms) and np.array_equal(a.t2_ms, b.t2_ms)
 
 
+def _train_mrf(args, cfg, device, *, qat_mode: bool):
+    """One training recipe for both serving backends; the topology comes
+    from the arch config, so mrf-original serves its own (deeper) net."""
+    from repro_torch.core.train_loop import TrainConfig, train
+
+    steps = (args.train_steps if args.train_steps is not None
+             else (60 if args.smoke else 600))
+    tcfg = TrainConfig(n_frames=cfg.mrf_n_frames, hidden=cfg.mrf_hidden,
+                       steps=steps, qat=qat_mode, lr=1e-3, batch_size=256,
+                       log_every=max(steps // 3, 1))
+    params, qstate, info = train(tcfg, verbose=not args.smoke, device=device)
+    print(f"trained {'qat-int8' if qat_mode else 'float'} {cfg.name}: "
+          f"{steps} steps, {info['samples_per_s']:.0f} samples/s, loss "
+          f"{info['history'][0][1]:.6f} -> {info['history'][-1][1]:.6f}")
+    return params, qstate
+
+
+def _int8_artifact(args, cfg, device) -> tuple:
+    """``(layers on device, layers on the CPU)``: ``--artifact``, or a
+    QAT-trained export round-tripped through disk (the deployment unit)."""
+    if args.artifact:
+        return (qat.load_int8_artifact(args.artifact, device=device),
+                qat.load_int8_artifact(args.artifact, device="cpu"))
+    params, qstate = _train_mrf(args, cfg, device, qat_mode=True)
+    ints = qat.export_int8(params, qstate)
+    with tempfile.TemporaryDirectory(prefix="mrf_artifact_") as tmp:
+        path = qat.save_int8_artifact(f"{tmp}/{cfg.name}_int8", ints)
+        loaded = (qat.load_int8_artifact(path, device=device),
+                  qat.load_int8_artifact(path, device="cpu"))
+        print(f"int8 artifact round-tripped via {path.name}")
+    return loaded
+
+
 def serve_mrf(args, cfg) -> int:
     """The MRF reconstruction family through the batched serving engine."""
-    if args.backend == "float":
-        raise SystemExit("--backend float needs float weights, which come "
-                         "from training: it arrives with the training slice")
-    if args.backend != "int8":
+    if args.backend not in ("float", "int8"):
         raise SystemExit(f"--backend {args.backend} is not an MRF serving "
-                         f"backend (int8)")
-    if not args.artifact:
-        raise SystemExit("--artifact is required: QAT training, which makes "
-                         "artifacts, arrives with the training slice")
+                         f"backend (float | int8)")
+    if args.artifact and args.backend != "int8":
+        raise SystemExit("--artifact is an int8 deployment unit; it requires "
+                         "--backend int8 (float would silently retrain)")
+    if args.backend == "float" and args.int8_impl != "auto":
+        raise SystemExit("--int8-impl selects the full-integer "
+                         "implementation; it requires --backend int8")
     if args.requests < 1:
         raise SystemExit("--requests must be >= 1")
     device = resolve_device(args.device)
 
-    ints = qat.load_int8_artifact(args.artifact, device=device)
-    in_dim = int(ints[0].w_q.shape[0])
-    if in_dim != 2 * cfg.mrf_n_frames:
-        raise SystemExit(f"artifact takes {in_dim} features; {cfg.name} has "
-                         f"{cfg.mrf_n_frames} frames ({2 * cfg.mrf_n_frames})")
-    impl = None if args.int8_impl == "auto" else args.int8_impl
-    net_kw = dict(backend="int8", int_layers=ints, int8_impl=impl,
-                  device=device)
+    ints_cpu = params = None
+    if args.backend == "int8":
+        ints, ints_cpu = _int8_artifact(args, cfg, device)
+        in_dim = int(ints[0].w_q.shape[0])
+        if in_dim != 2 * cfg.mrf_n_frames:
+            raise SystemExit(f"artifact takes {in_dim} features; {cfg.name} "
+                             f"has {cfg.mrf_n_frames} frames "
+                             f"({2 * cfg.mrf_n_frames})")
+        impl = None if args.int8_impl == "auto" else args.int8_impl
+        net_kw = dict(backend="int8", int_layers=ints, int8_impl=impl,
+                      device=device)
+    else:
+        params, _ = _train_mrf(args, cfg, device, qat_mode=False)
+        net_kw = dict(backend="float", params=params, device=device)
     engine = ReconEngine(mode=args.serve_mode,
                          max_wave_voxels=args.max_wave_voxels,
                          max_wait_ms=args.max_wait_ms, **net_kw)
-    print(f"int8 impl: {engine.int8_impl} (requested {args.int8_impl}) "
-          f"on {device}")
+    if args.backend == "int8":
+        print(f"int8 impl: {engine.int8_impl} (requested {args.int8_impl}) "
+              f"on {device}")
 
     # request pool: one phantom slice per request, distinct noise draws
     seq = default_sequence(cfg.mrf_n_frames)
@@ -100,7 +145,7 @@ def serve_mrf(args, cfg) -> int:
         results = engine.reconstruct(requests)
     wave = engine.last_wave
     pct = latency_percentiles(results)
-    print(f"arch={cfg.name} backend=int8 mode={args.serve_mode} "
+    print(f"arch={cfg.name} backend={args.backend} mode={args.serve_mode} "
           f"requests={len(requests)} voxels={wave['total_voxels']} "
           f"waves={wave['n_waves']}")
     print(f"throughput: {wave['voxels_per_s']:.0f} voxels/s")
@@ -116,28 +161,48 @@ def serve_mrf(args, cfg) -> int:
                       f"({got.request_id})")
                 return 1
         print("pipelined == sync serving: bit-exact")
-    # the network is untrained unless the artifact came from training:
-    # tissue errors are informative, not gated
     for name, e in tissue_errors(results[0].t1_ms, results[0].t2_ms,
                                  t1_map, mask).items():
         print(f"  {name:6s}: T1 err {e['T1_err_%']:5.1f}%   "
               f"T2 err {e['T2_err_%']:5.1f}%")
 
-    # the acceptance check: every served map == the plain integer oracle on
-    # a CPU copy, bit for bit (the paper's FPGA-vs-Python criterion)
-    ints_cpu = qat.load_int8_artifact(args.artifact, device="cpu")
     vox = np.asarray(mask, bool)
-    for r, got in zip(requests, results):
-        want = denormalize_targets(
-            qat.int_forward(ints_cpu, r.features.cpu())).numpy()
-        if not (np.array_equal(got.t1_ms[vox], want[:, 0])
-                and np.array_equal(got.t2_ms[vox], want[:, 1])):
-            print(f"FAIL: int8 engine diverges from qat.int_forward oracle "
-                  f"({r.request_id})")
+    if args.backend == "int8":
+        # the acceptance check: every served map == the plain integer
+        # oracle on a CPU copy, bit for bit (the paper's FPGA-vs-Python
+        # criterion)
+        for r, got in zip(requests, results):
+            want = denormalize_targets(
+                qat.int_forward(ints_cpu, r.features.cpu())).numpy()
+            if not (np.array_equal(got.t1_ms[vox], want[:, 0])
+                    and np.array_equal(got.t2_ms[vox], want[:, 1])):
+                print(f"FAIL: int8 engine diverges from qat.int_forward "
+                      f"oracle ({r.request_id})")
+                return 1
+        print(f"int8 engine == qat.int_forward oracle: bit-exact "
+              f"({len(requests)} requests)")
+    else:
+        # fp32 sums run in another order on the card: rtol 1e-5 of the
+        # map's scale
+        p_cpu = [{k: v.detach().cpu() for k, v in layer.items()}
+                 for layer in params]
+        worst = 0.0
+        for r, got in zip(requests, results):
+            with torch.no_grad():
+                want = denormalize_targets(
+                    mrf_net.forward(p_cpu, r.features.cpu())).numpy()
+            for j, got_map in enumerate((got.t1_ms[vox], got.t2_ms[vox])):
+                scale = max(float(np.abs(want[:, j]).max()), 1e-30)
+                worst = max(worst, float(np.abs(got_map - want[:, j]).max())
+                            / scale)
+        if worst > 1e-5:
+            print(f"FAIL: float engine diverges from mrf_net.forward: "
+                  f"max error {worst:.3g} of the map's scale > 1e-5")
             return 1
-    print(f"int8 engine == qat.int_forward oracle: bit-exact "
-          f"({len(requests)} requests)")
-    report = {"arch": cfg.name, "impl": engine.int8_impl,
+        print(f"float engine == mrf_net.forward oracle: max error "
+              f"{worst:.3g} of the map's scale ({len(requests)} requests)")
+    report = {"arch": cfg.name, "backend": args.backend,
+              "impl": engine.int8_impl,
               "mode": args.serve_mode, "device": str(device),
               "requests": len(requests), "voxels": wave["total_voxels"],
               "voxels_per_s": wave["voxels_per_s"], "wall_s": wave["wall_s"],
@@ -152,8 +217,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True,
                     help="mrf-fpga | mrf-original")
     ap.add_argument("--backend", default="int8",
-                    help="int8 (full-integer CUDA kernels); float arrives "
-                         "with the training slice")
+                    help="int8 (full-integer CUDA kernels, the default) or "
+                         "float (a float net through the executor)")
     ap.add_argument("--int8-impl", default="auto",
                     choices=["auto", "fused", "layered", "lax"],
                     help="fused = whole-network CUDA kernel (auto), layered "
@@ -172,14 +237,20 @@ def main(argv=None) -> int:
                     help="admission deadline from enqueue before a wave is "
                          "due (default: no deadline trigger)")
     ap.add_argument("--artifact", default=None,
-                    help="the .npz int8 artifact to serve (required)")
+                    help="int8: serve this .npz artifact instead of "
+                         "QAT-training one")
+    ap.add_argument("--train-steps", type=int, default=None,
+                    help="steps of the in-process training (default 60 "
+                         "with --smoke, else 600)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (16 frames)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--phantom-n", type=int, default=32,
                     help="phantom slice side length")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    cfg = get_config(args.arch)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     return serve_mrf(args, cfg)
 
 

@@ -1,0 +1,5 @@
+"""Optimizers of the port (``optim/grad_compression.py`` arrives with the
+LM slice)."""
+from repro_torch.optim.optimizers import (AdamState, Optimizer, SgdState,
+                                          adam, clip_by_global_norm,
+                                          global_norm, sgd)

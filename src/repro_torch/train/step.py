@@ -1,0 +1,154 @@
+"""The training step of the MRF nets (counterpart of ``repro.train.step``).
+
+Composes: loss forward -> gradients by autograd -> optional sequential
+microbatch accumulation -> optional clipping by global norm -> Adam/SGD
+update.  Every step factory returns ``(state, batch) -> (state, metrics)``
+over a :class:`TrainState`, whose ``aux`` carries backend state (the QAT
+activation observers) through checkpoints with everything else.
+
+The backend plugs in at one of two levels:
+
+* ``aux_loss=True``: ``loss_fn(params, aux, batch) -> (loss, new_aux)``.
+* ``fused_step``: a whole-step override ``(params, opt_state, aux, batch)
+  -> (new_params, new_opt_state, new_aux, metrics)`` for updates computed
+  in a kernel (``kernels/fused_train``).  The factory **refuses**
+  ``microbatches > 1`` and ``grad_compress`` for it: there is no gradient
+  tree to accumulate or compress.
+
+Int8 gradient compression (``grad_compress``) arrives with
+``optim/grad_compression.py`` in the LM slice; until then it raises.
+Steps run eagerly, so ``make_chunked_step`` is a Python loop of ``n``
+steps with the metrics stacked.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
+                                          global_norm)
+from repro_torch.tree import leaves, rebuild, tree_map
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor       # int32 0-d
+    params: Any
+    opt_state: Any
+    ef_residual: Any | None  # int8-compression error feedback (LM slice)
+    aux: Any | None = None   # backend state (QAT observers); checkpointed
+
+
+def _no_grad_compress():
+    raise NotImplementedError(
+        "grad_compress needs optim/grad_compression.py, which arrives with "
+        "the LM slice of the port")
+
+
+def init_train_state(params, opt: Optimizer, *, grad_compress: bool = False,
+                     aux=None) -> TrainState:
+    if grad_compress:
+        _no_grad_compress()
+    return TrainState(step=torch.zeros((), dtype=torch.int32,
+                                       device=leaves(params)[0].device),
+                      params=params, opt_state=opt.init(params),
+                      ef_residual=None, aux=aux)
+
+
+def make_train_step(loss_fn, opt: Optimizer, *, microbatches: int = 1,
+                    max_grad_norm: float | None = 1.0,
+                    grad_compress: bool = False, aux_loss: bool = False,
+                    fused_step=None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    With ``microbatches=M`` each batch leaf is cut into M equal slices along
+    its first axis and the gradients are accumulated in order, then
+    averaged.  ``max_grad_norm=None`` disables clipping (the norm is still
+    reported).  ``fused_step`` replaces the whole gradient + update pipeline
+    (``loss_fn`` may be None then).
+    """
+    if fused_step is not None:
+        if microbatches != 1:
+            raise ValueError(
+                f"fused_step computes grads+update in-kernel: there is no "
+                f"grad tree to accumulate, so microbatches={microbatches} "
+                f"cannot be honored (use a stepwise backend)")
+        if grad_compress:
+            raise ValueError(
+                "fused_step computes grads+update in-kernel: there is no "
+                "grad tree to compress, so grad_compress cannot be honored "
+                "(use a stepwise backend)")
+
+        def fused_train_step(state: TrainState, batch):
+            new_params, new_opt, new_aux, metrics = fused_step(
+                state.params, state.opt_state, state.aux, batch)
+            return TrainState(step=state.step + 1, params=new_params,
+                              opt_state=new_opt,
+                              ef_residual=state.ef_residual,
+                              aux=new_aux), metrics
+        return fused_train_step
+    if grad_compress:
+        _no_grad_compress()
+
+    def grads_of(params, aux, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        if aux_loss:
+            loss, new_aux = loss_fn(live, aux, batch)
+            new_aux = tree_map(torch.Tensor.detach, new_aux)
+        else:
+            loss, new_aux = loss_fn(live, batch), aux
+        grads = torch.autograd.grad(loss, leaves(live))
+        return loss.detach(), rebuild(params, grads), new_aux
+
+    def train_step(state: TrainState, batch):
+        params = state.params
+        if microbatches == 1:
+            loss, grads, aux = grads_of(params, state.aux, batch)
+        else:
+            def piece(i):
+                def cut(x):
+                    b = x.shape[0]
+                    if b % microbatches:
+                        raise ValueError(f"batch {b} is not divisible into "
+                                         f"{microbatches} microbatches")
+                    m = b // microbatches
+                    return x[i * m:(i + 1) * m]
+                return {k: cut(v) for k, v in batch.items()}
+
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves(params)[0].device)
+            grads, aux = tree_map(torch.zeros_like, params), state.aux
+            for i in range(microbatches):
+                loss_i, g_i, aux = grads_of(params, aux, piece(i))
+                loss = loss + loss_i
+                grads = tree_map(torch.add, grads, g_i)
+            loss = loss / microbatches
+            grads = tree_map(lambda g: g / microbatches, grads)
+
+        with torch.no_grad():
+            if max_grad_norm is None:
+                gnorm = global_norm(grads)
+            else:
+                grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            new_params, new_opt = opt.update(grads, state.opt_state, params)
+        return TrainState(step=state.step + 1, params=new_params,
+                          opt_state=new_opt, ef_residual=state.ef_residual,
+                          aux=aux), {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_chunked_step(train_step, batch_at):
+    """``chunk_step(state, start, n) -> (state, metrics)``: ``n`` steps of
+    ``train_step`` on ``batch_at(start + k)``, ``k = 0..n-1``, with each
+    metric stacked to ``(n,)``.  The same steps on the same batches as the
+    stepwise loop, so the result is the same bits."""
+    def chunk_step(state: TrainState, start: int, n: int):
+        per_step = []
+        for k in range(n):
+            state, metrics = train_step(state, batch_at(start + k))
+            per_step.append(metrics)
+        return state, {key: torch.stack([m[key] for m in per_step])
+                       for key in per_step[0]}
+    return chunk_step

@@ -11,7 +11,13 @@ import pytest
 import torch
 
 from repro_torch.core import mrf_net, qat
+from repro_torch.kernels.fused_train import kernel as train_kernel
+from repro_torch.kernels.fused_train import multistep
+from repro_torch.kernels.fused_train import ops as train_ops
+from repro_torch.kernels.fused_train import ref as train_ref
 from repro_torch.kernels.qat_dense import fused, kernel, ops, ref
+from repro_torch.optim.optimizers import adam
+from repro_torch.tree import leaves
 
 
 @pytest.fixture
@@ -99,3 +105,125 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernel.qat_dense_call(x.float(), w, b, s)
     with pytest.raises(ValueError):
         kernel.qat_dense_call(x, w, b.cpu(), s)
+
+
+# --------------------------------------------------------------------------
+# fused training (csrc/fused_train.cu): B1, B2, B3 against the plain version
+# --------------------------------------------------------------------------
+
+def _train_case(hidden, rows, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = mrf_net.init_params(g, mrf_net.layer_sizes(32, hidden))
+    x = 0.2 * torch.randn((rows, 64), generator=g, device=device)
+    y = torch.rand((rows, 2), generator=g, device=device)
+    return params, x, y
+
+
+def _max_err(a, b) -> float:
+    return max(float((u - v).abs().max()) for u, v in zip(leaves(a),
+                                                          leaves(b)))
+
+
+@pytest.mark.parametrize("hidden", [mrf_net.ADAPTED_HIDDEN,
+                                    mrf_net.ORIGINAL_HIDDEN])
+@pytest.mark.parametrize("tile,rows", [(1, 32), (128, 256)])
+@pytest.mark.parametrize("qat_on", [False, True])
+def test_fused_train_step_matches_plain(cuda, hidden, tile, rows, qat_on):
+    """B1 against the plain version (atol 1e-5).  With QAT the fake-quant
+    is discontinuous: once the two versions' sums (taken in other orders)
+    leave a weight an ulp apart, a later tile may round it to another
+    level, so long QAT sequences are compared bit for bit only within the
+    kernel (64 tiles of mrf-original at tile 1 differed by 1.6e-5)."""
+    params, x, y = _train_case(hidden, rows, cuda)
+    flat, widths = train_ops.pack_params(params)
+    before = train_kernel.fused_train_call.launches
+    got_p, got_l = train_kernel.fused_train_call(
+        x, y, flat, widths=widths, lr=1e-2, tile_batch=tile, qat=qat_on)
+    want_p, _, _, want_l = train_ref.fused_train_plain(
+        x, y, flat, widths, lr=1e-2, tile_batch=tile, qat=qat_on)
+    torch.cuda.synchronize()
+    assert train_kernel.fused_train_call.launches == before + 1
+    assert float((got_l - want_l).abs().max()) <= 1e-5
+    assert float((got_p - want_p).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("hidden", [mrf_net.ADAPTED_HIDDEN,
+                                    mrf_net.ORIGINAL_HIDDEN])
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_multistep_matches_plain_and_k_single_steps(cuda, hidden, optimizer):
+    """B2 / B3 at K=4, batch 256, tile 128 against the plain version, then
+    bit for bit against 4 single-step launches and against itself."""
+    k_steps, per_step, lr = 4, 256, 1e-3
+    params, x, y = _train_case(hidden, k_steps * per_step, cuda, seed=1)
+    state = adam(lr).init(params) if optimizer == "adam" else None
+    counter = (multistep.fused_train_adam_call if optimizer == "adam"
+               else multistep.fused_train_multistep_call)
+    before = counter.launches
+    got = train_ops.fused_train_multistep(params, state, x, y,
+                                          n_steps=k_steps, lr=lr,
+                                          optimizer=optimizer)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    flat, widths = train_ops.pack_params(params)
+    moments = step0 = None
+    if optimizer == "adam":
+        moments = (torch.zeros_like(flat), torch.zeros_like(flat))
+        step0 = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    want_p, want_mu, want_nu, want_l = train_ref.fused_train_plain(
+        x, y, flat, widths, lr=lr, tile_batch=128, moments=moments,
+        step0=step0)
+    got_flat, _ = train_ops.pack_params(got[0])
+    assert float((got_flat - want_p).abs().max()) <= 1e-5
+    assert float((got[2].reshape(-1) - want_l).abs().max()) <= 1e-5
+    if optimizer == "adam":
+        for mom, want in ((got[1].mu, want_mu), (got[1].nu, want_nu)):
+            packed, _ = train_ops.pack_params(mom)
+            assert torch.allclose(packed, want, atol=1e-6, rtol=1e-5)
+        assert int(got[1].step) == k_steps * 2
+    seq_p, seq_s, rows = params, (adam(lr).init(params)
+                                  if optimizer == "adam" else None), []
+    for k in range(k_steps):
+        sl = slice(k * per_step, (k + 1) * per_step)
+        seq_p, seq_s, tl = train_ops.fused_train_multistep(
+            seq_p, seq_s, x[sl], y[sl], n_steps=1, lr=lr, optimizer=optimizer)
+        rows.append(tl[0])
+    again = train_ops.fused_train_multistep(
+        params, adam(lr).init(params) if optimizer == "adam" else None, x, y,
+        n_steps=k_steps, lr=lr, optimizer=optimizer)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], torch.stack(rows))
+    assert _max_err(got[0], seq_p) == 0.0 and _max_err(got[0], again[0]) == 0.0
+    assert _max_err(got[1], seq_s) == 0.0 and _max_err(got[1], again[1]) == 0.0
+    assert torch.equal(got[2], again[2])
+
+
+def test_fused_train_empty_batch_launches_and_counts_nothing(cuda):
+    params, _, _ = _train_case(mrf_net.ADAPTED_HIDDEN, 1, cuda)
+    flat, widths = train_ops.pack_params(params)
+    counters = (train_kernel.fused_train_call, multistep.fused_train_multistep_call,
+                multistep.fused_train_adam_call)
+    before = [c.launches for c in counters]
+    x = torch.zeros((0, 64), device=cuda)
+    y = torch.zeros((0, 2), device=cuda)
+    p, losses = train_kernel.fused_train_call(x, y, flat, widths=widths,
+                                              lr=1e-2, tile_batch=4)
+    assert torch.equal(p, flat) and losses.shape == (0,)
+    step0 = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    out = multistep.fused_train_adam_call(step0, x, y, flat, flat, flat,
+                                          widths=widths, lr=1e-3,
+                                          tile_batch=4)
+    assert torch.equal(out[1], flat) and out[3].shape == (0,)
+    assert [c.launches for c in counters] == before
+
+
+def test_fused_train_refuses_a_net_beyond_shared_memory(cuda):
+    widths = (64, 256, 256, 2)  # 267 KB of weights: over the 227 KB a block has
+    flat = torch.zeros((train_ref.packed_size(widths),), device=cuda)
+    x, y = torch.zeros((4, 64), device=cuda), torch.zeros((4, 2), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        train_kernel.fused_train_call(x, y, flat, widths=widths, lr=1e-2,
+                                      tile_batch=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        train_kernel.fused_train_call(
+            x, torch.zeros((2, 4), device=cuda).t(), flat[:130],
+            widths=(64, 2), lr=1e-2, tile_batch=4)

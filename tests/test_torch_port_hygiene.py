@@ -65,8 +65,20 @@ def test_kernel_sources_exist_and_build_flags_are_exact():
     assert "fast_math" not in flags and "fast-math" not in flags
     for src in named:
         text = src.read_text()
-        assert "Replaces: src/repro/kernels/qat_dense/" in text
+        assert "Replaces: src/repro/kernels/" in text
         assert "roundf(" not in text.replace("rintf(", "")
+    # each source names the TPU kernel files it replaces, and they exist
+    replaces = {
+        "fused_forward.cu": ["src/repro/kernels/qat_dense/fused.py"],
+        "qat_dense.cu": ["src/repro/kernels/qat_dense/kernel.py"],
+        "fused_train.cu": ["src/repro/kernels/fused_train/kernel.py",
+                           "src/repro/kernels/fused_train/multistep.py"],
+    }
+    assert set(replaces) == {p.name for p in named}
+    for name, tpu_files in replaces.items():
+        text = (build.CSRC / name).read_text()
+        for tpu_file in tpu_files:
+            assert tpu_file in text and (ROOT / tpu_file).is_file()
 
 
 def test_int8_impl_resolution_has_no_rig_fallback():

@@ -6,6 +6,7 @@ scales computed op for op); the fake-quantized forward compares under
 rtol 1e-5 / atol 1e-6 (fp32 sum order), its observers under rtol 1e-6.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,7 +62,9 @@ def test_forward_qat_matches_jax(arch, train):
 
 def test_fake_quantize_value_and_straight_through_gradient():
     """Round half to even, clamp to [-128, 127] steps, gradient 1 inside the
-    clamp and 0 outside (the straight-through estimator)."""
+    clamp, 0 outside, and one half where the rounded value meets a bound
+    exactly — the straight-through estimator of ``jnp.clip``, whose
+    gradient splits ties (``torch.clamp`` would pass all of it)."""
     rng = np.random.default_rng(4)
     x = rng.normal(0, 2, (200,)).astype(np.float32)
     scale = np.float32(0.02)
@@ -71,10 +74,13 @@ def test_fake_quantize_value_and_straight_through_gradient():
     got.sum().backward()
     np.testing.assert_array_equal(got.detach().numpy(),
                                   (q * scale).astype(np.float32))
-    inside = np.abs(x / scale) < 127
-    assert inside.any() and (~inside).any()
+    r = np.round(x / scale)
+    inside = (r > -128) & (r < 127)
+    at_bound = (r == -128) | (r == 127)
+    assert inside.any() and at_bound.any() and (~inside & ~at_bound).any()
     np.testing.assert_array_equal(xt.grad.numpy()[inside], 1.0)
-    np.testing.assert_array_equal(xt.grad.numpy()[np.abs(x / scale) > 129], 0.0)
+    np.testing.assert_array_equal(xt.grad.numpy()[at_bound], 0.5)
+    np.testing.assert_array_equal(xt.grad.numpy()[~inside & ~at_bound], 0.0)
     w = rng.normal(size=(6, 4)).astype(np.float32)
     wt = torch.from_numpy(w)
     np.testing.assert_array_equal(
@@ -83,6 +89,34 @@ def test_fake_quantize_value_and_straight_through_gradient():
     np.testing.assert_array_equal(
         pqat.weight_scales(wt, pqat.QuantConfig(per_channel_weights=False)),
         np.float32(np.abs(w).max() / np.float32(127)))
+
+
+@pytest.mark.parametrize("arch", sorted(HIDDEN))
+def test_qat_loss_gradient_matches_jax(arch):
+    """The QAT training gradient against ``jax.grad`` of the same loss.
+    Activations above the observer's absmax round onto the clip bound, where
+    ``jnp.clip`` passes half the gradient; with ``torch.clamp`` the port's
+    gradients differed from the reference by up to 1.6e-2."""
+    params, x = _case(arch, seed=7)
+    y = np.random.default_rng(8).uniform(0, 1, (x.shape[0], 2)).astype(
+        np.float32)
+    qs = np.ones((len(params),), np.float32)
+
+    def jloss(p):
+        pred, _ = jqat.forward_qat(p, {"act_absmax": jnp.asarray(qs)},
+                                   jnp.asarray(x), train=True)
+        return jnp.mean(jnp.square(pred - y))
+
+    want = jax.grad(jloss)(_jparams(params))
+    pp = [{k: v.requires_grad_(True) for k, v in layer.items()}
+          for layer in params_from_numpy(params, "cpu")]
+    pred, _ = pqat.forward_qat(pp, {"act_absmax": torch.from_numpy(qs)},
+                               torch.from_numpy(x), train=True)
+    torch.mean(torch.square(pred - torch.from_numpy(y))).backward()
+    for got, w in zip(pp, want):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(got[k].grad.numpy(), np.asarray(w[k]),
+                                       rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("arch", sorted(HIDDEN))

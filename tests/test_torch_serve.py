@@ -205,8 +205,13 @@ def test_launcher_serves_artifact_on_cpu(artifact, capsys):
     out = capsys.readouterr().out
     assert out.count("oracle: bit-exact (2 requests)") == 2
     assert "pipelined == sync serving: bit-exact" in out
-    with pytest.raises(SystemExit, match="training slice"):
+    # float weights and artifacts now come from training (see
+    # test_torch_train.py); what the launcher still refuses:
+    with pytest.raises(SystemExit, match="deployment unit"):
         plaunch.main(["--arch", arch, "--device", "cpu", "--backend",
-                      "float"])
-    with pytest.raises(SystemExit, match="training slice"):
-        plaunch.main(["--arch", arch, "--device", "cpu"])
+                      "float", "--artifact", str(path)])
+    with pytest.raises(SystemExit, match="requires --backend int8"):
+        plaunch.main(["--arch", arch, "--device", "cpu", "--backend",
+                      "float", "--int8-impl", "fused"])
+    with pytest.raises(SystemExit, match="not an MRF serving backend"):
+        plaunch.main(["--arch", arch, "--device", "cpu", "--backend", "fp8"])
