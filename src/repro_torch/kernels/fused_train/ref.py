@@ -55,11 +55,19 @@ def _div(a: torch.Tensor, v: float) -> torch.Tensor:
     return a / torch.full((), v, dtype=a.dtype, device=a.device)
 
 
+def quant_levels(w: torch.Tensor) -> tuple:
+    """``(levels, s)`` of the per-output-column int8 fake-quant: ``s =
+    max_k |w[k, n]| / 127 + 1e-12`` and ``levels = clamp(rint(w / s), -127,
+    127)``."""
+    s = _div(torch.amax(torch.abs(w), dim=0, keepdim=True), 127.0) + 1e-12
+    return torch.clamp(torch.round(w / s), -127, 127), s
+
+
 def fake_quantize_columns(w: torch.Tensor) -> torch.Tensor:
     """Symmetric per-output-column int8 fake-quant of the live weights
     (``kernel.py:71-76``)."""
-    s = _div(torch.amax(torch.abs(w), dim=0, keepdim=True), 127.0) + 1e-12
-    return torch.clamp(torch.round(w / s), -127, 127) * s
+    levels, s = quant_levels(w)
+    return levels * s
 
 
 def sgd_rule(p, g, *, lr: float) -> None:
@@ -156,6 +164,63 @@ def fused_train_plain(x, y, params, widths, *, lr: float, tile_batch: int,
     losses = torch.stack(losses) if losses else torch.zeros(
         (0,), device=x.device)
     return p, mu, nu, losses
+
+
+def stream_divergence(train, x, y, params, widths, *, lr: float,
+                      qat: bool = False) -> dict:
+    """Holds ``train`` — one SGD update per row (tile 1), ``(x_row, y_row,
+    params) -> (params, losses)``, e.g. the kernel's wrapper — against the
+    plain version over the rows of ``x``/``y``, one call per row, from the
+    packed net ``params``.
+
+    The two take their sums in other orders, so their nets part by rounding.
+    With QAT a weight an ulp to either side of a rounding tie takes another
+    int8 level, a jump of a whole step ``s``, and from there the two runs
+    train different nets.  So the comparison is made two ways:
+
+    * ``local_err``: from each net ``train`` reaches, one plain update; the
+      largest difference to ``train``'s next net and loss, over every row;
+    * ``free_err``: the two runs side by side from the same start; the
+      largest difference of nets and losses before ``first_flip``, the first
+      update whose two input nets differ in an int8 level (``None``: none
+      did; never without QAT, where ``free_err`` covers every row).
+
+    Also ``flipped`` (int8 levels that differ at the end; 0 without QAT),
+    ``end_err`` (the largest difference of the two final nets), and
+    ``train``'s final net and per-row losses (``params``, ``losses``).
+    """
+    def plain(xr, yr, p):
+        new, _, _, loss = fused_train_plain(xr, yr, p, widths, lr=lr,
+                                            tile_batch=1, qat=qat)
+        return new, loss
+
+    def levels(p):
+        return torch.cat([quant_levels(w)[0].reshape(-1)
+                          for w, _ in layer_views(p, widths)])
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    got = want = params
+    local = free = 0.0
+    first_flip, losses = None, []
+    for i in range(x.shape[0]):
+        xr, yr = x[i:i + 1], y[i:i + 1]
+        if qat and first_flip is None and not torch.equal(levels(got),
+                                                          levels(want)):
+            first_flip = i
+        nxt, loss = train(xr, yr, got)
+        one_p, one_l = plain(xr, yr, got)
+        local = max(local, err(nxt, one_p), err(loss, one_l))
+        want, want_l = plain(xr, yr, want)
+        if first_flip is None:
+            free = max(free, err(nxt, want), err(loss, want_l))
+        got = nxt
+        losses.append(loss.reshape(-1))
+    flipped = int((levels(got) != levels(want)).sum()) if qat else 0
+    return {"local_err": local, "free_err": free, "first_flip": first_flip,
+            "flipped": flipped, "end_err": err(got, want), "params": got,
+            "losses": torch.cat(losses) if losses else x.new_zeros((0,))}
 
 
 def _tile_loss(params, x, y, qat: bool):

@@ -120,29 +120,49 @@ def _train_case(hidden, rows, device, seed=0):
 
 
 def _max_err(a, b) -> float:
-    return max(float((u - v).abs().max()) for u, v in zip(leaves(a),
-                                                          leaves(b)))
+    """Largest difference of two trees (0 for two empty ones, e.g. SGD's
+    ``None`` state); fails on trees of other structure."""
+    la, lb = leaves(a), leaves(b)
+    assert len(la) == len(lb)
+    return max((float((u - v).abs().max()) for u, v in zip(la, lb)),
+               default=0.0)
 
 
 @pytest.mark.parametrize("hidden", [mrf_net.ADAPTED_HIDDEN,
                                     mrf_net.ORIGINAL_HIDDEN])
-@pytest.mark.parametrize("tile,rows", [(1, 32), (128, 256)])
+@pytest.mark.parametrize("tile,rows", [(1, 1024), (128, 256)])
 @pytest.mark.parametrize("qat_on", [False, True])
 def test_fused_train_step_matches_plain(cuda, hidden, tile, rows, qat_on):
-    """B1 against the plain version (atol 1e-5).  With QAT the fake-quant
-    is discontinuous: once the two versions' sums (taken in other orders)
-    leave a weight an ulp apart, a later tile may round it to another
-    level, so long QAT sequences are compared bit for bit only within the
-    kernel (64 tiles of mrf-original at tile 1 differed by 1.6e-5)."""
+    """B1 against the plain version (atol 1e-5).  At tile 1 over 1,024 rows
+    (the per-sample stream) the comparison is ``ref.stream_divergence``:
+    with QAT the fake-quant is discontinuous, and once the two versions'
+    sums (taken in other orders) leave a weight an ulp to either side of a
+    rounding tie the two runs train different nets.  So every update is
+    held from the kernel's own net, and the two runs side by side up to the
+    first int8 level flip (without QAT, over the whole stream)."""
     params, x, y = _train_case(hidden, rows, cuda)
     flat, widths = train_ops.pack_params(params)
+
+    def b1(xr, yr, p):
+        return train_kernel.fused_train_call(xr, yr, p, widths=widths,
+                                             lr=1e-2, tile_batch=tile,
+                                             qat=qat_on)
+
     before = train_kernel.fused_train_call.launches
-    got_p, got_l = train_kernel.fused_train_call(
-        x, y, flat, widths=widths, lr=1e-2, tile_batch=tile, qat=qat_on)
-    want_p, _, _, want_l = train_ref.fused_train_plain(
-        x, y, flat, widths, lr=1e-2, tile_batch=tile, qat=qat_on)
+    got_p, got_l = b1(x, y, flat)
     torch.cuda.synchronize()
     assert train_kernel.fused_train_call.launches == before + 1
+    if tile == 1:
+        div = train_ref.stream_divergence(b1, x, y, flat, widths, lr=1e-2,
+                                          qat=qat_on)
+        assert torch.equal(div["params"], got_p)
+        assert torch.equal(div["losses"], got_l)
+        assert div["local_err"] <= 1e-5 and div["free_err"] <= 1e-5
+        if not qat_on:
+            assert div["first_flip"] is None and div["end_err"] <= 1e-5
+        return
+    want_p, _, _, want_l = train_ref.fused_train_plain(
+        x, y, flat, widths, lr=1e-2, tile_batch=tile, qat=qat_on)
     assert float((got_l - want_l).abs().max()) <= 1e-5
     assert float((got_p - want_p).abs().max()) <= 1e-5
 

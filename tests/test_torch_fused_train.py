@@ -172,6 +172,38 @@ def test_ragged_chunks_bitequal_one_launch(optimizer):
     _bitequal(s_full, s)
 
 
+@pytest.mark.parametrize("qat", [False, True])
+def test_stream_divergence_reads_where_two_runs_part(qat):
+    """The per-sample stream check (``ref.stream_divergence``): against
+    itself (the CPU wrapper is the plain version) it reads zero and
+    reproduces one launch over the stream bit for bit; against an update
+    with a 1% larger step it reads the error of one update, and with QAT
+    the update where the int8 levels first differ."""
+    params, x, y = _case(batch=32, seed=8)
+    flat, widths = pops.pack_params(params_from_numpy(params, "cpu"))
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+
+    def b1(lr):
+        return lambda xr, yr, p: pkernel.fused_train_call(
+            xr, yr, p, widths=widths, lr=lr, tile_batch=1, qat=qat)
+
+    same = pref.stream_divergence(b1(1e-2), xt, yt, flat, widths, lr=1e-2,
+                                  qat=qat)
+    assert (same["local_err"], same["free_err"], same["end_err"],
+            same["first_flip"], same["flipped"]) == (0.0, 0.0, 0.0, None, 0)
+    one_p, one_l = b1(1e-2)(xt, yt, flat)
+    assert torch.equal(same["params"], one_p)
+    assert torch.equal(same["losses"], one_l)
+    off = pref.stream_divergence(b1(1.01e-2), xt, yt, flat, widths,
+                                 lr=1e-2, qat=qat)
+    assert 0.0 < off["local_err"] < 1e-2 and off["end_err"] > 0.0
+    if qat:
+        assert off["first_flip"] is not None and off["flipped"] > 0
+    else:
+        assert off["first_flip"] is None and off["flipped"] == 0
+        assert off["free_err"] >= off["end_err"]
+
+
 def test_inputs_are_not_mutated():
     params, x, y = _case(batch=16, seed=6)
     pp = params_from_numpy(params, "cpu")

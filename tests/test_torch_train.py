@@ -35,6 +35,7 @@ from repro_torch.data.pipeline import (MRFSampleStream, batch_at, batch_seed,
                                        make_batch_factory)
 from repro_torch.ft.checkpoint import (CheckpointManager, latest_step,
                                        restore_state, save_state)
+from repro_torch.ft import runner
 from repro_torch.ft.runner import RunnerConfig, run
 from repro_torch.kernels.fused_train.ops import make_engine_step
 from repro_torch.launch import serve as serve_launcher
@@ -223,7 +224,15 @@ def test_crash_and_restart_bitequals_uninterrupted(backend, tmp_path):
     _bitequal(s_plain, s_step)
 
 
-def test_chunks_clip_to_checkpoint_boundaries(tmp_path):
+def test_chunks_clip_to_checkpoint_boundaries(tmp_path, monkeypatch):
+    """The periodic checkpoints land on the period in both modes.  The
+    straggler monitor is held quiet: on a loaded host a slow step makes it
+    snapshot off the period (an eviction checkpoint at step 11)."""
+    class Quiet(runner.StragglerMonitor):
+        def update(self, step_seconds, host=0):
+            return None
+
+    monkeypatch.setattr(runner, "StragglerMonitor", Quiet)
     s1, _, l1, _ = _train("fused", 1, tmp_path / "a", total=12, ckpt_every=5)
     s4, _, l4, _ = _train("fused", 4, tmp_path / "b", total=12,
                           ckpt_every=5)  # chunks 4, 1, 4, 1, 2
