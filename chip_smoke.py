@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the CUDA kernels,
 holds each against its plain PyTorch version, trains and serves MRF nets end
-to end through ``repro_torch.launch.train`` / ``repro_torch.launch.serve``
-and times the kernels.
+to end through ``repro_torch.launch.train`` / ``repro_torch.launch.serve``,
+serves tokens from tinyllama-1.1b at full width through
+``repro_torch.launch.serve`` and times the kernels.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -38,6 +39,17 @@ final result line):
 4c. train, then serve: the serve launcher QAT-trains mrf-fpga (600 steps),
    exports and serves it through B4 bit-exact against the CPU oracle, and
    trains and serves a float net;
+4d. token serving through the launcher at full width: tinyllama-1.1b (all
+   22 layers, random weights from seed 0), 8 requests of 2,048-token
+   prompts, 32 generated tokens, twice: 22 B6 launches per prefill (warm-up
+   included), the same greedy tokens both times; then the kernel inside the
+   model: one request's 256-token prompt (cut from 2,048 to keep the CPU
+   side short) on the card and on a CPU copy of the same params (B6's
+   plain version), each layer one step within ``LM_LAYER_ULPS`` bf16 ulps,
+   the prefill's last-token logits within ``LM_LOGIT_ULPS``, greedy tokens
+   equal wherever the margin exceeds twice that (``model_vs_cpu``); and
+   where a prefill's and a decode step's device time goes, by kernel
+   class, with the device's idle share (``lm_breakdown``);
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
@@ -67,11 +79,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 N_SMS = 132
 REPS = 30
 TRAIN_REPS = 20             # training kernels: ms-long launches
 BUCKETS = (128, 256, 512, 1024)
+LM_ARCH = "tinyllama-1.1b"
+LM_LAYER_ULPS = 4           # card vs CPU, one layer on the same input
+LM_LOGIT_ULPS = 8           # card vs CPU prefill logits after 22 layers
 
 
 def log(msg: str) -> None:
@@ -756,6 +772,345 @@ def timing_phase(net, int_layers, launches: dict, errs: dict,
     return rows
 
 
+def bf16_ulp(x: torch.Tensor) -> float:
+    """The spacing of bf16 numbers at ``max |x|``: one bf16 ulp of the
+    tensor's largest magnitude."""
+    return 2.0 ** (math.floor(math.log2(float(x.float().abs().max()))) - 7)
+
+
+def flash_counter():
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+
+    return flash_attention_call
+
+
+def check_flash_attention(device) -> float:
+    """Phase 3c: B6 against its plain version on the card, on the same
+    padded inputs and blocks (``ops.kernel_layout``): f32 within atol 2e-5,
+    bf16 within one bf16 ulp of the output's largest magnitude; each launch
+    bit-equals its repeat.  Returns the largest error."""
+    from repro_torch.kernels.flash_attn import kernel, ref
+    from repro_torch.kernels.flash_attn.ops import flash_attention, \
+        kernel_layout
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # label, B, S, Hq, Hkv, dh, causal, window, dtype, block
+        ("prefill shape", 2, 2048, 32, 4, 64, True, 0, bf16, 64),
+        ("sliding window 24", 1, 320, 8, 2, 64, True, 24, bf16, 64),
+        ("non-causal", 2, 256, 8, 2, 64, False, 0, bf16, 64),
+        ("ragged 200 (kv_len padding)", 1, 200, 8, 2, 64, True, 0, bf16, 64),
+        ("group 1", 2, 256, 4, 4, 64, True, 0, bf16, 64),
+        ("dh 128", 1, 256, 8, 2, 128, True, 0, bf16, 64),
+        ("f32", 1, 256, 8, 2, 64, True, 0, f32, 64),
+        ("f32 window 8, ragged 50, blocks 16", 1, 50, 6, 2, 16, True, 8, f32,
+         16),
+    ]
+    gen = torch.Generator(device=device).manual_seed(13)
+    counter = kernel.flash_attention_call
+    worst = 0.0
+    for label, b, s, hq, hkv, dh, causal, window, dtype, blk in cases:
+        q, k, v = (torch.randn((b, s, h, dh), generator=gen,
+                               device=device).to(dtype)
+                   for h in (hq, hkv, hkv))
+        qf, kf, vf, kw = kernel_layout(q, k, v, causal=causal, window=window,
+                                       block_q=blk, block_k=blk)
+        before = counter.launches
+        got = counter(qf, kf, vf, **kw)
+        again = counter(qf, kf, vf, **kw)
+        want = ref.flash_attention_plain(qf, kf, vf, **kw)
+        through_ops = flash_attention(q, k, v, causal=causal, window=window,
+                                      block_q=blk, block_k=blk)
+        torch.cuda.synchronize()
+        what = f"B6 {label} (B {b}, S {s}, Hq {hq}, Hkv {hkv}, dh {dh}, " \
+               f"causal {causal}, window {window}, {dtype})"
+        if counter.launches != before + 3:
+            fail(f"{what}: launch counter did not advance per launch")
+        if got.dtype != dtype or not torch.isfinite(got).all():
+            fail(f"{what}: output {got.dtype}, not all finite or wrong type")
+        if not torch.equal(got, again):
+            fail(f"{what}: a launch and its repeat differ")
+        if not torch.equal(through_ops, got.reshape(b, hq, -1, dh)
+                           .transpose(1, 2)[:, :s]):
+            fail(f"{what}: ops.flash_attention differs from the kernel call")
+        err = float((got.double() - want.double()).abs().max())
+        tol = 2e-5 if dtype == f32 else bf16_ulp(want)
+        if err > tol:
+            fail(f"{what}: max abs err vs plain {err} > {tol}")
+        worst = max(worst, err)
+        log(f"{what}: max abs err vs plain {err:.3g} (limit {tol:.3g}), "
+            f"repeat bit-identical")
+    return worst
+
+
+def flash_attention_timing(err: float, device) -> dict:
+    """Phase 5 for B6 at the serving shape (B 8, Hq 32, Hkv 4, dh 64, S
+    2,048, causal, bf16), right after its checks.  The bound: the causal
+    pairs' products, 4*B*Hq*dh*S(S+1)/2 FLOP at the bf16 tensor-core peak,
+    against q, k, v read once and the output written once at 3.35 TB/s.
+    ``library_ms``: ``scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)`` on the same inputs in its (B, H, S, dh) layout, a
+    yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import kernel, ref
+    from repro_torch.kernels.flash_attn.ops import kernel_layout
+
+    b, s, hq, hkv, dh = 8, 2048, 32, 4, 64
+    gen = torch.Generator(device=device).manual_seed(17)
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen,
+                           device=device).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    qf, kf, vf, kw = kernel_layout(q, k, v, causal=True)
+    ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    counter = kernel.flash_attention_call
+    saved = counter.launches
+    call = lambda: counter(qf, kf, vf, **kw)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        ql, kl, vl, is_causal=True, enable_gqa=True)
+    t = {"ms": device_ms(call, "flash_attn_kernel", reps=20, warmup=2,
+                         label="flash_attn"),
+         "wall_ms": event_ms(call, reps=20),
+         "plain_ms": device_ms(lambda: ref.flash_attention_plain(
+             qf, kf, vf, **kw), None, reps=2, warmup=1),
+         "library_ms": device_ms(lib, None, reps=20)}
+    lib_err = float((lib().transpose(1, 2).double() - call().reshape(
+        b, hq, s, dh).transpose(1, 2).double()).abs().max())
+    counter.launches = saved
+    nops = 4 * b * hq * dh * s * (s + 1) // 2
+    nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
+    t_ops = nops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  B6 vs scaled_dot_product_attention at this shape: max abs diff "
+        f"{lib_err:.3g} (not held: another algorithm)")
+    return {"name": "flash_attn", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn/kernel.py:86",
+            "launches": None, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": t["library_ms"], "wall_ms": t["wall_ms"],
+            "shape": f"B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}, causal, "
+                     f"bf16", "bytes": nbytes, "ops": nops}
+
+
+def token_phase(device) -> tuple:
+    """Phase 4d: token serving through the launcher at full width, twice,
+    with B6's count reset just before each run and read just after.
+    Returns (B6's launches over both runs, the reports)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+
+    cfg = get_config(LM_ARCH)
+    argv = ["--arch", LM_ARCH, "--device", "cuda", "--requests", "8",
+            "--prompt-len", "2048", "--gen-len", "32"]
+    counter = flash_counter()
+    reports, total = [], 0
+    for _ in range(2):
+        counter.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launcher.main(argv)
+        launches = counter.launches
+        out = buf.getvalue().splitlines()
+        if rc != 0 or not out or not out[-1].startswith("token_report "):
+            fail(f"token serving {' '.join(argv)}: rc {rc}, no report")
+        log("\n".join(out[:-1]))
+        rep = json.loads(out[-1].split(" ", 1)[1])
+        toks = torch.tensor(rep["tokens"])
+        want = 2 * cfg.n_layers  # warm-up + timed prefill, one launch a layer
+        if launches != want or rep["flash_attn_launches"] != want:
+            fail(f"token serving: {launches} B6 launches (report "
+                 f"{rep['flash_attn_launches']}), expected {want}")
+        if toks.shape != (8, 32) or not (0 <= int(toks.min())
+                                         and int(toks.max()) < cfg.vocab_size):
+            fail(f"token serving: tokens {tuple(toks.shape)} outside the vocab")
+        total += launches
+        reports.append(rep)
+        log("token_report " + json.dumps(
+            {k: v for k, v in rep.items() if k != "tokens"}))
+    if reports[0]["tokens"] != reports[1]["tokens"]:
+        fail("token serving: greedy tokens differ between two runs")
+    log(f"token serving: {total} B6 launches in 2 runs ({cfg.n_layers} a "
+        f"prefill), greedy tokens identical across the runs")
+    return total, reports
+
+
+def lm_model(device) -> tuple:
+    """tinyllama-1.1b's model functions and bf16 params at full width,
+    random weights from seed 0 (as the launcher makes them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, registry
+
+    fns = registry.build(get_config(LM_ARCH))
+    return fns, lm.compute_copy(fns.init(0, device=device))
+
+
+def kernel_class(name: str) -> str:
+    if "flash_attn_kernel" in name:
+        return "B6"
+    if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def lm_breakdown(fns, params, device) -> dict:
+    """Where the device time of token serving goes at the serving shape:
+    one prefill of 8 x 2,048 tokens, then 8 decode steps, each under the
+    profiler after a warm-up and a run in which any host synchronisation
+    raises.  Device time is summed by kernel class (B6,
+    the matrix products, everything else); the idle share is 1 - busy /
+    wall, wall on the host clock between synchronisations (kernels of one
+    stream do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    cfg = fns.cfg
+    counter = flash_counter()
+    saved = counter.launches
+    gen = torch.Generator(device=device).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 2048),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+    prefill, serve = make_prefill_step(fns), make_serve_step(fns)
+    state = {}
+
+    def run_prefill():
+        state["cache"], state["tok"], _ = prefill(params, batch)
+
+    def run_decode():
+        tok, cache = state["tok"], state["cache"]
+        for i in range(8):
+            tok, cache = serve(params, cache, tok, 2048 + i)
+
+    out = {}
+    with torch.no_grad():
+        run_prefill()
+        run_decode()  # warm-up of both
+        torch.cuda.synchronize()
+        # the serving loop must never wait on the device: any op that
+        # synchronises raises in this mode
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_prefill()
+            run_decode()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log("prefill and 8 decode steps: no host synchronisation (sync "
+            "debug mode 'error')")
+        for what, fn in (("prefill 8 x 2048", run_prefill),
+                         ("decode, 8 steps", run_decode)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            by_class, by_name = {}, {}
+            for e in prof.events():
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                ms = e.time_range.elapsed_us() / 1e3
+                by_class[kernel_class(e.name)] = \
+                    by_class.get(kernel_class(e.name), 0.0) + ms
+                by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            busy = sum(by_class.values())
+            if busy <= 0:
+                fail(f"{what}: the profiler recorded no device activity")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            out[what] = {"wall_ms": wall, "busy_ms": busy,
+                         "idle_share": 1 - busy / wall,
+                         "by_class_ms": by_class}
+            log(f"breakdown {what}: wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}); by "
+                f"class {json.dumps({k: round(v, 3) for k, v in by_class.items()})}"
+                f"; top {[(n[:60], round(v, 3)) for n, v in top]}")
+    counter.launches = saved
+    return out
+
+
+def model_vs_cpu(fns, params, device) -> dict:
+    """Phase 4d, the kernel inside the model: one request's 256-token prompt
+    at full width on the card (B6) and on a CPU copy of the same bf16
+    params (B6's plain version).
+
+    * Each layer, one step: the card's block on the CPU chain's input,
+      within ``LM_LAYER_ULPS`` bf16 ulps of the CPU block's output (the
+      largest magnitude's ulp).  cuBLAS and the CPU's GEMMs round some
+      values to the neighbouring bf16 number; a block has ~10 roundings in
+      series before its residual add.
+    * End to end, the prefill entry point: last-token logits within
+      ``LM_LOGIT_ULPS`` bf16 ulps of their largest magnitude.  Those
+      one-step differences accumulate along the residual stream over the
+      22 layers (about 1 ulp a layer, as a random walk).
+    * Greedy tokens of the chained forward equal at every position whose
+      top-2 margin on the CPU exceeds twice the logit limit."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import rms_norm
+    from repro_torch.tree import tree_map
+
+    cfg = fns.cfg
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    gen = torch.Generator(device=device).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                           device=device, dtype=torch.int32)
+    counter = flash_counter()
+
+    def ulps(got, want) -> float:
+        return float((got.float().cpu() - want.float()).abs().max()) \
+            / bf16_ulp(want)
+
+    with torch.no_grad():
+        before = counter.launches
+        _, logits = fns.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        launches = counter.launches - before
+        t0 = time.perf_counter()
+        _, logits_c = fns.prefill(cpu_params, {"tokens": tokens.cpu()})
+        t_cpu = time.perf_counter() - t0
+        # the same blocks one layer at a time (the prefill's own functions)
+        h_c = lm._embed(cpu_params, tokens.cpu())
+        h_g = lm._embed(params, tokens)
+        layer_ulps = []
+        for lp_g, lp_c in zip(params["layers"], cpu_params["layers"]):
+            one, _ = lm._block(cfg, 1, h_c.to(device), lp_g, return_kv=False)
+            h_c, _ = lm._block(cfg, 1, h_c, lp_c, return_kv=False)
+            h_g, _ = lm._block(cfg, 1, h_g, lp_g, return_kv=False)
+            layer_ulps.append(ulps(one, h_c))
+        all_g = lm._logits(params, rms_norm(h_g, params["final_norm"],
+                                            cfg.norm_eps))[0].float().cpu()
+        all_c = lm._logits(cpu_params, rms_norm(
+            h_c, cpu_params["final_norm"], cfg.norm_eps))[0].float()
+    if launches != cfg.n_layers:
+        fail(f"card prefill: {launches} B6 launches, expected {cfg.n_layers}")
+    got, want = logits.float().cpu(), logits_c.float()
+    if not torch.isfinite(got).all():
+        fail("card prefill: logits not finite")
+    err = float((got - want).abs().max())
+    tol = LM_LOGIT_ULPS * bf16_ulp(want)
+    rel_rms = float((got - want).norm() / want.norm())
+    top2 = torch.topk(all_c, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = int((all_g.argmax(-1) == all_c.argmax(-1))[sure].sum())
+    log(f"{LM_ARCH} prefill, 1 x 256 tokens, card vs CPU copy: each layer "
+        f"one step within {max(layer_ulps):g} bf16 ulps (limit "
+        f"{LM_LAYER_ULPS}; per layer {layer_ulps}); last-token logits max "
+        f"abs err {err:.6g} = {err / bf16_ulp(want):g} ulps of max |logit| "
+        f"{float(want.abs().max()):.6g} (limit {LM_LOGIT_ULPS} ulps = "
+        f"{tol:.6g}), relative rms {rel_rms:.4g}; greedy equal at {same} of "
+        f"{int(sure.sum())} positions whose margin exceeds {2 * tol:.6g} "
+        f"(of 256); CPU prefill {t_cpu:.1f} s")
+    if max(layer_ulps) > LM_LAYER_ULPS:
+        fail(f"card vs CPU: a layer's one-step output is "
+             f"{max(layer_ulps)} bf16 ulps off (limit {LM_LAYER_ULPS})")
+    if err > tol or same != int(sure.sum()):
+        fail(f"card vs CPU prefill: logits max abs err {err} (limit {tol}), "
+             f"greedy equal at {same} of {int(sure.sum())} sure positions")
+    return {"logit_err": err, "logit_tol": tol, "layer_ulps": layer_ulps,
+            "cpu_s": t_cpu}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -791,6 +1146,8 @@ def main() -> int:
     nets = {arch: ops.prepad_int_layers(ls) for arch, ls in layers.items()}
     errs = check_kernels(nets, device)
     errs.update(check_training_kernels(device))
+    errs["flash_attn"] = check_flash_attention(device)
+    flash_row = flash_attention_timing(errs["flash_attn"], device)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = serve_phase(pathlib.Path(tmp), device)
@@ -799,6 +1156,11 @@ def main() -> int:
         launches["fused_forward"] += train_then_serve(device)
         log(f"training phases: {time.perf_counter() - t_train:.1f} s")
     launches.update(train_launches)
+    t_lm = time.perf_counter()
+    launches["flash_attn"], token_reports = token_phase(device)
+    fns, lm_params = lm_model(device)
+    model_vs_cpu(fns, lm_params, device)
+    log(f"LM phases: {time.perf_counter() - t_lm:.1f} s")
     for kname, n in launches.items():
         if n <= 0:
             fail(f"kernel {kname} was never launched on the main path")
@@ -806,11 +1168,19 @@ def main() -> int:
     rows = timing_phase(nets["mrf-fpga"], layers["mrf-fpga"], launches, errs,
                         device)
     rows += training_timing(launches, errs, device)
+    flash_row["launches"] = launches["flash_attn"]
+    rows.append(flash_row)
+    # last: its profiler sessions come after every kernel's timing
+    lm_breakdown(fns, lm_params, device)
+    del lm_params
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "
             f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})  [{smi}]")
+        if r["library_ms"] is not None:
+            log(f"  {r['name']}: library call {r['library_ms']:.6f} ms on the "
+                f"device, {r['launches']} launches on the main path")
         if "samples" in r:
             per_sample = r["ms"] / r["samples"]
             log(f"  {r['name']}: {per_sample * 1e3:.4f} us a sample, one-SM "
@@ -819,6 +1189,9 @@ def main() -> int:
                 f"{per_sample * 250e6 / 1e3:.1f} s")
     for rep in reports:
         log(f"train_run {json.dumps(rep)}")
+    for rep in token_reports:
+        log("token_run " + json.dumps(
+            {k: v for k, v in rep.items() if k != "tokens"}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,24 @@
-"""Model configuration schema: the ``ModelConfig`` fields the ``mrf`` family
-uses (counterpart of ``repro.configs.base``).  The LM fields arrive with
-the LM zoo."""
+"""Model configuration schema (counterpart of ``repro.configs.base``): the
+``ModelConfig`` fields that the ``mrf`` and ``dense`` families read.
+
+The other LM families (``moe``, ``ssm``, ``hybrid``, ``encdec``, ``vlm``)
+are not ported yet: ``validate`` refuses them (ROADMAP.md §A).  Sharding is
+not ported either, so the tensor-parallel degree ``tp`` must be 1.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import math
+
+PORTED_FAMILIES = ("mrf", "dense")
+
+
+def _check_tp(tp: int) -> None:
+    if tp != 1:
+        raise NotImplementedError(
+            f"tp={tp}: the port runs on one card until sharding is ported "
+            f"(ROADMAP.md §A)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -12,15 +26,77 @@ class ModelConfig:
     name: str
     family: str
     n_layers: int
+    # --- LM zoo (family == "dense") ---
+    d_model: int = 0
+    n_heads: int = 0          # query heads
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    d_head: int = 0           # 0 -> d_model // n_heads
+    swa_window: int = 0       # 0 = full attention
+    qkv_bias: bool = False
+    gated_mlp: bool = True    # SwiGLU (llama family); False -> squared ReLU
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-5
+    quant: str = "none"       # only "none" until the LM-training slice
+    decode_unroll: bool = False  # per-layer decode caches (else stacked)
     # --- MRF reconstruction nets (family == "mrf") ---
     mrf_n_frames: int = 0     # fingerprint frames; input dim = 2 * frames
     mrf_hidden: tuple = ()    # hidden widths ((T1, T2) head appended)
 
+    @property
+    def head_dim(self) -> int:
+        if self.d_head:
+            return self.d_head
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    def padded_heads(self, tp: int = 1) -> tuple:
+        """(query heads, kv heads); with tp=1 the exact architecture."""
+        _check_tp(tp)
+        return (self.n_heads, self.n_kv_heads)
+
+    def padded_vocab(self, tp: int = 1) -> int:
+        _check_tp(tp)
+        return math.ceil(self.vocab_size / tp) * tp
+
     def validate(self):
-        if self.family != "mrf":
-            raise ValueError(f"{self.name}: family {self.family!r} arrives "
-                             f"with the LM zoo slice of the port")
-        if self.mrf_n_frames <= 0 or not self.mrf_hidden:
-            raise ValueError(f"{self.name}: mrf configs need frames and "
-                             f"hidden widths")
+        if self.family not in PORTED_FAMILIES:
+            raise ValueError(
+                f"{self.name}: family {self.family!r} is not ported yet; "
+                f"the port has {PORTED_FAMILIES} (see ROADMAP.md §A)")
+        if self.family == "mrf":
+            if self.mrf_n_frames <= 0 or not self.mrf_hidden:
+                raise ValueError(f"{self.name}: mrf configs need frames and "
+                                 f"hidden widths")
+            return self
+        if min(self.n_layers, self.d_model, self.n_heads, self.n_kv_heads,
+               self.d_ff, self.vocab_size) <= 0:
+            raise ValueError(f"{self.name}: dense configs need positive "
+                             f"layers, widths, heads and vocab")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"{self.name}: {self.n_heads} query heads do not "
+                             f"group over {self.n_kv_heads} kv heads")
+        if self.head_dim * self.n_heads < self.d_model and not self.d_head:
+            raise ValueError(f"{self.name}: heads do not cover d_model")
+        if self.head_dim % 2:
+            raise ValueError(f"{self.name}: RoPE needs an even head dim")
+        if self.quant != "none":
+            raise NotImplementedError(
+                f"{self.name}: quant={self.quant!r} arrives with the "
+                f"LM-training slice (ROADMAP.md §A)")
         return self
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count (exact for the port's models, tp=1)."""
+    if cfg.family == "mrf":
+        sizes = (2 * cfg.mrf_n_frames, *cfg.mrf_hidden, 2)
+        return sum(i * o + o for i, o in zip(sizes[:-1], sizes[1:]))
+    cfg.validate()
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+    if cfg.qkv_bias:
+        attn += (hq + 2 * hkv) * dh
+    ffn = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    per_layer = 2 * d + attn + ffn
+    return cfg.vocab_size * d * 2 + cfg.n_layers * per_layer + d

@@ -9,6 +9,8 @@ import torch
 
 from repro_torch.core.qat import Int8Layer
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models.attention import AttentionParams
+from repro_torch.models.mlp import MlpParams
 from repro_torch.optim.optimizers import AdamState, SgdState
 from repro_torch.train.step import TrainState
 
@@ -72,3 +74,41 @@ def train_state_from_numpy(step, params, opt_state, *, aux=None,
                       params=params_from_numpy(params, dev),
                       opt_state=opt_state, ef_residual=None,
                       aux=None if aux is None else qstate_from_numpy(aux, dev))
+
+
+def _part(tree, name):
+    """A field of a NamedTuple or a dict entry (numpy trees keep either)."""
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def lm_params_from_numpy(params, device="cuda") -> dict:
+    """The reference's LM params as numpy — ``{"embed", "layers": {"ln1",
+    "attn": (wq, wk, wv, wo, bq, bk, bv), "ln2", "mlp": (w_gate, w_in,
+    w_out)}, "final_norm", "head"}`` with the layer leaves stacked on L —
+    -> the port's params (``models.lm``): fp32, same values, same ``(in,
+    out)`` layout, one dict per layer."""
+    dev = resolve_device(device)
+
+    def t(arr):
+        return None if arr is None else torch.from_numpy(
+            np.array(arr, np.float32)).to(dev)
+
+    layers = params["layers"]
+    attn, mlp = layers["attn"], layers["mlp"]
+    n_layers = np.asarray(layers["ln1"]).shape[0]
+
+    def at(arr, i):
+        return None if arr is None else t(np.asarray(arr)[i])
+
+    return {
+        "embed": t(params["embed"]),
+        "layers": [{
+            "ln1": at(layers["ln1"], i), "ln2": at(layers["ln2"], i),
+            "attn": AttentionParams(*(at(_part(attn, f), i)
+                                      for f in AttentionParams._fields)),
+            "mlp": MlpParams(*(at(_part(mlp, f), i)
+                               for f in MlpParams._fields)),
+        } for i in range(n_layers)],
+        "final_norm": t(params["final_norm"]),
+        "head": t(params["head"]),
+    }

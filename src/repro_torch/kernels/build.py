@@ -29,7 +29,7 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 
 #: kernel name -> source file under ``csrc/``
 SOURCES = {"qat_dense": "qat_dense.cu", "fused_forward": "fused_forward.cu",
-           "fused_train": "fused_train.cu"}
+           "fused_train": "fused_train.cu", "flash_attn": "flash_attn.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

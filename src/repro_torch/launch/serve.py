@@ -1,5 +1,14 @@
-"""Serving launcher of the port: the MRF reconstruction family
-(counterpart of the MRF branch of ``repro.launch.serve``).
+"""Serving launcher of the port (counterpart of ``repro.launch.serve``): the
+dense LM family's token serving and the MRF reconstruction family.
+
+Token serving: ``python -m repro_torch.launch.serve --arch tinyllama-1.1b
+--requests 8 --prompt-len 2048 --gen-len 32`` initialises the model from a
+seed (fp32 masters, served from their bf16 copy), draws random prompts from
+a seeded ``torch.Generator``, runs one warm-up prefill and decode step, then
+a timed batched prefill (attention on the flash-attention kernel B6) and a
+timed lockstep greedy decode loop with no host sync per token.  The last
+line printed is ``token_report {json}``: prefill ms, decode ms per token
+per batch, generated tokens/s, B6's launches and the sampled tokens.
 
 ``python -m repro_torch.launch.serve --arch mrf-fpga --backend int8`` QAT-
 trains a net through the port's engine (600 steps, 60 with ``--smoke``, or
@@ -17,8 +26,8 @@ copy within rtol 1e-5 of the map's scale.  ``--serve-mode pipelined``
 serves the same trace through the double-buffered executor and also
 asserts that its maps are bit-identical to sync serving.
 
-The last line printed is ``serve_report {json}``: throughput, latency
-percentiles and the tiles served.
+For the MRF family the last line printed is ``serve_report {json}``:
+throughput, latency percentiles and the tiles served.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -35,7 +45,7 @@ from repro_torch.core import mrf_net, qat
 from repro_torch.data.epg import default_sequence
 from repro_torch.data.phantom import acquire_slice, make_phantom, tissue_errors
 from repro_torch.data.pipeline import denormalize_targets
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import disable_tf32, resolve_device
 from repro_torch.serve.recon import (ReconEngine, ReconRequest,
                                      latency_percentiles)
 
@@ -75,6 +85,74 @@ def _int8_artifact(args, cfg, device) -> tuple:
                   qat.load_int8_artifact(path, device="cpu"))
         print(f"int8 artifact round-tripped via {path.name}")
     return loaded
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_tokens(args, cfg) -> int:
+    """Batched prefill + lockstep greedy decode for the dense LM family."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+    from repro_torch.models import registry
+    from repro_torch.models.lm import compute_copy
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    if min(args.requests, args.prompt_len, args.gen_len) < 1:
+        raise SystemExit("--requests, --prompt-len and --gen-len must be >= 1")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        disable_tf32()
+    launches0 = flash_attention_call.launches
+    fns = registry.build(cfg)
+    params = compute_copy(fns.init(0, device=device))
+    prefill = make_prefill_step(fns)
+    serve = make_serve_step(fns)
+
+    b, s = args.requests, args.prompt_len
+    gen = torch.Generator(device=device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device=device, dtype=torch.int32)}
+    with torch.no_grad():
+        # warm-up: first launches (and kernel builds) outside the timed part
+        w_cache, w_tok, _ = prefill(params, batch)
+        w_tok, w_cache = serve(params, w_cache, w_tok, s)
+        _sync(device)
+        del w_cache, w_tok
+
+        t0 = time.perf_counter()
+        cache, tok, _ = prefill(params, batch)
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+
+        # tokens stay on the device: no host sync per token
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(args.gen_len - 1):
+            tok, cache = serve(params, cache, tok, s + i)
+            toks.append(tok)
+        _sync(device)
+        t_decode = time.perf_counter() - t0
+
+    tokens = torch.stack(toks, dim=1).cpu()
+    n_dec = max(args.gen_len - 1, 1)
+    print(f"arch={cfg.name} requests={b} prompt={s} gen={args.gen_len} "
+          f"device={device}")
+    print(f"prefill: {t_prefill * 1e3:.1f} ms  decode: "
+          f"{t_decode / n_dec * 1e3:.2f} ms/token/batch")
+    print("sample token ids:", tokens[0][:12].tolist())
+    report = {"arch": cfg.name, "device": str(device), "requests": b,
+              "prompt": s, "gen": args.gen_len,
+              "prefill_ms": t_prefill * 1e3,
+              "decode_ms_per_token": t_decode / n_dec * 1e3,
+              "generated_tokens_per_s": b * args.gen_len
+              / (t_prefill + t_decode),
+              "flash_attn_launches": flash_attention_call.launches - launches0,
+              "sample_ids": tokens[0][:12].tolist(),
+              "tokens": tokens.tolist()}
+    print("token_report " + json.dumps(report))
+    return 0
 
 
 def serve_mrf(args, cfg) -> int:
@@ -215,7 +293,9 @@ def serve_mrf(args, cfg) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True,
-                    help="mrf-fpga | mrf-original")
+                    help="a dense LM (tinyllama-1.1b, granite-8b, "
+                         "qwen2.5-14b, minitron-8b) or mrf-fpga | "
+                         "mrf-original")
     ap.add_argument("--backend", default="int8",
                     help="int8 (full-integer CUDA kernels, the default) or "
                          "float (a float net through the executor)")
@@ -243,15 +323,22 @@ def main(argv=None) -> int:
                     help="steps of the in-process training (default 60 "
                          "with --smoke, else 600)")
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced same-family config (16 frames)")
+                    help="reduced same-family config (16 frames; LM: 2 "
+                         "layers, d_model 64)")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="LM: prompt tokens a request")
+    ap.add_argument("--gen-len", type=int, default=16,
+                    help="LM: tokens generated a request")
     ap.add_argument("--phantom-n", type=int, default=32,
                     help="phantom slice side length")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    return serve_mrf(args, cfg)
+    if cfg.family == "mrf":
+        return serve_mrf(args, cfg)
+    return serve_tokens(args, cfg)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,9 @@ stepwise.  ``--smoke`` takes the reduced config (16 frames).
 
 The last line printed is ``train_report {json}``: the first and last step
 losses, samples/s and the Table 1 errors of the trained net on 1,000
-held-out signals.  LM archs arrive with the LM slice (their names raise
-``KeyError``); so does ``--grad-compress``.
+held-out signals.  LM archs are refused: LM training arrives with a later
+slice (the port serves the dense family, ``launch/serve.py``); so does
+``--grad-compress``.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def train_mrf(args, cfg) -> int:
     optimizer = args.optimizer or ("sgd" if backend == "fused" else "adam")
     if args.grad_compress:
         raise SystemExit("--grad-compress needs optim/grad_compression.py, "
-                         "which arrives with the LM slice of the port")
+                         "which arrives with a later LM slice of the port")
     device = resolve_device(args.device)
     ckpt_dir = args.ckpt_dir or str(pathlib.Path(tempfile.gettempdir())
                                     / "repro_torch_ckpt"
@@ -96,7 +97,8 @@ def train_mrf(args, cfg) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", required=True, help="mrf-fpga | mrf-original")
+    ap.add_argument("--arch", required=True,
+                    help="mrf-fpga | mrf-original (LM archs are refused)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (16 frames)")
     ap.add_argument("--steps", type=int, default=200)
@@ -116,7 +118,7 @@ def main(argv=None) -> int:
                          "(bit-identical to stepwise; 1 = stepwise)")
     ap.add_argument("--grad-compress", action="store_true",
                     help="int8 error-feedback gradient compression (arrives "
-                         "with the LM slice; raises)")
+                         "with a later LM slice; raises)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="default: <tmp>/repro_torch_ckpt/<arch>-<backend> "
                          "(a rerun resumes from it)")
@@ -128,6 +130,10 @@ def main(argv=None) -> int:
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family != "mrf":
+        raise SystemExit(f"{cfg.name}: LM training arrives with a later slice "
+                         f"of the port (ROADMAP.md §A); this slice serves it "
+                         f"(python -m repro_torch.launch.serve)")
     return train_mrf(args, cfg)
 
 

@@ -1,1 +1,1 @@
-"""Model functions of the MRF nets."""
+"""Model functions: the MRF nets and the dense LM family."""

@@ -4,30 +4,17 @@
 ``build_mrf(cfg)`` returns a :class:`ModelFns`: ``init(generator)``, the
 float MSE ``loss``, ``predict``, and the QAT pair ``qat_loss(params,
 qstate, batch)`` / ``init_qat_aux``.  Batches are ``{"x": (B, 2F), "y":
-(B, 2)}`` dicts from ``data.pipeline.batch_at``.  ``ModelFns`` is defined
-here until the LM slice brings ``models/lm.py``; the net is tiny, so it
-has no sharding and no param axes.
+(B, 2)}`` dicts from ``data.pipeline.batch_at``.  ``ModelFns`` lives in
+``models/lm.py``; the net is tiny, so it has no sharding and no param axes.
 """
 
 from __future__ import annotations
-
-import dataclasses
-from typing import Callable
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mrf_net, qat
-
-
-@dataclasses.dataclass(frozen=True)
-class ModelFns:
-    cfg: ModelConfig
-    init: Callable          # generator -> params
-    loss: Callable          # (params, batch) -> scalar
-    predict: Callable       # (params, batch) -> (B, 2)
-    qat_loss: Callable      # (params, qstate, batch) -> (scalar, qstate)
-    init_qat_aux: Callable  # params -> qstate
+from repro_torch.models.lm import ModelFns
 
 
 def mse_loss(params, batch) -> torch.Tensor:

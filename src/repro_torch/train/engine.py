@@ -41,7 +41,7 @@ from repro_torch.ft.checkpoint import latest_step
 from repro_torch.ft.runner import RunnerConfig, run
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.fused_train import ops as fused_ops
-from repro_torch.models.mrf import ModelFns
+from repro_torch.models.lm import ModelFns
 from repro_torch.optim import adam, sgd
 from repro_torch.train.step import (TrainState, init_train_state,
                                     make_chunked_step, make_train_step)
@@ -89,7 +89,7 @@ class EngineConfig:
         elif self.grad_compress:
             raise NotImplementedError(
                 "grad_compress needs optim/grad_compression.py, which "
-                "arrives with the LM slice of the port")
+                "arrives with a later LM slice of the port")
 
 
 def _optimizer(cfg: EngineConfig):

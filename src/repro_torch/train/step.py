@@ -16,7 +16,7 @@ The backend plugs in at one of two levels:
   tree to accumulate or compress.
 
 Int8 gradient compression (``grad_compress``) arrives with
-``optim/grad_compression.py`` in the LM slice; until then it raises.
+``optim/grad_compression.py`` in a later LM slice; until then it raises.
 Steps run eagerly, so ``make_chunked_step`` is a Python loop of ``n``
 steps with the metrics stacked.
 """
@@ -36,14 +36,14 @@ class TrainState(NamedTuple):
     step: torch.Tensor       # int32 0-d
     params: Any
     opt_state: Any
-    ef_residual: Any | None  # int8-compression error feedback (LM slice)
+    ef_residual: Any | None  # int8-compression error feedback (a later LM slice)
     aux: Any | None = None   # backend state (QAT observers); checkpointed
 
 
 def _no_grad_compress():
     raise NotImplementedError(
         "grad_compress needs optim/grad_compression.py, which arrives with "
-        "the LM slice of the port")
+        "a later LM slice of the port")
 
 
 def init_train_state(params, opt: Optimizer, *, grad_compress: bool = False,

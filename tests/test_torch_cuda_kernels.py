@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from repro_torch.core import mrf_net, qat
+from repro_torch.kernels.flash_attn import kernel as flash_kernel
+from repro_torch.kernels.flash_attn import ref as flash_ref
+from repro_torch.kernels.flash_attn.ops import flash_attention, kernel_layout
 from repro_torch.kernels.fused_train import kernel as train_kernel
 from repro_torch.kernels.fused_train import multistep
 from repro_torch.kernels.fused_train import ops as train_ops
@@ -247,3 +250,58 @@ def test_fused_train_refuses_a_net_beyond_shared_memory(cuda):
         train_kernel.fused_train_call(
             x, torch.zeros((2, 4), device=cuda).t(), flat[:130],
             widths=(64, 2), lr=1e-2, tile_batch=4)
+
+
+def _bf16_ulp(x) -> float:
+    return 2.0 ** (torch.floor(torch.log2(x.float().abs().max())).item() - 7)
+
+
+# f32 within atol 2e-5; bf16 within one bf16 ulp of the output's largest
+# magnitude (the kernel and its plain version sum in other orders, and a
+# probability may round to the neighbouring bf16 number)
+@pytest.mark.parametrize("case", [
+    # B, S, Hq, Hkv, dh, causal, window, block
+    (2, 512, 32, 4, 64, True, 0, 64),
+    (1, 320, 8, 2, 64, True, 24, 64),
+    (2, 256, 8, 2, 64, False, 0, 64),
+    (1, 200, 8, 2, 64, True, 0, 64),
+    (2, 256, 4, 4, 64, True, 0, 64),
+    (1, 256, 8, 2, 128, True, 0, 64),
+    (1, 50, 6, 2, 16, True, 8, 16),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    b, s, hq, hkv, dh, causal, window, blk = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((b, s, h, dh), generator=g, device=cuda).to(dtype)
+               for h in (hq, hkv, hkv))
+    qf, kf, vf, kw = kernel_layout(q, k, v, causal=causal, window=window,
+                                   block_q=blk, block_k=blk)
+    before = flash_kernel.flash_attention_call.launches
+    got = flash_kernel.flash_attention_call(qf, kf, vf, **kw)
+    again = flash_kernel.flash_attention_call(qf, kf, vf, **kw)
+    want = flash_ref.flash_attention_plain(qf, kf, vf, **kw)
+    out = flash_attention(q, k, v, causal=causal, window=window, block_q=blk,
+                          block_k=blk)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_call.launches == before + 3
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert torch.equal(out, got.reshape(b, hq, -1, dh).transpose(1, 2)[:, :s])
+    tol = 2e-5 if dtype == torch.float32 else _bf16_ulp(want)
+    assert (got.double() - want.double()).abs().max().item() <= tol
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((4, 128, 64), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((2, 128, 64), device=cuda, dtype=torch.bfloat16)
+    call = flash_kernel.flash_attention_call
+    with pytest.raises(ValueError, match="block_q"):
+        call(q, k, k, group=2, block_q=128, block_k=64)
+    with pytest.raises(ValueError, match="dtype"):
+        call(q.half(), k.half(), k.half(), group=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(q.transpose(0, 1), k, k, group=2)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.zeros((4, 64, 256), device=cuda)
+        call(wide, wide[:2], wide[:2], group=2)

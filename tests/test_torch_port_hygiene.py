@@ -18,13 +18,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke
+from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core import qat
 from repro_torch.data.epg import default_sequence, simulate_fingerprints
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (INT8_IMPL_CHOICES, resolve_device,
                                         resolve_int8_impl)
+from repro_torch.kernels.flash_attn.kernel import flash_attention_call
 from repro_torch.kernels.qat_dense.kernel import qat_dense_call
 from repro_torch.launch import serve as launcher
+from repro_torch.models import registry
 from repro_torch.serve.executor import WaveExecutor
 from repro_torch.serve.recon import ReconEngine
 
@@ -73,6 +77,7 @@ def test_kernel_sources_exist_and_build_flags_are_exact():
         "qat_dense.cu": ["src/repro/kernels/qat_dense/kernel.py"],
         "fused_train.cu": ["src/repro/kernels/fused_train/kernel.py",
                            "src/repro/kernels/fused_train/multistep.py"],
+        "flash_attn.cu": ["src/repro/kernels/flash_attn/kernel.py"],
     }
     assert set(replaces) == {p.name for p in named}
     for name, tpu_files in replaces.items():
@@ -102,6 +107,7 @@ def test_cuda_without_a_card_raises(tmp_path):
         pytest.skip("a CUDA device is present: nothing to refuse")
     params, ints = _net()
     path = qat.save_int8_artifact(tmp_path / "net", ints)
+    lm_fns = registry.build(get_smoke("tinyllama-1.1b"))
     calls = [
         lambda: resolve_device("cuda"),
         lambda: qat.init_qat_state(3),
@@ -110,6 +116,10 @@ def test_cuda_without_a_card_raises(tmp_path):
         lambda: WaveExecutor(backend="int8", int_layers=ints),
         lambda: ReconEngine(backend="float", params=params),
         lambda: launcher.main(["--arch", "mrf-fpga", "--artifact", str(path)]),
+        lambda: lm_fns.init(0),
+        lambda: lm_fns.init_cache(1, 8),
+        lambda: lm_params_from_numpy({}),
+        lambda: launcher.main(["--arch", "tinyllama-1.1b", "--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -125,6 +135,9 @@ def test_kernel_wrappers_refuse_devices_they_cannot_serve():
                        torch.empty((8, 4), dtype=torch.int8, **meta),
                        torch.empty((4,), dtype=torch.int32, **meta),
                        torch.empty((4,), **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_call(*(torch.empty((2, 8, 4), **meta)
+                               for _ in range(3)))
 
 
 def _allowlisted_names():
