@@ -88,6 +88,12 @@ BUCKETS = (128, 256, 512, 1024)
 LM_ARCH = "tinyllama-1.1b"
 LM_LAYER_ULPS = 4           # card vs CPU, one layer on the same input
 LM_LOGIT_ULPS = 8           # card vs CPU prefill logits after 22 layers
+# B6 in bf16 against its plain version, element by element (``ref.bf16_ulps``):
+# every element within one bf16 ulp of its own magnitude, and at most this
+# share of the elements not bit-equal (a CPU emulation of the kernel's
+# order reads ~5e-6; a planted fault 1.4e-2 or more: test_torch_flash_attn)
+B6_MAX_ULPS = 1
+B6_DIFFER_SHARE = 1e-3
 
 
 def log(msg: str) -> None:
@@ -778,24 +784,33 @@ def bf16_ulp(x: torch.Tensor) -> float:
     return 2.0 ** (math.floor(math.log2(float(x.float().abs().max()))) - 7)
 
 
-def flash_counter():
-    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+def hold_bf16(what: str, got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """B6's bf16 output against its plain version's, element by element:
+    fails beyond ``B6_MAX_ULPS`` or ``B6_DIFFER_SHARE``.  Returns (max ulps,
+    share of elements not bit-equal)."""
+    from repro_torch.kernels.flash_attn.ref import bf16_ulps
 
-    return flash_attention_call
+    ulps = float(bf16_ulps(got, want).max())
+    share = float((got != want).float().mean())
+    if ulps > B6_MAX_ULPS or share > B6_DIFFER_SHARE:
+        fail(f"{what}: {ulps:g} bf16 ulps off at worst (limit {B6_MAX_ULPS}),"
+             f" {share:.3g} of the elements differ (limit {B6_DIFFER_SHARE})")
+    return ulps, share
 
 
 def check_flash_attention(device) -> float:
     """Phase 3c: B6 against its plain version on the card, on the same
-    padded inputs and blocks (``ops.kernel_layout``): f32 within atol 2e-5,
-    bf16 within one bf16 ulp of the output's largest magnitude; each launch
-    bit-equals its repeat.  Returns the largest error."""
+    padded inputs and blocks (``ops.kernel_layout``), the first case at the
+    serving path's shape (the launcher's batch of 8): f32 within atol 2e-5,
+    bf16 element by element (``hold_bf16``); each launch bit-equals its
+    repeat.  Returns the largest absolute error."""
     from repro_torch.kernels.flash_attn import kernel, ref
     from repro_torch.kernels.flash_attn.ops import flash_attention, \
         kernel_layout
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # label, B, S, Hq, Hkv, dh, causal, window, dtype, block
-        ("prefill shape", 2, 2048, 32, 4, 64, True, 0, bf16, 64),
+        ("prefill shape", 8, 2048, 32, 4, 64, True, 0, bf16, 64),
         ("sliding window 24", 1, 320, 8, 2, 64, True, 24, bf16, 64),
         ("non-causal", 2, 256, 8, 2, 64, False, 0, bf16, 64),
         ("ragged 200 (kv_len padding)", 1, 200, 8, 2, 64, True, 0, bf16, 64),
@@ -833,12 +848,17 @@ def check_flash_attention(device) -> float:
                            .transpose(1, 2)[:, :s]):
             fail(f"{what}: ops.flash_attention differs from the kernel call")
         err = float((got.double() - want.double()).abs().max())
-        tol = 2e-5 if dtype == f32 else bf16_ulp(want)
-        if err > tol:
-            fail(f"{what}: max abs err vs plain {err} > {tol}")
+        if dtype == f32:
+            if err > 2e-5:
+                fail(f"{what}: max abs err vs plain {err} > 2e-05")
+            held = "limit 2e-05"
+        else:
+            ulps, share = hold_bf16(what, got, want)
+            held = (f"{ulps:g} bf16 ulps at worst, {share:.3g} of the "
+                    f"elements differ")
         worst = max(worst, err)
-        log(f"{what}: max abs err vs plain {err:.3g} (limit {tol:.3g}), "
-            f"repeat bit-identical")
+        log(f"{what}: max abs err vs plain {err:.3g} ({held}), repeat "
+            f"bit-identical")
     return worst
 
 
@@ -903,7 +923,9 @@ def token_phase(device) -> tuple:
     cfg = get_config(LM_ARCH)
     argv = ["--arch", LM_ARCH, "--device", "cuda", "--requests", "8",
             "--prompt-len", "2048", "--gen-len", "32"]
-    counter = flash_counter()
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+
+    counter = flash_attention_call
     reports, total = [], 0
     for _ in range(2):
         counter.launches = 0
@@ -939,10 +961,11 @@ def lm_model(device) -> tuple:
     """tinyllama-1.1b's model functions and bf16 params at full width,
     random weights from seed 0 (as the launcher makes them)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import lm, registry
+    from repro_torch.models import registry
+    from repro_torch.models.common import COMPUTE
 
     fns = registry.build(get_config(LM_ARCH))
-    return fns, lm.compute_copy(fns.init(0, device=device))
+    return fns, fns.init(0, device=device, dtype=COMPUTE)
 
 
 def kernel_class(name: str) -> str:
@@ -964,10 +987,11 @@ def lm_breakdown(fns, params, device) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
     cfg = fns.cfg
-    counter = flash_counter()
+    counter = flash_attention_call
     saved = counter.launches
     gen = torch.Generator(device=device).manual_seed(3)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 2048),
@@ -1040,12 +1064,21 @@ def model_vs_cpu(fns, params, device) -> dict:
       largest magnitude's ulp).  cuBLAS and the CPU's GEMMs round some
       values to the neighbouring bf16 number; a block has ~10 roundings in
       series before its residual add.
-    * End to end, the prefill entry point: last-token logits within
-      ``LM_LOGIT_ULPS`` bf16 ulps of their largest magnitude.  Those
-      one-step differences accumulate along the residual stream over the
-      22 layers (about 1 ulp a layer, as a random walk).
-    * Greedy tokens of the chained forward equal at every position whose
+    * B6 in each of those steps, on the model's own q, k and v: held
+      element by element against its plain version on the card
+      (``hold_bf16``).  This is the check that holds the kernel; the two
+      above and below hold the model around it.
+    * End to end, the prefill entry point on the card against the CPU
+      chain's last row: last-token logits within ``LM_LOGIT_ULPS`` bf16
+      ulps of their largest magnitude.  The one-step GEMM differences
+      accumulate along the residual stream over the 22 layers (about 1 ulp
+      a layer, as a random walk).
+    * Greedy tokens of the chained forwards equal at every position whose
       top-2 margin on the CPU exceeds twice the logit limit."""
+    from repro_torch.kernels.flash_attn import ref
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+    from repro_torch.kernels.flash_attn.ops import kernel_layout
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm
     from repro_torch.models.common import rms_norm
     from repro_torch.tree import tree_map
@@ -1055,7 +1088,13 @@ def model_vs_cpu(fns, params, device) -> dict:
     gen = torch.Generator(device=device).manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
                            device=device, dtype=torch.int32)
-    counter = flash_counter()
+    counter = flash_attention_call
+    original, seen = attn_mod.flash_attention, []
+
+    def recording(q, k, v, **kw):
+        out = original(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
 
     def ulps(got, want) -> float:
         return float((got.float().cpu() - want.float()).abs().max()) \
@@ -1066,15 +1105,18 @@ def model_vs_cpu(fns, params, device) -> dict:
         _, logits = fns.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         launches = counter.launches - before
+        # the prefill's blocks one layer at a time
         t0 = time.perf_counter()
-        _, logits_c = fns.prefill(cpu_params, {"tokens": tokens.cpu()})
-        t_cpu = time.perf_counter() - t0
-        # the same blocks one layer at a time (the prefill's own functions)
         h_c = lm._embed(cpu_params, tokens.cpu())
         h_g = lm._embed(params, tokens)
         layer_ulps = []
         for lp_g, lp_c in zip(params["layers"], cpu_params["layers"]):
-            one, _ = lm._block(cfg, 1, h_c.to(device), lp_g, return_kv=False)
+            attn_mod.flash_attention = recording
+            try:
+                one, _ = lm._block(cfg, 1, h_c.to(device), lp_g,
+                                   return_kv=False)
+            finally:
+                attn_mod.flash_attention = original
             h_c, _ = lm._block(cfg, 1, h_c, lp_c, return_kv=False)
             h_g, _ = lm._block(cfg, 1, h_g, lp_g, return_kv=False)
             layer_ulps.append(ulps(one, h_c))
@@ -1082,9 +1124,18 @@ def model_vs_cpu(fns, params, device) -> dict:
                                             cfg.norm_eps))[0].float().cpu()
         all_c = lm._logits(cpu_params, rms_norm(
             h_c, cpu_params["final_norm"], cfg.norm_eps))[0].float()
-    if launches != cfg.n_layers:
-        fail(f"card prefill: {launches} B6 launches, expected {cfg.n_layers}")
-    got, want = logits.float().cpu(), logits_c.float()
+        t_cpu = time.perf_counter() - t0
+        attn_held = []
+        for i, (q, k, v, kw, out) in enumerate(seen):
+            qf, kf, vf, lkw = kernel_layout(q, k, v, **kw)
+            want = ref.flash_attention_plain(qf, kf, vf, **lkw).reshape(
+                q.shape[0], q.shape[2], -1, q.shape[3]).transpose(1, 2)
+            attn_held.append(hold_bf16(f"B6 in layer {i}", out,
+                                       want[:, :q.shape[1]]))
+    if launches != cfg.n_layers or len(seen) != cfg.n_layers:
+        fail(f"card prefill: {launches} B6 launches, {len(seen)} attention "
+             f"calls layer by layer, expected {cfg.n_layers}")
+    got, want = logits[0].float().cpu(), all_c[-1]
     if not torch.isfinite(got).all():
         fail("card prefill: logits not finite")
     err = float((got - want).abs().max())
@@ -1093,14 +1144,17 @@ def model_vs_cpu(fns, params, device) -> dict:
     top2 = torch.topk(all_c, 2, dim=-1).values
     sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
     same = int((all_g.argmax(-1) == all_c.argmax(-1))[sure].sum())
-    log(f"{LM_ARCH} prefill, 1 x 256 tokens, card vs CPU copy: each layer "
-        f"one step within {max(layer_ulps):g} bf16 ulps (limit "
+    log(f"{LM_ARCH} prefill, 1 x 256 tokens, card vs CPU copy: B6 on each "
+        f"layer's own q, k, v within {max(u for u, _ in attn_held):g} bf16 "
+        f"ulps of its plain version, at most "
+        f"{max(s for _, s in attn_held):.3g} of the elements differing; "
+        f"each layer one step within {max(layer_ulps):g} bf16 ulps (limit "
         f"{LM_LAYER_ULPS}; per layer {layer_ulps}); last-token logits max "
         f"abs err {err:.6g} = {err / bf16_ulp(want):g} ulps of max |logit| "
         f"{float(want.abs().max()):.6g} (limit {LM_LOGIT_ULPS} ulps = "
         f"{tol:.6g}), relative rms {rel_rms:.4g}; greedy equal at {same} of "
         f"{int(sure.sum())} positions whose margin exceeds {2 * tol:.6g} "
-        f"(of 256); CPU prefill {t_cpu:.1f} s")
+        f"(of 256); layer-by-layer chains {t_cpu:.1f} s")
     if max(layer_ulps) > LM_LAYER_ULPS:
         fail(f"card vs CPU: a layer's one-step output is "
              f"{max(layer_ulps)} bf16 ulps off (limit {LM_LAYER_ULPS})")
@@ -1108,7 +1162,7 @@ def model_vs_cpu(fns, params, device) -> dict:
         fail(f"card vs CPU prefill: logits max abs err {err} (limit {tol}), "
              f"greedy equal at {same} of {int(sure.sum())} sure positions")
     return {"logit_err": err, "logit_tol": tol, "layer_ulps": layer_ulps,
-            "cpu_s": t_cpu}
+            "attn_held": attn_held}
 
 
 def main() -> int:

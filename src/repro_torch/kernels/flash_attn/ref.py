@@ -12,6 +12,8 @@
   row of a q block is skipped for that q block, as on the TPU.  The CPU
   runs it for the kernel's wrapper; on the card it is what the kernel is
   held against.
+* :func:`bf16_ulps` — the measure that holds a bf16 output against the
+  plain version's, element by element.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import math
 import torch
 
 NEG_INF = -1e30
+# Below this magnitude an element's ulp is taken at this magnitude: f32 sums
+# that cancel to about 0 may differ by more than the ulp of their result.
+BF16_FLOOR = 2.0 ** -10
 
 
 def ref_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -103,3 +108,20 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         acc = torch.where(run, acc_new, acc)
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(bh, sq, dh).to(q.dtype)
+
+
+def bf16_ulps(got, want) -> torch.Tensor:
+    """``|got - want|`` element by element, in bf16 ulps at the larger of the
+    two magnitudes (at least :data:`BF16_FLOOR`), as float64.
+
+    The kernel and its plain version round at the same places and sum in
+    other orders, so an element differs only where its f32 value lies
+    within a few f32 ulps of a bf16 rounding boundary: by one ulp, in a few
+    elements per million.  A fault of the order of operations (p not
+    rounded, a bf16 accumulator) moves most elements, and many by several
+    ulps."""
+    g, w = got.double(), want.double()
+    mag = torch.maximum(torch.maximum(g.abs(), w.abs()),
+                        torch.tensor(BF16_FLOOR, dtype=torch.float64,
+                                     device=g.device))
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)

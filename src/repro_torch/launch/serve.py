@@ -96,7 +96,7 @@ def serve_tokens(args, cfg) -> int:
     """Batched prefill + lockstep greedy decode for the dense LM family."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
     from repro_torch.models import registry
-    from repro_torch.models.lm import compute_copy
+    from repro_torch.models.common import COMPUTE
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
     if min(args.requests, args.prompt_len, args.gen_len) < 1:
@@ -104,9 +104,10 @@ def serve_tokens(args, cfg) -> int:
     device = resolve_device(args.device)
     if device.type == "cuda":
         disable_tf32()
+        torch.cuda.reset_peak_memory_stats(device)
     launches0 = flash_attention_call.launches
     fns = registry.build(cfg)
-    params = compute_copy(fns.init(0, device=device))
+    params = fns.init(0, device=device, dtype=COMPUTE)
     prefill = make_prefill_step(fns)
     serve = make_serve_step(fns)
 
@@ -150,6 +151,8 @@ def serve_tokens(args, cfg) -> int:
               / (t_prefill + t_decode),
               "flash_attn_launches": flash_attention_call.launches - launches0,
               "sample_ids": tokens[0][:12].tolist(),
+              "peak_device_gib": torch.cuda.max_memory_allocated(device)
+              / 2**30 if device.type == "cuda" else None,
               "tokens": tokens.tolist()}
     print("token_report " + json.dumps(report))
     return 0

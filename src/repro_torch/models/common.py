@@ -3,10 +3,10 @@ the dense projection, RoPE and the normal init.
 
 Activations run in bf16 (``COMPUTE`` dtype) from the embedding on; params
 are fp32 masters.  ``dense`` casts a weight to the activation's dtype at
-each call as the reference does; a caller may instead pass the bf16 copy
-that :func:`repro_torch.models.lm.compute_copy` makes once at load, whose
-values are identical (the cast is the same rounding, done once), so the
-cast here is then a no-op.  ``shard`` is the identity on one card and is
+each call as the reference does; a caller may instead pass bf16 params
+(``lm.init_params(..., dtype=COMPUTE)``), whose values are identical (the
+cast is the same rounding, done once at load), so the cast here is then a
+no-op.  ``shard`` is the identity on one card and is
 left out.
 """
 

@@ -67,24 +67,28 @@ def _layer_init(cfg: ModelConfig, generator, tp: int, device) -> dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
-                tp: int = 1) -> dict:
-    """fp32 masters from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (raises for CUDA without a card)."""
+                tp: int = 1, dtype=torch.float32) -> dict:
+    """Params from a ``torch.Generator`` seeded with ``seed`` on ``device``
+    (raises for CUDA without a card): fp32 masters, or with ``dtype`` the
+    masters' values cast to it (``COMPUTE``, bf16, for serving).  The cast
+    is made layer by layer as the params are drawn, so at most one layer's
+    fp32 masters are alive at a time: qwen2.5-14b's bf16 params (30 GB) are
+    made without its 59 GB of masters.  Every use of a param casts it to the
+    bf16 activations first, so serving from the bf16 params gives the same
+    values as serving from the masters."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, vp = cfg.d_model, cfg.padded_vocab(tp)
-    layers = [_layer_init(cfg, gen, tp, dev) for _ in range(cfg.n_layers)]
-    return {"embed": normal_init(gen, (vp, d), device=dev),
+
+    def cast(tree):
+        return tree_map(lambda t: t.to(dtype), tree)
+
+    layers = [cast(_layer_init(cfg, gen, tp, dev))
+              for _ in range(cfg.n_layers)]
+    return {"embed": cast(normal_init(gen, (vp, d), device=dev)),
             "layers": layers,
-            "final_norm": torch.ones((d,), dtype=torch.float32, device=dev),
-            "head": normal_init(gen, (d, vp), device=dev)}
-
-
-def compute_copy(params) -> dict:
-    """The params in the compute dtype (bf16), made once at load.  Every use
-    of a param casts it to the bf16 activations first, so serving from this
-    copy gives the same values as serving from the fp32 masters."""
-    return tree_map(lambda t: t.to(COMPUTE), params)
+            "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+            "head": cast(normal_init(gen, (d, vp), device=dev))}
 
 
 def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool):

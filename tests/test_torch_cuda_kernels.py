@@ -252,13 +252,10 @@ def test_fused_train_refuses_a_net_beyond_shared_memory(cuda):
             widths=(64, 2), lr=1e-2, tile_batch=4)
 
 
-def _bf16_ulp(x) -> float:
-    return 2.0 ** (torch.floor(torch.log2(x.float().abs().max())).item() - 7)
-
-
-# f32 within atol 2e-5; bf16 within one bf16 ulp of the output's largest
-# magnitude (the kernel and its plain version sum in other orders, and a
-# probability may round to the neighbouring bf16 number)
+# f32 within atol 2e-5; bf16 element by element within one bf16 ulp of each
+# element's own magnitude, and at most 1e-3 of the elements not bit-equal
+# (the kernel and its plain version sum in other orders, so an f32 value
+# next to a rounding boundary may round to the neighbouring bf16 number)
 @pytest.mark.parametrize("case", [
     # B, S, Hq, Hkv, dh, causal, window, block
     (2, 512, 32, 4, 64, True, 0, 64),
@@ -288,8 +285,11 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     assert got.dtype == dtype and torch.isfinite(got).all()
     assert torch.equal(got, again)
     assert torch.equal(out, got.reshape(b, hq, -1, dh).transpose(1, 2)[:, :s])
-    tol = 2e-5 if dtype == torch.float32 else _bf16_ulp(want)
-    assert (got.double() - want.double()).abs().max().item() <= tol
+    if dtype == torch.float32:
+        assert (got.double() - want.double()).abs().max().item() <= 2e-5
+    else:
+        assert flash_ref.bf16_ulps(got, want).max().item() <= 1
+        assert (got != want).float().mean().item() <= 1e-3
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):

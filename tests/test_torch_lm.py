@@ -248,6 +248,10 @@ def _models(arch, **replace):
     jcfg = dataclasses.replace(jget_smoke(arch), **replace)
     pcfg = dataclasses.replace(pconfigs.get_smoke(arch), **replace)
     jfns, pfns = jregistry.build(jcfg), pregistry.build(pcfg)
+    # jitted, the reference's prefill and decode give the bits they give
+    # eagerly, and each step after the first skips the compile
+    jfns = dataclasses.replace(jfns, prefill=jax.jit(jfns.prefill),
+                               decode=jax.jit(jfns.decode))
     jparams = jfns.init(jax.random.PRNGKey(0))
     if jcfg.qkv_bias:  # the init's biases are zero: make them count
         a = jparams["layers"]["attn"]
@@ -331,7 +335,7 @@ def test_decode_unroll_caches_match_stacked_and_jax():
 def test_serve_steps_greedy_and_sampled():
     cfg = pconfigs.get_smoke("tinyllama-1.1b")
     fns = pregistry.build(cfg)
-    params = plm.compute_copy(fns.init(0, device="cpu"))
+    params = fns.init(0, device="cpu", dtype=torch.bfloat16)
     tokens = torch.randint(0, cfg.vocab_size, (3, 12),
                            generator=torch.Generator().manual_seed(2),
                            dtype=torch.int32)
@@ -355,11 +359,15 @@ def test_serve_steps_greedy_and_sampled():
 
 
 def test_compute_copy_serves_the_same_values():
+    """bf16 params made layer by layer at init hold the masters' values cast
+    once, and serve the same logits as the masters."""
     cfg = pconfigs.get_smoke("qwen2.5-14b")
     fns = pregistry.build(cfg)
     masters = fns.init(3, device="cpu")
-    copy = plm.compute_copy(masters)
+    copy = fns.init(3, device="cpu", dtype=torch.bfloat16)
     assert all(t.dtype == torch.bfloat16 for t in leaves(copy))
+    assert all(torch.equal(c, m.to(torch.bfloat16))
+               for c, m in zip(leaves(copy), leaves(masters)))
     toks = {"tokens": torch.arange(10, dtype=torch.int32)[None] * 7}
     with torch.no_grad():
         _, a = fns.prefill(masters, toks)
