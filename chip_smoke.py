@@ -13,6 +13,8 @@ final result line):
 1. device facts (name, capability, ``nvidia-smi`` name and power limit);
 2. build the kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, started together;
+2b. ``cuobjdump -sass`` on the bf16 flash-attention library: its kernel
+   must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA) instructions;
 3. the serving kernels (B4, B5) against their plain versions on identical
    tensors on the card, at the serving path's shapes (bit-exact: integer
    arithmetic);
@@ -24,6 +26,10 @@ final result line):
    launch against 4 single-step launches, one launch over the stream
    against one launch per row and a launch against its repeat (bit for
    bit);
+3c. B6 (flash attention) against its plain version: bf16 on the Hopper
+   kernel at its tiles, at the launcher's serving shape, granite-8b's dh
+   128 and small masked cases (``hold_b6_bf16``), f32 on the scalar kernel
+   within atol 2e-5;
 4. the serving path: a calibrated mrf-fpga int8 artifact (random He-uniform
    weights, QAT observer calibration on simulated fingerprints) served
    through the launcher — sync and pipelined via the fused kernel, sync via
@@ -116,6 +122,26 @@ def device_facts() -> tuple:
         f"cuda {torch.version.cuda}")
     log(smi)
     return name, smi
+
+
+def check_b6_sass(build) -> None:
+    """Phase 2b: the bf16 B6 library's machine code, through ``cuobjdump
+    -sass``: its kernel must hold tensor-core products (``HGMMA``, from
+    wgmma) and TMA loads (``UTMALDG``), or it is not the Hopper design."""
+    lib = build.library_path("flash_attn_sm90")
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if "flash_attn_kernel_sm90" in f.splitlines()[0]]
+    if not funcs:
+        fail(f"cuobjdump finds no flash_attn_kernel_sm90 in {lib}")
+    for f in funcs:
+        n = {op: f.count(op) for op in ("HGMMA", "UTMALDG")}
+        if not all(n.values()):
+            fail(f"{f.splitlines()[0][:90]}: {n} (wgmma and TMA expected)")
+    log(f"cuobjdump: {len(funcs)} flash_attn_kernel_sm90 instances, each with "
+        f"HGMMA and UTMALDG (first: "
+        f"{ {op: funcs[0].count(op) for op in ('HGMMA', 'UTMALDG')} })")
 
 
 def calibrated_net(hidden, seed: int, device):
@@ -798,24 +824,78 @@ def hold_bf16(what: str, got: torch.Tensor, want: torch.Tensor) -> tuple:
     return ulps, share
 
 
+def hold_b6_bf16(what: str, got, qf, kf, vf, kw) -> dict:
+    """B6's bf16 kernel output ``got`` (kernel layout) against its plain
+    version, on the card.  The tensor cores sum q k^T in another order than
+    the plain version's f32 product, and a score one f32 ulp off can round
+    its p to the neighbouring bf16 value: at S 2,048 that moves a few
+    small-magnitude outputs by up to ~40 of their own ulps, as it does
+    between the plain version and an f64 emulation of it (``ref.py``).  So:
+
+    * a launch with ``scores=`` must repeat ``got`` bit for bit, and its
+      scores lie within ``ref.scores_bound`` (two f32 orders' rounding
+      bound) of the plain version's own;
+    * ``got`` is held element by element (``hold_bf16``, limits unchanged)
+      against the plain version run on those scores, which repeats every
+      other operation of the kernel's arithmetic.
+
+    The direct comparison is read and logged, not held.  Returns the
+    readings."""
+    from repro_torch.kernels.flash_attn import kernel, ref
+
+    counter = kernel.flash_attention_call
+    saved = counter.launches
+    scores = torch.full((qf.shape[0], qf.shape[1], kf.shape[1]), math.nan,
+                        device=qf.device)
+    again = counter(qf, kf, vf, **kw, scores=scores)
+    counter.launches = saved
+    if not torch.equal(got, again):
+        fail(f"{what}: a launch and its repeat (with scores) differ")
+    ran = ~torch.isnan(scores)
+    worst = 0.0
+    for i in range(0, qf.shape[0], kw["group"]):  # one kv head at a time
+        sl, kl = slice(i, i + kw["group"]), slice(i // kw["group"],
+                                                   i // kw["group"] + 1)
+        gap = (scores[sl] - ref.plain_scores(qf[sl], kf[kl],
+                                             group=kw["group"])).abs()
+        ratio = gap / ref.scores_bound(qf[sl], kf[kl], group=kw["group"])
+        worst = max(worst, float(ratio[ran[sl]].max()))
+    if not worst <= 1:
+        fail(f"{what}: scores {worst:.3g}x the bound of two f32 summation "
+             f"orders away from the plain version's")
+    ulps, share = hold_bf16(what, got, ref.flash_attention_plain(
+        qf, kf, vf, **kw, scores=scores))
+    direct = ref.flash_attention_plain(qf, kf, vf, **kw)
+    return {"ulps": ulps, "share": share, "scores_vs_bound": worst,
+            "direct_ulps": float(ref.bf16_ulps(got, direct).max()),
+            "direct_share": float((got != direct).float().mean())}
+
+
 def check_flash_attention(device) -> float:
     """Phase 3c: B6 against its plain version on the card, on the same
-    padded inputs and blocks (``ops.kernel_layout``), the first case at the
-    serving path's shape (the launcher's batch of 8): f32 within atol 2e-5,
-    bf16 element by element (``hold_bf16``); each launch bit-equals its
-    repeat.  Returns the largest absolute error."""
+    padded inputs and blocks (``ops.kernel_layout``; bf16 at the Hopper
+    kernel's tiles, f32 at the blocks named), the first case at the serving
+    path's shape (the launcher's batch of 8), the last bf16 one at
+    granite-8b's (dh 128, 8 kv heads): f32 within atol 2e-5, bf16 as
+    ``hold_b6_bf16`` says; each launch bit-equals its repeat.  Returns the
+    largest absolute error."""
     from repro_torch.kernels.flash_attn import kernel, ref
     from repro_torch.kernels.flash_attn.ops import flash_attention, \
         kernel_layout
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # label, B, S, Hq, Hkv, dh, causal, window, dtype, block
-        ("prefill shape", 8, 2048, 32, 4, 64, True, 0, bf16, 64),
-        ("sliding window 24", 1, 320, 8, 2, 64, True, 24, bf16, 64),
-        ("non-causal", 2, 256, 8, 2, 64, False, 0, bf16, 64),
-        ("ragged 200 (kv_len padding)", 1, 200, 8, 2, 64, True, 0, bf16, 64),
-        ("group 1", 2, 256, 4, 4, 64, True, 0, bf16, 64),
-        ("dh 128", 1, 256, 8, 2, 128, True, 0, bf16, 64),
+        ("prefill shape", 8, 2048, 32, 4, 64, True, 0, bf16, None),
+        ("sliding window 24", 1, 320, 8, 2, 64, True, 24, bf16, None),
+        ("sliding window 8", 1, 320, 8, 2, 64, True, 8, bf16, None),
+        ("non-causal", 2, 256, 8, 2, 64, False, 0, bf16, None),
+        ("ragged 200 (kv_len padding)", 1, 200, 8, 2, 64, True, 0, bf16,
+         None),
+        ("prompt shorter than a tile", 1, 50, 8, 2, 64, True, 0, bf16, None),
+        ("group 1", 2, 256, 4, 4, 64, True, 0, bf16, None),
+        ("dh 128 window 24", 1, 320, 8, 2, 128, True, 24, bf16, None),
+        ("dh 128, granite-8b prefill shape", 8, 2048, 32, 8, 128, True, 0,
+         bf16, None),
         ("f32", 1, 256, 8, 2, 64, True, 0, f32, 64),
         ("f32 window 8, ragged 50, blocks 16", 1, 50, 6, 2, 16, True, 8, f32,
          16),
@@ -847,35 +927,41 @@ def check_flash_attention(device) -> float:
         if not torch.equal(through_ops, got.reshape(b, hq, -1, dh)
                            .transpose(1, 2)[:, :s]):
             fail(f"{what}: ops.flash_attention differs from the kernel call")
-        err = float((got.double() - want.double()).abs().max())
         if dtype == f32:
+            err = float((got.double() - want.double()).abs().max())
             if err > 2e-5:
                 fail(f"{what}: max abs err vs plain {err} > 2e-05")
             held = "limit 2e-05"
         else:
-            ulps, share = hold_bf16(what, got, want)
-            held = (f"{ulps:g} bf16 ulps at worst, {share:.3g} of the "
-                    f"elements differ")
+            del want
+            r = hold_b6_bf16(what, got, qf, kf, vf, kw)
+            err = float((got.double() - ref.flash_attention_plain(
+                qf, kf, vf, **kw).double()).abs().max())
+            held = (f"scores within {r['scores_vs_bound']:.3g} of the f32 "
+                    f"orders' bound; on them {r['ulps']:g} bf16 ulps at "
+                    f"worst, {r['share']:.3g} of the elements differ; "
+                    f"direct, not held: {r['direct_ulps']:g} ulps, "
+                    f"{r['direct_share']:.3g}")
         worst = max(worst, err)
-        log(f"{what}: max abs err vs plain {err:.3g} ({held}), repeat "
-            f"bit-identical")
+        log(f"{what} blocks ({kw['block_q']}, {kw['block_k']}): max abs err "
+            f"vs plain {err:.3g} ({held}), repeat bit-identical")
     return worst
 
 
-def flash_attention_timing(err: float, device) -> dict:
-    """Phase 5 for B6 at the serving shape (B 8, Hq 32, Hkv 4, dh 64, S
-    2,048, causal, bf16), right after its checks.  The bound: the causal
+def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device) -> dict:
+    """B6 (bf16, causal) at one shape: the profiler's device time, the wall
+    time of one wrapper call (tensor maps encoded on the host included),
+    the plain version's and SDPA's device time, and the bound: the causal
     pairs' products, 4*B*Hq*dh*S(S+1)/2 FLOP at the bf16 tensor-core peak,
     against q, k, v read once and the output written once at 3.35 TB/s.
-    ``library_ms``: ``scaled_dot_product_attention(is_causal=True,
-    enable_gqa=True)`` on the same inputs in its (B, H, S, dh) layout, a
-    yardstick the port never calls."""
+    SDPA: ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    on the same inputs in its (B, H, S, dh) layout, a yardstick the port
+    never calls."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import kernel, ref
     from repro_torch.kernels.flash_attn.ops import kernel_layout
 
-    b, s, hq, hkv, dh = 8, 2048, 32, 4, 64
     gen = torch.Generator(device=device).manual_seed(17)
     q, k, v = (torch.randn((b, s, h, dh), generator=gen,
                            device=device).to(torch.bfloat16)
@@ -888,7 +974,7 @@ def flash_attention_timing(err: float, device) -> dict:
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         ql, kl, vl, is_causal=True, enable_gqa=True)
     t = {"ms": device_ms(call, "flash_attn_kernel", reps=20, warmup=2,
-                         label="flash_attn"),
+                         label=f"flash_attn dh {dh}"),
          "wall_ms": event_ms(call, reps=20),
          "plain_ms": device_ms(lambda: ref.flash_attention_plain(
              qf, kf, vf, **kw), None, reps=2, warmup=1),
@@ -900,17 +986,26 @@ def flash_attention_timing(err: float, device) -> dict:
     nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
     t_ops = nops / BF16_FLOPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"  B6 vs scaled_dot_product_attention at this shape: max abs diff "
+    log(f"  B6 vs scaled_dot_product_attention at dh {dh}: max abs diff "
         f"{lib_err:.3g} (not held: another algorithm)")
-    return {"name": "flash_attn", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attn.cu",
-            "replaces": "src/repro/kernels/flash_attn/kernel.py:86",
-            "launches": None, "max_abs_err": err, "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": t["library_ms"], "wall_ms": t["wall_ms"],
-            "shape": f"B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}, causal, "
-                     f"bf16", "bytes": nbytes, "ops": nops}
+    t.update({"bound_ms": max(t_ops, t_bytes),
+              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+              "shape": f"B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}, causal, "
+                       f"bf16", "bytes": nbytes, "ops": nops})
+    return t
+
+
+def flash_attention_timing(err: float, device) -> dict:
+    """Phase 5 for B6, right after its checks: the serving shape (B 8, Hq
+    32, Hkv 4, dh 64, S 2,048) makes the kernel row; granite-8b's (Hkv 8,
+    dh 128) rides in it as ``dh128``."""
+    row = b6_time(8, 2048, 32, 4, 64, device)
+    row["dh128"] = b6_time(8, 2048, 32, 8, 128, device)
+    row.update({"name": "flash_attn", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attn_sm90.cu",
+                "replaces": "src/repro/kernels/flash_attn/kernel.py:86",
+                "launches": None, "max_abs_err": err})
+    return row
 
 
 def token_phase(device) -> tuple:
@@ -1065,8 +1160,7 @@ def model_vs_cpu(fns, params, device) -> dict:
       values to the neighbouring bf16 number; a block has ~10 roundings in
       series before its residual add.
     * B6 in each of those steps, on the model's own q, k and v: held
-      element by element against its plain version on the card
-      (``hold_bf16``).  This is the check that holds the kernel; the two
+      against its plain version on the card (``hold_b6_bf16``).  This is the check that holds the kernel; the two
       above and below hold the model around it.
     * End to end, the prefill entry point on the card against the CPU
       chain's last row: last-token logits within ``LM_LOGIT_ULPS`` bf16
@@ -1075,7 +1169,6 @@ def model_vs_cpu(fns, params, device) -> dict:
       a layer, as a random walk).
     * Greedy tokens of the chained forwards equal at every position whose
       top-2 margin on the CPU exceeds twice the logit limit."""
-    from repro_torch.kernels.flash_attn import ref
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
     from repro_torch.kernels.flash_attn.ops import kernel_layout
     from repro_torch.models import attention as attn_mod
@@ -1128,10 +1221,15 @@ def model_vs_cpu(fns, params, device) -> dict:
         attn_held = []
         for i, (q, k, v, kw, out) in enumerate(seen):
             qf, kf, vf, lkw = kernel_layout(q, k, v, **kw)
-            want = ref.flash_attention_plain(qf, kf, vf, **lkw).reshape(
-                q.shape[0], q.shape[2], -1, q.shape[3]).transpose(1, 2)
-            attn_held.append(hold_bf16(f"B6 in layer {i}", out,
-                                       want[:, :q.shape[1]]))
+            saved = counter.launches
+            got = counter(qf, kf, vf, **lkw)
+            counter.launches = saved
+            if not torch.equal(out, got.reshape(
+                    q.shape[0], q.shape[2], -1, q.shape[3]).transpose(
+                        1, 2)[:, :q.shape[1]]):
+                fail(f"B6 in layer {i}: the model's call and a repeat differ")
+            attn_held.append(hold_b6_bf16(f"B6 in layer {i}", got, qf, kf,
+                                          vf, lkw))
     if launches != cfg.n_layers or len(seen) != cfg.n_layers:
         fail(f"card prefill: {launches} B6 launches, {len(seen)} attention "
              f"calls layer by layer, expected {cfg.n_layers}")
@@ -1145,9 +1243,14 @@ def model_vs_cpu(fns, params, device) -> dict:
     sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
     same = int((all_g.argmax(-1) == all_c.argmax(-1))[sure].sum())
     log(f"{LM_ARCH} prefill, 1 x 256 tokens, card vs CPU copy: B6 on each "
-        f"layer's own q, k, v within {max(u for u, _ in attn_held):g} bf16 "
-        f"ulps of its plain version, at most "
-        f"{max(s for _, s in attn_held):.3g} of the elements differing; "
+        f"layer's own q, k, v: scores within "
+        f"{max(r['scores_vs_bound'] for r in attn_held):.3g} of the f32 "
+        f"orders' bound, on them within "
+        f"{max(r['ulps'] for r in attn_held):g} bf16 ulps of its plain "
+        f"version, at most {max(r['share'] for r in attn_held):.3g} of the "
+        f"elements differing (direct, not held: "
+        f"{max(r['direct_ulps'] for r in attn_held):g} ulps, "
+        f"{max(r['direct_share'] for r in attn_held):.3g}); "
         f"each layer one step within {max(layer_ulps):g} bf16 ulps (limit "
         f"{LM_LAYER_ULPS}; per layer {layer_ulps}); last-token logits max "
         f"abs err {err:.6g} = {err / bf16_ulp(want):g} ulps of max |logit| "
@@ -1190,8 +1293,11 @@ def main() -> int:
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for kname, text in logs.items():
         for ln in text.splitlines():
-            if "registers" in ln or "smem" in ln or "spill" in ln:
+            if any(w in ln for w in ("registers", "smem", "spill", "C75",
+                                     "arning")):
                 log(f"  ptxas {kname}: {ln.strip()}")
+
+    check_b6_sass(build)
 
     from repro_torch.core import mrf_net
     layers = {arch: calibrated_net(hidden, 1, device)
@@ -1241,6 +1347,13 @@ def main() -> int:
                 f"bound {r['bound_one_sm_ms']:.6f} ms; projection, not a "
                 f"measurement: 250 M samples x {per_sample * 1e3:.4f} us = "
                 f"{per_sample * 250e6 / 1e3:.1f} s")
+        if "dh128" in r:
+            d = r["dh128"]
+            log(f"time {r['name']} ({d['shape']}): {d['ms']:.6f} ms on the "
+                f"device, {d['wall_ms']:.6f} ms per call, plain "
+                f"{d['plain_ms']:.6f} ms, bound {d['bound_ms']:.6f} ms "
+                f"({d['bound_by']}), library call {d['library_ms']:.6f} ms  "
+                f"[{smi}]")
     for rep in reports:
         log(f"train_run {json.dumps(rep)}")
     for rep in token_reports:

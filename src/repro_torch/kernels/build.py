@@ -29,21 +29,24 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 
 #: kernel name -> source file under ``csrc/``
 SOURCES = {"qat_dense": "qat_dense.cu", "fused_forward": "fused_forward.cu",
-           "fused_train": "fused_train.cu", "flash_attn": "flash_attn.cu"}
+           "fused_train": "fused_train.cu", "flash_attn": "flash_attn.cu",
+           "flash_attn_sm90": "flash_attn_sm90.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on
+    PATH, else under /usr/local/cuda/bin."""
+    found = shutil.which(name)
     if found:
         return found
-    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    default = pathlib.Path("/usr/local/cuda/bin") / name
     if default.is_file():
         return str(default)
-    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
-                       "CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found (PATH or /usr/local/cuda/bin): the "
+                       f"CUDA kernels cannot be built or read")
 
 
 def library_path(name: str) -> pathlib.Path:
@@ -73,7 +76,8 @@ def build(names=None) -> dict:
             continue
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib)

@@ -14,6 +14,17 @@
   held against.
 * :func:`bf16_ulps` — the measure that holds a bf16 output against the
   plain version's, element by element.
+* :func:`plain_scores` / :func:`scores_bound` — the plain version's scaled
+  scores and the most two f32 summation orders of them can differ by,
+  which hold the scores a bf16 kernel reports (below).
+
+Holding a kernel that sums ``q k^T`` in another order than the plain
+version's (the Hopper kernel's tensor cores): a score one f32 ulp off can
+round its ``p`` to the neighbouring bf16 value, which moves an output
+element of small magnitude by several of its own ulps.  So the check holds
+the kernel's scores within :func:`scores_bound` of the plain version's,
+and its output element by element against the plain version run on those
+scores (``scores=``), which repeats every other operation.
 """
 
 from __future__ import annotations
@@ -63,10 +74,13 @@ def block_runs(q_lo: int, block_q: int, k_lo: int, block_k: int, *,
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           block_q: int = 64, block_k: int = 64,
-                          group: int = 1, kv_len: int | None = None):
+                          group: int = 1, kv_len: int | None = None,
+                          scores=None):
     """q: (BH, Sq, dh); k/v: (BH // group, Sk, dh), Sq and Sk multiples of
     ``block_q`` / ``block_k``; ``kv_len`` the true kv length (default Sk).
-    Returns (BH, Sq, dh) in q's dtype."""
+    ``scores``: (BH, Sq, Sk) float32 scaled scores to take in place of the
+    plain version's own ``q k^T / sqrt(dh)`` (a kernel's, see above); the
+    masks still apply.  Returns (BH, Sq, dh) in q's dtype."""
     bh, sq, dh = q.shape
     bkv, sk = k.shape[0], k.shape[1]
     if bh != bkv * group or sq % block_q or sk % block_k:
@@ -82,6 +96,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     m = torch.full((bkv, group * sq, 1), NEG_INF, device=dev)
     l = torch.zeros((bkv, group * sq, 1), device=dev)
     acc = torch.zeros((bkv, group * sq, dh), device=dev)
+    if scores is not None:
+        scores = scores.reshape(bkv, group * sq, sk)
     for ik in range(sk // block_k):
         k_lo = ik * block_k
         runs = torch.tensor([block_runs(iq * block_q, block_q, k_lo, block_k,
@@ -90,7 +106,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         run = runs[q_blk][None, :, None]                     # (1, rows, 1)
         kb = k[:, k_lo:k_lo + block_k].float()
         vb = v[:, k_lo:k_lo + block_k]
-        s = torch.matmul(qf, kb.transpose(1, 2)) * scale     # (bkv, rows, Bk)
+        if scores is None:
+            s = torch.matmul(qf, kb.transpose(1, 2)) * scale  # (bkv, rows, Bk)
+        else:
+            s = scores[:, :, k_lo:k_lo + block_k]
         k_pos = k_lo + torch.arange(block_k, device=dev)
         keep = k_pos[None, :] < seq_len
         if causal:
@@ -125,3 +144,27 @@ def bf16_ulps(got, want) -> torch.Tensor:
                         torch.tensor(BF16_FLOOR, dtype=torch.float64,
                                      device=g.device))
     return (g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def plain_scores(q, k, *, group: int = 1):
+    """The plain version's scaled scores ``q k^T / sqrt(dh)`` (f32 products
+    and sums) in the kernel layout: (BH, Sq, Sk) float32."""
+    bh, sq, dh = q.shape
+    bkv, sk = k.shape[0], k.shape[1]
+    qf = q.reshape(bkv, group * sq, dh).float()
+    s = torch.matmul(qf, k.float().transpose(1, 2)) * (1.0 / math.sqrt(dh))
+    return s.reshape(bh, sq, sk)
+
+
+def scores_bound(q, k, *, group: int = 1):
+    """The most two f32 summation orders of ``q k^T / sqrt(dh)`` can differ
+    by, element by element: each order's error is at most ``dh * u`` times
+    the sum of the products' magnitudes (u = 2^-24, the products of bf16
+    inputs exact), and the scaling rounds once more; twice that, for an
+    adder that truncates.  (BH, Sq, Sk) float32."""
+    bh, sq, dh = q.shape
+    bkv, sk = k.shape[0], k.shape[1]
+    qa = q.reshape(bkv, group * sq, dh).float().abs()
+    mag = torch.matmul(qa, k.float().abs().transpose(1, 2)) * (
+        1.0 / math.sqrt(dh))
+    return (mag * (4 * (dh + 1) * 2.0 ** -24)).reshape(bh, sq, sk)

@@ -252,32 +252,38 @@ def test_fused_train_refuses_a_net_beyond_shared_memory(cuda):
             widths=(64, 2), lr=1e-2, tile_batch=4)
 
 
-# f32 within atol 2e-5; bf16 element by element within one bf16 ulp of each
-# element's own magnitude, and at most 1e-3 of the elements not bit-equal
-# (the kernel and its plain version sum in other orders, so an f32 value
-# next to a rounding boundary may round to the neighbouring bf16 number)
+# f32 within atol 2e-5 at the block named; bf16 at the Hopper kernel's own
+# tiles: its scores within ``ref.scores_bound`` of the plain version's (the
+# tensor cores sum q k^T in their own order), and its output element by
+# element within one bf16 ulp of each element's own magnitude, and at most
+# 1e-3 of the elements not bit-equal, against the plain version run on
+# those scores (``chip_smoke.hold_b6_bf16`` says why)
 @pytest.mark.parametrize("case", [
-    # B, S, Hq, Hkv, dh, causal, window, block
+    # B, S, Hq, Hkv, dh, causal, window, f32 block
     (2, 512, 32, 4, 64, True, 0, 64),
     (1, 320, 8, 2, 64, True, 24, 64),
+    (1, 320, 8, 2, 64, True, 8, 64),
     (2, 256, 8, 2, 64, False, 0, 64),
     (1, 200, 8, 2, 64, True, 0, 64),
     (2, 256, 4, 4, 64, True, 0, 64),
     (1, 256, 8, 2, 128, True, 0, 64),
+    (2, 2048, 32, 8, 128, True, 0, 64),
     (1, 50, 6, 2, 16, True, 8, 16),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_matches_plain(cuda, case, dtype):
     b, s, hq, hkv, dh, causal, window, blk = case
+    blk = blk if dtype == torch.float32 else None
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((b, s, h, dh), generator=g, device=cuda).to(dtype)
                for h in (hq, hkv, hkv))
     qf, kf, vf, kw = kernel_layout(q, k, v, causal=causal, window=window,
                                    block_q=blk, block_k=blk)
+    if dtype == torch.bfloat16:
+        assert (kw["block_q"], kw["block_k"]) == flash_kernel.bf16_tiles(dh)
     before = flash_kernel.flash_attention_call.launches
     got = flash_kernel.flash_attention_call(qf, kf, vf, **kw)
     again = flash_kernel.flash_attention_call(qf, kf, vf, **kw)
-    want = flash_ref.flash_attention_plain(qf, kf, vf, **kw)
     out = flash_attention(q, k, v, causal=causal, window=window, block_q=blk,
                           block_k=blk)
     torch.cuda.synchronize()
@@ -286,18 +292,40 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     assert torch.equal(got, again)
     assert torch.equal(out, got.reshape(b, hq, -1, dh).transpose(1, 2)[:, :s])
     if dtype == torch.float32:
+        want = flash_ref.flash_attention_plain(qf, kf, vf, **kw)
         assert (got.double() - want.double()).abs().max().item() <= 2e-5
-    else:
-        assert flash_ref.bf16_ulps(got, want).max().item() <= 1
-        assert (got != want).float().mean().item() <= 1e-3
+        return
+    scores = torch.full((qf.shape[0], qf.shape[1], kf.shape[1]), float("nan"),
+                        device=cuda)
+    assert torch.equal(flash_kernel.flash_attention_call(
+        qf, kf, vf, **kw, scores=scores), got)
+    ran = ~torch.isnan(scores)
+    gap = (scores - flash_ref.plain_scores(qf, kf, group=kw["group"])).abs()
+    bound = flash_ref.scores_bound(qf, kf, group=kw["group"])
+    assert (gap[ran] <= bound[ran]).all()
+    want = flash_ref.flash_attention_plain(qf, kf, vf, **kw, scores=scores)
+    assert flash_ref.bf16_ulps(got, want).max().item() <= 1
+    assert (got != want).float().mean().item() <= 1e-3
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((4, 128, 64), device=cuda, dtype=torch.bfloat16)
     k = torch.zeros((2, 128, 64), device=cuda, dtype=torch.bfloat16)
     call = flash_kernel.flash_attention_call
+    # bf16 runs the Hopper kernel at its own tiles only, never elsewhere
+    for bq, bk in ((64, 64), (128, 64), (64, 128), (128, 32)):
+        with pytest.raises(ValueError, match="block"):
+            call(q, k, k, group=2, block_q=bq, block_k=bk)
+    with pytest.raises(ValueError, match="head dim"):
+        odd = torch.zeros((4, 128, 48), device=cuda, dtype=torch.bfloat16)
+        call(odd, odd[:2], odd[:2], group=2)
+    with pytest.raises(ValueError, match="scores"):
+        call(q, k, k, group=2, scores=torch.zeros((4, 128, 128), device=cuda,
+                                                  dtype=torch.bfloat16))
+    # float32 runs the scalar kernel, tiles of at most 64 rows
     with pytest.raises(ValueError, match="block_q"):
-        call(q, k, k, group=2, block_q=128, block_k=64)
+        call(q.float(), k.float(), k.float(), group=2, block_q=128,
+             block_k=64)
     with pytest.raises(ValueError, match="dtype"):
         call(q.half(), k.half(), k.half(), group=2)
     with pytest.raises(ValueError, match="contiguous"):

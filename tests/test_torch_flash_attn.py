@@ -37,12 +37,16 @@ F32 = dict(rtol=2e-4, atol=2e-5)
 DIFFER_SHARE = 1e-3
 
 
-def _case(b, s, hq, hkv, dh, seed=0, dtype="float32"):
+def _case(b, s, hq, hkv, dh, seed=0, dtype="float32", grid_qk=False):
     """The same (B, S, H, dh) q, k, v for both packages (rounded to bf16
-    once, for both, when ``dtype`` is bf16)."""
+    once, for both, when ``dtype`` is bf16).  ``grid_qk`` puts q and k on
+    multiples of 1/8: then q k^T is exact in f32 in any order of
+    summation."""
     rng = np.random.default_rng(seed)
     arrs = [rng.normal(size=(b, s, h, dh)).astype(np.float32)
             for h in (hq, hkv, hkv)]
+    if grid_qk:
+        arrs[:2] = [np.round(a * 8) / 8 for a in arrs[:2]]
     jx = [jnp.asarray(a).astype(dtype) for a in arrs]
     px = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(
         getattr(torch, dtype)) for a in jx]
@@ -111,6 +115,25 @@ def test_bf16_io():
     _check(jx, px, causal=True, block_q=16, block_k=16)
 
 
+@pytest.mark.parametrize("s,dh,window", [
+    (256, 64, 0), (320, 64, 24), (256, 128, 0), (320, 128, 24),
+    (50, 64, 0),  # a prompt shorter than one tile: padded, masked by kv_len
+])
+def test_bf16_at_the_hopper_kernels_tiles(s, dh, window):
+    """The plain version at the bf16 kernel's tiles (q 128, kv 128 or 64 at
+    dh 128), which ``ops.flash_attention`` takes by default for bf16,
+    against the JAX kernel at the same blocks.  XLA and PyTorch sum q k^T
+    in different orders, and at dh 64 a score one f32 ulp apart rounds its
+    p to the neighbouring bf16 value often enough to move small outputs by
+    several of their ulps (``ref.py``); on q and k of a coarse grid the
+    scores are exact, and the check holds every operation after them."""
+    block_q, block_k = kernel.bf16_tiles(dh)
+    jx, px = _case(1, s, 4, 2, dh, seed=5, dtype="bfloat16", grid_qk=True)
+    got = _check(jx, px, causal=True, window=window, block_q=block_q,
+                 block_k=block_k)
+    assert torch.equal(got, flash_attention(*px, causal=True, window=window))
+
+
 def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     """In the kernel's layout, a CPU tensor runs the plain version and no
     launch is counted; the plain version is deterministic."""
@@ -143,16 +166,21 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
         ref.flash_attention_plain(torch.zeros(4, 10, 8), torch.zeros(2, 16, 8),
                                   torch.zeros(2, 16, 8), group=2,
                                   block_q=8, block_k=8)
+    with pytest.raises(ValueError, match="scores"):  # the card's output only
+        x = torch.zeros((2, 128, 64), dtype=torch.bfloat16)
+        kernel.flash_attention_call(x, x, x, scores=torch.zeros(2, 128, 128))
 
 
 def _kernel_order(q, k, v, *, causal, window, block_q, block_k, group, kv_len,
                   fault=None):
-    """An emulation, on the CPU, of the CUDA kernel's order of operations
-    (``csrc/flash_attn.cu``) in kernel layout: scores summed over dh in
-    order (an FMA of an exact bf16 product is one rounded add), row sums
-    of 4 columns then an xor butterfly over 16 threads, P V summed over the
-    tile's keys in order, then ``acc * corr + o``.  ``fault`` plants one
-    error of the order of operations."""
+    """An emulation, on the CPU, of the bf16 CUDA kernel's order of
+    operations (``csrc/flash_attn_sm90.cu``) in kernel layout, at its
+    tiles: scores summed over dh in order (the tensor core's own order is
+    not emulated), a thread's row sum over its columns 8 j + 2 t + e in 4
+    partial sums (j mod 4) added as a tree, then an xor butterfly over the
+    4 threads of a row, P V summed over the tile's keys in order, then
+    ``acc * corr + o``.  ``fault`` plants one error of the order of
+    operations."""
     bh, sq, dh = q.shape
     bkv, sk = k.shape[:2]
     scale = torch.tensor(1.0 / math.sqrt(dh))
@@ -185,10 +213,14 @@ def _kernel_order(q, k, v, *, causal, window, block_q, block_k, group, kv_len,
         pr = p if fault == "p not rounded" else p.to(v.dtype).float()
         if fault == "l sums the rounded p":
             p = pr
-        part = p.reshape(bkv, -1, 4, 16)
-        t = (part[:, :, 0] + part[:, :, 1] + part[:, :, 2]) + part[:, :, 3]
-        for off in (8, 4, 2, 1):
-            t = t + t[..., torch.arange(16) ^ off]
+        part = p.reshape(bkv, -1, block_k // 8, 4, 2)      # [j, t, e]
+        sums = [torch.zeros(part.shape[:2] + (4,)) for _ in range(4)]
+        for j in range(block_k // 8):
+            sums[j % 4] = sums[j % 4] + (part[:, :, j, :, 0]
+                                         + part[:, :, j, :, 1])
+        t = (sums[0] + sums[1]) + (sums[2] + sums[3])
+        for off in (1, 2):
+            t = t + t[..., torch.arange(4) ^ off]
         o = torch.zeros_like(acc)
         for kk in range(block_k):
             o = o + pr[:, :, kk:kk + 1] * vb[:, None, kk]
@@ -224,3 +256,42 @@ def test_elementwise_check_catches_planted_faults(fault):
           f"largest magnitude: {whole:.3g})")
     held = ulps <= 1 and share <= DIFFER_SHARE
     assert held == (fault is None)
+
+
+def test_plain_version_takes_scores():
+    """``scores=`` replaces only the plain version's product: given its own
+    scores (``ref.plain_scores``) it returns the same bits, and the masks
+    still apply to what it is given."""
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((1, 200, h, 64), generator=gen).to(torch.bfloat16)
+               for h in (8, 2, 2))
+    qf, kf, vf, kw = kernel_layout(q, k, v, causal=True, window=24)
+    scores = ref.plain_scores(qf, kf, group=kw["group"])
+    want = ref.flash_attention_plain(qf, kf, vf, **kw)
+    assert torch.equal(ref.flash_attention_plain(qf, kf, vf, **kw,
+                                                 scores=scores), want)
+    junk = scores.clone()
+    masked = torch.arange(256)[None, :] > torch.arange(256)[:, None]
+    junk[:, masked] = 1e4  # masked pairs: whatever they hold is masked
+    assert torch.equal(ref.flash_attention_plain(qf, kf, vf, **kw,
+                                                 scores=junk), want)
+
+
+def test_scores_bound_holds_orders_and_catches_faults():
+    """``ref.scores_bound`` holds the scores of another summation order
+    (dh in reverse, in f32) with a wide margin, and not a dropped product
+    or a bf16-rounded score."""
+    gen = torch.Generator().manual_seed(8)
+    q, k = (torch.randn((1, 256, h, 64), generator=gen).to(torch.bfloat16)
+            for h in (4, 2))
+    qf, kf, _, kw = kernel_layout(q, k, k, causal=True)
+    g = kw["group"]
+    want = ref.plain_scores(qf, kf, group=g)
+    bound = ref.scores_bound(qf, kf, group=g)
+    rev = ref.plain_scores(qf.flip(-1), kf.flip(-1), group=g)
+    assert float(((rev - want).abs() / bound).max()) < 0.1
+    drop = ref.plain_scores(qf[..., 1:], kf[..., 1:], group=g) * math.sqrt(
+        63 / 64)
+    assert float(((drop - want).abs() / bound).max()) > 1
+    rounded = want.to(torch.bfloat16).float()
+    assert float(((rounded - want).abs() / bound).max()) > 1

@@ -78,6 +78,7 @@ def test_kernel_sources_exist_and_build_flags_are_exact():
         "fused_train.cu": ["src/repro/kernels/fused_train/kernel.py",
                            "src/repro/kernels/fused_train/multistep.py"],
         "flash_attn.cu": ["src/repro/kernels/flash_attn/kernel.py"],
+        "flash_attn_sm90.cu": ["src/repro/kernels/flash_attn/kernel.py"],
     }
     assert set(replaces) == {p.name for p in named}
     for name, tpu_files in replaces.items():
