@@ -18,14 +18,17 @@ final result line):
 3. the serving kernels (B4, B5) against their plain versions on identical
    tensors on the card, at the serving path's shapes (bit-exact: integer
    arithmetic);
-3b. the training kernel (B1 one step, B2 K SGD steps, B3 K Adam steps) against
-   its plain version at mrf-fpga and mrf-original full width (losses and
-   params atol 1e-5, Adam moments atol 1e-6 / rtol 1e-5; B1 also over the
-   per-sample stream's 1,024 rows at tile 1, where with QAT the two runs
-   part at the first int8 level flip, see ``check_sample_stream``), a K=4
-   launch against 4 single-step launches, one launch over the stream
+3b. the training kernel, one thread-block cluster (B1 one step, B2 K SGD
+   steps, B3 K Adam steps), against its plain version at mrf-fpga and
+   mrf-original full width, with and without QAT, at the cluster the
+   wrapper picks and at every cluster size whose plan fits a block (losses
+   and params atol 1e-5, Adam moments atol 1e-6 / rtol 1e-5; B1 also over
+   the per-sample stream's 1,024 rows at tile 1, where with QAT the two
+   runs part at the first int8 level flip, see ``check_sample_stream``), a
+   K=4 launch against 4 single-step launches, one launch over the stream
    against one launch per row and a launch against its repeat (bit for
-   bit);
+   bit), a ragged tile of 127 rows and tiles of 4 rows on 8 blocks; the
+   wrapper's launches at tile 128 ran on more than one block;
 3c. B6 (flash attention) against its plain version: bf16 on the Hopper
    kernel at its tiles, at the launcher's serving shape, granite-8b's dh
    128 and small masked cases (``hold_b6_bf16``), f32 on the scalar kernel
@@ -59,7 +62,7 @@ final result line):
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
-   between CUDA events.
+   between CUDA events; B1-B3 also at each cluster size 1, 2, 4, 8, 16.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -373,97 +376,152 @@ def check_sample_stream(x, y, flat, widths, qat: bool, what: str) -> float:
     return err
 
 
-def check_training_kernels(device) -> dict:
-    """Phase 3b: B1, B2 and B3 against the plain version at full width;
-    K=4 in one launch bit-equals 4 single-step launches, and a launch
-    bit-equals its repeat.  Returns each kernel's max abs error."""
-    from repro_torch.core import mrf_net
+def hold_multistep(what, params, x, y, per_step, optimizer, qat, cluster,
+                   tile_batch=128) -> float:
+    """B2 (SGD) or B3 (Adam) over ``x``/``y`` as K steps of ``per_step``
+    rows in one launch against the plain version (params and losses atol
+    1e-5, Adam's moments atol 1e-6 / rtol 1e-5), then bit for bit against K
+    single-step launches and against its repeat.  Returns the max abs
+    error."""
     from repro_torch.kernels.fused_train import kernel, ops, ref
     from repro_torch.optim import adam
+
+    name = "fused_train_adam" if optimizer == "adam" else \
+        "fused_train_multistep"
+    counter = train_counters()[name]
+    k_steps = x.shape[0] // per_step
+    tile = ops.effective_tile(per_step, tile_batch)
+
+    def fresh():
+        return adam(1e-3).init(params) if optimizer == "adam" else None
+
+    def run(p, s, xs, ys, n):
+        return ops.fused_train_multistep(
+            p, s, xs, ys, n_steps=n, lr=1e-3, optimizer=optimizer,
+            tile_batch=tile_batch, qat=qat, cluster=cluster)
+
+    before = counter.launches
+    got_p, got_s, got_l = run(params, fresh(), x, y, k_steps)
+    flat, widths = ops.pack_params(params)
+    moments = step0 = None
+    if optimizer == "adam":
+        moments = (torch.zeros_like(flat), torch.zeros_like(flat))
+        step0 = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    want_p, want_mu, want_nu, want_l = ref.fused_train_plain(
+        x, y, flat, widths, lr=1e-3, tile_batch=tile, qat=qat,
+        moments=moments, step0=step0)
+    err = max_err((ops.pack_params(got_p)[0], got_l.reshape(-1)),
+                  (want_p, want_l))
+    if err > 1e-5:
+        fail(f"{what}: params/losses max abs err {err} > 1e-5")
+    if optimizer == "adam":
+        for got_m, want_m in ((got_s.mu, want_mu), (got_s.nu, want_nu)):
+            packed = ops.pack_params(got_m)[0]
+            if not torch.allclose(packed, want_m, atol=1e-6, rtol=1e-5):
+                fail(f"{what}: moments beyond atol 1e-6, rtol 1e-5 "
+                     f"(max abs err {max_err(packed, want_m)})")
+            err = max(err, max_err(packed, want_m))
+        if int(got_s.step) != k_steps * (per_step // tile):
+            fail(f"{what}: Adam step {int(got_s.step)}")
+    seq_p, seq_s, rows = params, fresh(), []
+    for k in range(k_steps):
+        sl = slice(per_step * k, per_step * (k + 1))
+        seq_p, seq_s, tl = run(seq_p, seq_s, x[sl], y[sl], 1)
+        rows.append(tl[0])
+    again = run(params, fresh(), x, y, k_steps)
+    torch.cuda.synchronize()
+    if counter.launches != before + 2 + k_steps:
+        fail(f"{what}: launch counter did not advance per launch")
+    want_c = kernel.cluster_size(tile, widths) if cluster is None else cluster
+    if kernel.run_fused_train.last_cluster != want_c:
+        fail(f"{what}: launched cluster {kernel.run_fused_train.last_cluster}"
+             f", expected {want_c}")
+    bitequal((seq_p, seq_s, torch.stack(rows)), (got_p, got_s, got_l),
+             f"{what} vs {k_steps} single steps")
+    bitequal(again, (got_p, got_s, got_l), f"{what}, two identical launches")
+    return err
+
+
+def check_training_kernels(device) -> dict:
+    """Phase 3b: B1, B2 and B3 against the plain version at full width, at
+    the cluster the wrapper picks and at every cluster size whose plan fits
+    a block (1, 2, 4, 8 and the non-portable 16), with and without QAT;
+    K=4 in one launch bit-equals 4 single-step launches, and a launch
+    bit-equals its repeat; a ragged tile of 127 rows and a tile of 4 rows
+    on 8 blocks; the launches at tile 128 ran on more than one block.
+    Returns each kernel's max abs error."""
+    from repro_torch.core import mrf_net
+    from repro_torch.kernels.fused_train import kernel, ops, ref
 
     counters = train_counters()
     errs = {name: 0.0 for name in counters}
     x, y = training_data(device, 4)
+    clusters_held = {}
     for arch, hidden in (("mrf-fpga", mrf_net.ADAPTED_HIDDEN),
                          ("mrf-original", mrf_net.ORIGINAL_HIDDEN)):
         gen = torch.Generator(device=device).manual_seed(3)
         params = mrf_net.init_params(gen, mrf_net.layer_sizes(32, hidden))
         flat, widths = ops.pack_params(params)
+        sizes = kernel.cluster_sizes(128, widths)
+        clusters_held[arch] = sizes
         for qat in (False, True):
-            # B1 at tile 128, two tiles of 128 against the plain version
-            what = f"B1 {arch} tile 128 qat={qat}"
-            before = counters["fused_train"].launches
-            got = kernel.fused_train_call(x[:256], y[:256], flat,
-                                          widths=widths, lr=1e-2,
-                                          tile_batch=128, qat=qat)
             want_p, _, _, want_l = ref.fused_train_plain(
                 x[:256], y[:256], flat, widths, lr=1e-2, tile_batch=128,
                 qat=qat)
-            again = kernel.fused_train_call(x[:256], y[:256], flat,
-                                            widths=widths, lr=1e-2,
-                                            tile_batch=128, qat=qat)
-            torch.cuda.synchronize()
-            if counters["fused_train"].launches != before + 2:
-                fail(f"{what}: launch counter did not advance")
-            err = max_err(got, (want_p, want_l))
-            if err > 1e-5:
-                fail(f"{what}: max abs err {err} vs plain > 1e-5")
-            bitequal(again, got, f"{what}, two identical launches")
-            errs["fused_train"] = max(errs["fused_train"], err)
+            for cluster in (None, *sizes):
+                # B1 at tile 128, two tiles of 128 against the plain version
+                what = f"B1 {arch} tile 128 qat={qat} cluster={cluster}"
+                before = counters["fused_train"].launches
+                got = kernel.fused_train_call(x[:256], y[:256], flat,
+                                              widths=widths, lr=1e-2,
+                                              tile_batch=128, qat=qat,
+                                              cluster=cluster)
+                launched = kernel.run_fused_train.last_cluster
+                again = kernel.fused_train_call(x[:256], y[:256], flat,
+                                                widths=widths, lr=1e-2,
+                                                tile_batch=128, qat=qat,
+                                                cluster=cluster)
+                torch.cuda.synchronize()
+                if counters["fused_train"].launches != before + 2:
+                    fail(f"{what}: launch counter did not advance")
+                if cluster is None and launched <= 1:
+                    fail(f"{what}: the wrapper launched one block")
+                err = max_err(got, (want_p, want_l))
+                if err > 1e-5:
+                    fail(f"{what}: max abs err {err} vs plain > 1e-5")
+                bitequal(again, got, f"{what}, two identical launches")
+                errs["fused_train"] = max(errs["fused_train"], err)
             err = check_sample_stream(x, y, flat, widths, qat,
                                       f"B1 {arch} tile 1 qat={qat}")
             errs["fused_train"] = max(errs["fused_train"], err)
-        # B2 / B3: K=4 steps of 256 at tile 128 in one launch
-        for optimizer, name in (("sgd", "fused_train_multistep"),
-                                ("adam", "fused_train_adam")):
-            what = f"{name} {arch} K=4"
-            fresh = (lambda: adam(1e-3).init(params)) if optimizer == "adam" \
-                else (lambda: None)
-            before = counters[name].launches
-            got_p, got_s, got_l = ops.fused_train_multistep(
-                params, fresh(), x, y, n_steps=4, lr=1e-3,
-                optimizer=optimizer, tile_batch=128)
-            moments = step0 = None
-            if optimizer == "adam":
-                moments = (torch.zeros_like(flat), torch.zeros_like(flat))
-                step0 = torch.zeros((1,), dtype=torch.int32, device=device)
-            want_p, want_mu, want_nu, want_l = ref.fused_train_plain(
-                x, y, flat, widths, lr=1e-3, tile_batch=128, moments=moments,
-                step0=step0)
-            err = max_err((ops.pack_params(got_p)[0], got_l.reshape(-1)),
-                          (want_p, want_l))
-            if err > 1e-5:
-                fail(f"{what}: params/losses max abs err {err} > 1e-5")
-            if optimizer == "adam":
-                for got_m, want_m in ((got_s.mu, want_mu), (got_s.nu, want_nu)):
-                    packed = ops.pack_params(got_m)[0]
-                    if not torch.allclose(packed, want_m, atol=1e-6,
-                                          rtol=1e-5):
-                        fail(f"{what}: moments beyond atol 1e-6, rtol 1e-5 "
-                             f"(max abs err {max_err(packed, want_m)})")
-                    err = max(err, max_err(packed, want_m))
-                if int(got_s.step) != 8:
-                    fail(f"{what}: Adam step {int(got_s.step)}, expected 8")
+            # B2 / B3: K=4 steps of 256 at tile 128 in one launch
+            for cluster in (None, *sizes):
+                for optimizer, name in (("sgd", "fused_train_multistep"),
+                                        ("adam", "fused_train_adam")):
+                    what = (f"{name} {arch} K=4 qat={qat} cluster={cluster}")
+                    err = hold_multistep(what, params, x, y, 256, optimizer,
+                                         qat, cluster)
+                    if cluster is None and \
+                            kernel.run_fused_train.last_cluster <= 1:
+                        fail(f"{what}: the wrapper launched one block")
+                    errs[name] = max(errs[name], err)
+    # a ragged tile (254 rows a step: tile 127, the last block 15 rows) and
+    # tiles of 4 rows on 8 blocks (4 take none), mrf-fpga
+    gen = torch.Generator(device=device).manual_seed(3)
+    params = mrf_net.init_params(gen, mrf_net.layer_sizes(32))
+    for optimizer, name in (("sgd", "fused_train_multistep"),
+                            ("adam", "fused_train_adam")):
+        for what, per_step, tile_batch, cluster in (
+                ("ragged tile 127", 254, 128, None),
+                ("tile 4 on 8 blocks", 8, 4, 8)):
+            rows = 3 * per_step
+            err = hold_multistep(f"{name} mrf-fpga K=3 {what}", params,
+                                 x[:rows], y[:rows], per_step, optimizer,
+                                 False, cluster, tile_batch=tile_batch)
             errs[name] = max(errs[name], err)
-            seq_p, seq_s, rows = params, fresh(), []
-            for k in range(4):
-                sl = slice(256 * k, 256 * (k + 1))
-                seq_p, seq_s, tl = ops.fused_train_multistep(
-                    seq_p, seq_s, x[sl], y[sl], n_steps=1, lr=1e-3,
-                    optimizer=optimizer, tile_batch=128)
-                rows.append(tl[0])
-            again = ops.fused_train_multistep(
-                params, fresh(), x, y, n_steps=4, lr=1e-3,
-                optimizer=optimizer, tile_batch=128)
-            torch.cuda.synchronize()
-            if counters[name].launches != before + 6:
-                fail(f"{what}: launch counter did not advance per launch")
-            bitequal((seq_p, seq_s, torch.stack(rows)),
-                     (got_p, got_s, got_l), f"{what} vs 4 single steps")
-            bitequal(again, (got_p, got_s, got_l),
-                     f"{what}, two identical launches")
-    log(f"training kernels == plain versions within atol 1e-5; K-step == K "
-        f"single-step launches and repeats bit-exact ({errs})")
+    log(f"training kernels == plain versions within atol 1e-5 at clusters "
+        f"{clusters_held} and the wrapper's own; K-step == K single-step "
+        f"launches and repeats bit-exact ({errs})")
     return errs
 
 
@@ -615,8 +673,11 @@ def training_timing(launches: dict, errs: dict, device) -> list:
     20 back-to-back ones (:func:`device_ms`).  The bound counts x and y read once, the net (and Adam's moments) read and
     written once, the losses written; the operations are the products of
     the forward, dW and dh (59,584 FLOP a sample) plus the update (2 FLOP a
-    parameter a tile for SGD, 16 for Adam), at the card's fp32 rate and at
-    one SM's (1/132 of it): one block walks the tiles in order."""
+    parameter a tile for SGD, 16 for Adam), at the card's fp32 rate, at
+    one SM's (1/132 of it) and at the launch's C SMs' (one cluster of C
+    blocks walks the tiles in order).  Each kernel is also timed at every
+    cluster size 1, 2, 4, 8, 16 (``by_cluster``; a size whose rows do not
+    fit a block is refused, one the card cannot place fails to launch)."""
     from repro_torch.core import mrf_net
     from repro_torch.kernels.fused_train import kernel, multistep, ops, ref
 
@@ -669,10 +730,23 @@ def training_timing(launches: dict, errs: dict, device) -> list:
         t = {"ms": device_ms(call, "fused_train_kernel", reps=TRAIN_REPS,
                              warmup=1, label=name),
              "wall_ms": event_ms(call, reps=TRAIN_REPS),
-             "plain_ms": device_ms(plain, None, reps=2, warmup=1)}
-        counters[name].launches = saved
+             "plain_ms": device_ms(plain, None, reps=2, warmup=1,
+                                   label=f"{name} plain")}
+        cluster = kernel.run_fused_train.last_cluster
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / FP32_FLOPS_PER_S * 1e3
+        by_cluster = []
+        for c in (1, 2, 4, 8, 16):
+            kw["cluster"] = c
+            try:
+                ms = device_ms(call, "fused_train_kernel", reps=TRAIN_REPS,
+                               warmup=1, label=f"{name} cluster {c}")
+                by_cluster.append({"cluster": c, "ms": ms,
+                                   "bound_c_sms_ms": t_ops * N_SMS / c})
+            except (ValueError, RuntimeError) as e:
+                by_cluster.append({"cluster": c, "refused": str(e)})
+        del kw["cluster"]
+        counters[name].launches = saved
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/fused_train.cu",
                      "replaces": replaces, "launches": launches[name],
@@ -681,7 +755,10 @@ def training_timing(launches: dict, errs: dict, device) -> list:
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": None, "wall_ms": t["wall_ms"],
+                     "cluster": cluster,
                      "bound_one_sm_ms": t_ops * N_SMS,
+                     "bound_c_sms_ms": t_ops * N_SMS / cluster,
+                     "by_cluster": by_cluster,
                      "shape": shape, "bytes": nbytes, "ops": nops,
                      "samples": n_rows})
     return rows
@@ -717,8 +794,11 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
     first 1-4 of 10 back-to-back launches of the ms-long training kernel,
     the only launch of a one-launch session, 1 of 30 launches of B5 —
     whatever idle time or lead-in kernel opened the session, in this
-    process or a new one.  So a short count is logged (``label`` names the
-    call), not fatal; a sum over ``kernel=None`` may then read low.
+    process or a new one — and once every record of a session (the
+    per-sample plain version's ~150,000 small kernels).  So a short count
+    is logged (``label`` names the call), not fatal, and a session that
+    recorded nothing is taken again, at most twice; a sum over
+    ``kernel=None`` may read low.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -726,11 +806,16 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):  # a session that recorded nothing is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            break
+        log(f"  {label or 'device_ms'}: the profiler recorded no device "
+            f"activity; session taken again")
     if not evs:
         fail("the profiler recorded no device activity: no device time")
     if kernel is None:
@@ -1343,10 +1428,17 @@ def main() -> int:
                 f"device, {r['launches']} launches on the main path")
         if "samples" in r:
             per_sample = r["ms"] / r["samples"]
-            log(f"  {r['name']}: {per_sample * 1e3:.4f} us a sample, one-SM "
-                f"bound {r['bound_one_sm_ms']:.6f} ms; projection, not a "
+            log(f"  {r['name']}: cluster {r['cluster']}, "
+                f"{per_sample * 1e3:.4f} us a sample, one-SM bound "
+                f"{r['bound_one_sm_ms']:.6f} ms, {r['cluster']} SMs' "
+                f"{r['bound_c_sms_ms']:.6f} ms; projection, not a "
                 f"measurement: 250 M samples x {per_sample * 1e3:.4f} us = "
                 f"{per_sample * 250e6 / 1e3:.1f} s")
+            for b in r["by_cluster"]:
+                log(f"  {r['name']} cluster {b['cluster']}: " + (
+                    f"{b['ms']:.6f} ms on the device, {b['cluster']} SMs' "
+                    f"bound {b['bound_c_sms_ms']:.6f} ms" if "ms" in b
+                    else f"not launched: {b['refused']}"))
         if "dh128" in r:
             d = r["dh128"]
             log(f"time {r['name']} ({d['shape']}): {d['ms']:.6f} ms on the "

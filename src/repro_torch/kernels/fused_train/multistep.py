@@ -18,12 +18,14 @@ from repro_torch.kernels.fused_train.ref import AdamRule
 
 
 def fused_train_multistep_call(x, y, params, *, widths, lr: float,
-                               tile_batch: int, qat: bool = False):
+                               tile_batch: int, qat: bool = False,
+                               cluster: int | None = None):
     """K steps of in-kernel SGD in one launch (B2): ``(params, per-tile
     losses (K*B/tile,))``.  ``tile_batch`` must divide the per-step batch
     (``ops.effective_tile``) so that no tile straddles two steps."""
     p, _, _, losses, launched = run_fused_train(
-        x, y, params, widths, lr=lr, tile_batch=tile_batch, qat=qat)
+        x, y, params, widths, lr=lr, tile_batch=tile_batch, qat=qat,
+        cluster=cluster)
     if launched:
         fused_train_multistep_call.launches += 1
     return p, losses
@@ -32,7 +34,8 @@ def fused_train_multistep_call(x, y, params, *, widths, lr: float,
 def fused_train_adam_call(step0, x, y, params, mu, nu, *, widths, lr: float,
                           b1: float = 0.9, b2: float = 0.999,
                           eps: float = 1e-8, weight_decay: float = 0.0,
-                          tile_batch: int, qat: bool = False):
+                          tile_batch: int, qat: bool = False,
+                          cluster: int | None = None):
     """K steps of in-kernel Adam in one launch (B3).
 
     ``step0``: (1,) int32 on the device, the Adam step before the launch;
@@ -43,7 +46,8 @@ def fused_train_adam_call(step0, x, y, params, mu, nu, *, widths, lr: float,
     p, m, v, losses, launched = run_fused_train(
         x, y, params, widths, lr=lr, tile_batch=tile_batch, qat=qat,
         moments=(mu, nu), step0=step0,
-        rule=AdamRule(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+        rule=AdamRule(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay),
+        cluster=cluster)
     if launched:
         fused_train_adam_call.launches += 1
     return p, m, v, losses

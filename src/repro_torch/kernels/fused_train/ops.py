@@ -49,16 +49,18 @@ def _rows(t):
 
 
 def fused_train_step(params, x, y, *, lr: float, tile_batch: int = 128,
-                     qat: bool = False):
+                     qat: bool = False, cluster: int | None = None):
     """One fused pass over the batch x (B, D_in) / y (B, out): the tiles
-    stream through the resident net.  Returns (new_params, per-tile
+    stream through the resident net.  ``cluster``: the kernel's cluster
+    size (default ``kernel.cluster_size``).  Returns (new_params, per-tile
     losses)."""
     if x.shape[0] % tile_batch:
         raise ValueError(f"batch {x.shape[0]} is not a multiple of "
                          f"tile_batch {tile_batch}")
     flat, widths = pack_params(params)
     new, losses = fused_train_call(_rows(x), _rows(y), flat, widths=widths,
-                                   lr=lr, tile_batch=tile_batch, qat=qat)
+                                   lr=lr, tile_batch=tile_batch, qat=qat,
+                                   cluster=cluster)
     return unpack_params(new, widths), losses
 
 
@@ -80,13 +82,15 @@ def step_losses(losses):
 
 def fused_train_multistep(params, opt_state, x, y, *, n_steps: int,
                           lr: float, optimizer: str = "sgd",
-                          tile_batch: int = 128, qat: bool = False):
+                          tile_batch: int = 128, qat: bool = False,
+                          cluster: int | None = None):
     """K training steps in **one** kernel launch, the net (and Adam's
     moments) resident across all of them.
 
     ``x``/``y``: ``(K*B, d_in)`` / ``(K*B, out_dim)``, K steps' batches
     back to back.  The tile is the largest divisor of the per-step batch B
-    not above ``tile_batch``.  ``opt_state``: for ``"adam"`` an
+    not above ``tile_batch``; ``cluster`` as in :func:`fused_train_step`.
+    ``opt_state``: for ``"adam"`` an
     ``AdamState``, whose ``step`` advances by ``n_steps * n_tiles`` (one
     Adam update per tile); for ``"sgd"`` any state with a ``step`` field
     (advanced by ``n_steps``) or None.
@@ -104,7 +108,8 @@ def fused_train_multistep(params, opt_state, x, y, *, n_steps: int,
     x, y = _rows(x), _rows(y)
     if optimizer == "sgd":
         new, tile_losses = fused_train_multistep_call(
-            x, y, flat, widths=widths, lr=lr, tile_batch=tile, qat=qat)
+            x, y, flat, widths=widths, lr=lr, tile_batch=tile, qat=qat,
+            cluster=cluster)
         new_opt = opt_state
         if opt_state is not None and hasattr(opt_state, "step"):
             new_opt = opt_state._replace(step=opt_state.step + n_steps)
@@ -118,7 +123,7 @@ def fused_train_multistep(params, opt_state, x, y, *, n_steps: int,
         step0 = opt_state.step.to(torch.int32).reshape(1)
         new, mu_new, nu_new, tile_losses = fused_train_adam_call(
             step0, x, y, flat, mu, nu, widths=widths, lr=lr, tile_batch=tile,
-            qat=qat)
+            qat=qat, cluster=cluster)
         new_opt = AdamState(step=opt_state.step + n_steps * n_tiles,
                             mu=unpack_params(mu_new, widths),
                             nu=unpack_params(nu_new, widths))

@@ -131,30 +131,52 @@ def _max_err(a, b) -> float:
                default=0.0)
 
 
+# every cluster the wrapper takes: its default (None), and each size; a
+# size whose plan does not fit a block is refused with ValueError
+CLUSTERS = [None, 1, 2, 4, 8, 16]
+
+
+def _refused(tile, widths, cluster) -> bool:
+    return (cluster is not None
+            and cluster not in train_kernel.cluster_sizes(tile, widths))
+
+
 @pytest.mark.parametrize("hidden", [mrf_net.ADAPTED_HIDDEN,
                                     mrf_net.ORIGINAL_HIDDEN])
 @pytest.mark.parametrize("tile,rows", [(1, 1024), (128, 256)])
 @pytest.mark.parametrize("qat_on", [False, True])
-def test_fused_train_step_matches_plain(cuda, hidden, tile, rows, qat_on):
-    """B1 against the plain version (atol 1e-5).  At tile 1 over 1,024 rows
-    (the per-sample stream) the comparison is ``ref.stream_divergence``:
-    with QAT the fake-quant is discontinuous, and once the two versions'
-    sums (taken in other orders) leave a weight an ulp to either side of a
-    rounding tie the two runs train different nets.  So every update is
-    held from the kernel's own net, and the two runs side by side up to the
-    first int8 level flip (without QAT, over the whole stream)."""
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_fused_train_step_matches_plain(cuda, hidden, tile, rows, qat_on,
+                                        cluster):
+    """B1 against the plain version (atol 1e-5) at each cluster size, and
+    bit-equal to its repeat.  At tile 1 over 1,024 rows (the per-sample
+    stream) the comparison is ``ref.stream_divergence``: with QAT the
+    fake-quant is discontinuous, and once the two versions' sums (taken in
+    other orders) leave a weight an ulp to either side of a rounding tie the
+    two runs train different nets.  So every update is held from the
+    kernel's own net, and the two runs side by side up to the first int8
+    level flip (without QAT, over the whole stream)."""
     params, x, y = _train_case(hidden, rows, cuda)
     flat, widths = train_ops.pack_params(params)
 
     def b1(xr, yr, p):
         return train_kernel.fused_train_call(xr, yr, p, widths=widths,
                                              lr=1e-2, tile_batch=tile,
-                                             qat=qat_on)
+                                             qat=qat_on, cluster=cluster)
 
+    if _refused(tile, widths, cluster):
+        with pytest.raises(ValueError, match="shared memory"):
+            b1(x, y, flat)
+        return
     before = train_kernel.fused_train_call.launches
     got_p, got_l = b1(x, y, flat)
+    again_p, again_l = b1(x, y, flat)
     torch.cuda.synchronize()
-    assert train_kernel.fused_train_call.launches == before + 1
+    assert train_kernel.fused_train_call.launches == before + 2
+    assert train_kernel.run_fused_train.last_cluster == (
+        train_kernel.cluster_size(tile, widths) if cluster is None
+        else cluster)
+    assert torch.equal(got_p, again_p) and torch.equal(got_l, again_l)
     if tile == 1:
         div = train_ref.stream_divergence(b1, x, y, flat, widths, lr=1e-2,
                                           qat=qat_on)
@@ -170,21 +192,28 @@ def test_fused_train_step_matches_plain(cuda, hidden, tile, rows, qat_on):
     assert float((got_p - want_p).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("hidden", [mrf_net.ADAPTED_HIDDEN,
-                                    mrf_net.ORIGINAL_HIDDEN])
-@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
-def test_multistep_matches_plain_and_k_single_steps(cuda, hidden, optimizer):
-    """B2 / B3 at K=4, batch 256, tile 128 against the plain version, then
-    bit for bit against 4 single-step launches and against itself."""
-    k_steps, per_step, lr = 4, 256, 1e-3
-    params, x, y = _train_case(hidden, k_steps * per_step, cuda, seed=1)
-    state = adam(lr).init(params) if optimizer == "adam" else None
+def _hold_multistep(cuda, hidden, optimizer, qat_on, cluster, k_steps,
+                    per_step, tile_batch=128, seed=1):
+    """B2 / B3 at K steps of ``per_step`` rows against the plain version
+    (params and losses atol 1e-5, Adam's moments atol 1e-6 / rtol 1e-5),
+    then bit for bit against K single-step launches and against itself.
+    Returns the tile the launch took."""
+    lr = 1e-3
+    params, x, y = _train_case(hidden, k_steps * per_step, cuda, seed=seed)
+
+    def fresh():
+        return adam(lr).init(params) if optimizer == "adam" else None
+
+    def run(p, s, xs, ys, n):
+        return train_ops.fused_train_multistep(
+            p, s, xs, ys, n_steps=n, lr=lr, optimizer=optimizer,
+            tile_batch=tile_batch, qat=qat_on, cluster=cluster)
+
     counter = (multistep.fused_train_adam_call if optimizer == "adam"
                else multistep.fused_train_multistep_call)
+    tile = train_ops.effective_tile(per_step, tile_batch)
     before = counter.launches
-    got = train_ops.fused_train_multistep(params, state, x, y,
-                                          n_steps=k_steps, lr=lr,
-                                          optimizer=optimizer)
+    got = run(params, fresh(), x, y, k_steps)
     torch.cuda.synchronize()
     assert counter.launches == before + 1
     flat, widths = train_ops.pack_params(params)
@@ -193,8 +222,8 @@ def test_multistep_matches_plain_and_k_single_steps(cuda, hidden, optimizer):
         moments = (torch.zeros_like(flat), torch.zeros_like(flat))
         step0 = torch.zeros((1,), dtype=torch.int32, device=cuda)
     want_p, want_mu, want_nu, want_l = train_ref.fused_train_plain(
-        x, y, flat, widths, lr=lr, tile_batch=128, moments=moments,
-        step0=step0)
+        x, y, flat, widths, lr=lr, tile_batch=tile, qat=qat_on,
+        moments=moments, step0=step0)
     got_flat, _ = train_ops.pack_params(got[0])
     assert float((got_flat - want_p).abs().max()) <= 1e-5
     assert float((got[2].reshape(-1) - want_l).abs().max()) <= 1e-5
@@ -202,22 +231,53 @@ def test_multistep_matches_plain_and_k_single_steps(cuda, hidden, optimizer):
         for mom, want in ((got[1].mu, want_mu), (got[1].nu, want_nu)):
             packed, _ = train_ops.pack_params(mom)
             assert torch.allclose(packed, want, atol=1e-6, rtol=1e-5)
-        assert int(got[1].step) == k_steps * 2
-    seq_p, seq_s, rows = params, (adam(lr).init(params)
-                                  if optimizer == "adam" else None), []
+        assert int(got[1].step) == k_steps * (per_step // tile)
+    seq_p, seq_s, rows = params, fresh(), []
     for k in range(k_steps):
         sl = slice(k * per_step, (k + 1) * per_step)
-        seq_p, seq_s, tl = train_ops.fused_train_multistep(
-            seq_p, seq_s, x[sl], y[sl], n_steps=1, lr=lr, optimizer=optimizer)
+        seq_p, seq_s, tl = run(seq_p, seq_s, x[sl], y[sl], 1)
         rows.append(tl[0])
-    again = train_ops.fused_train_multistep(
-        params, adam(lr).init(params) if optimizer == "adam" else None, x, y,
-        n_steps=k_steps, lr=lr, optimizer=optimizer)
+    again = run(params, fresh(), x, y, k_steps)
     torch.cuda.synchronize()
     assert torch.equal(got[2], torch.stack(rows))
     assert _max_err(got[0], seq_p) == 0.0 and _max_err(got[0], again[0]) == 0.0
     assert _max_err(got[1], seq_s) == 0.0 and _max_err(got[1], again[1]) == 0.0
     assert torch.equal(got[2], again[2])
+    return tile
+
+
+@pytest.mark.parametrize("hidden", [mrf_net.ADAPTED_HIDDEN,
+                                    mrf_net.ORIGINAL_HIDDEN])
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+@pytest.mark.parametrize("qat_on", [False, True])
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_multistep_matches_plain_and_k_single_steps(cuda, hidden, optimizer,
+                                                    qat_on, cluster):
+    """B2 / B3 at K=4, batch 256, tile 128 at each cluster size (mrf-original
+    with QAT and Adam among them)."""
+    widths = mrf_net.layer_sizes(32, hidden)
+    if _refused(128, widths, cluster):
+        with pytest.raises(ValueError, match="shared memory"):
+            _hold_multistep(cuda, hidden, optimizer, qat_on, cluster, 4, 256)
+        return
+    _hold_multistep(cuda, hidden, optimizer, qat_on, cluster, 4, 256)
+    assert train_kernel.run_fused_train.last_cluster == (
+        train_kernel.cluster_size(128, widths) if cluster is None
+        else cluster)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+@pytest.mark.parametrize("case", ["ragged", "tile_below_cluster"])
+def test_multistep_ragged_and_tiny_tiles(cuda, optimizer, case):
+    """A ragged tile of 127 rows (batch 254: the 8 blocks take 16 rows, the
+    last 15) at the default cluster, and tiles of 4 rows on 8 blocks (4 of
+    them take no row), each held like the main case."""
+    per_step, tile_batch, cluster = ((254, 128, None) if case == "ragged"
+                                     else (8, 4, 8))
+    tile = _hold_multistep(cuda, mrf_net.ADAPTED_HIDDEN, optimizer, False,
+                           cluster, 3, per_step, tile_batch=tile_batch)
+    assert tile == (127 if case == "ragged" else 4)
+    assert train_kernel.run_fused_train.last_cluster == 8
 
 
 def test_fused_train_empty_batch_launches_and_counts_nothing(cuda):

@@ -239,13 +239,88 @@ def test_pack_unpack_round_trip_and_effective_tile():
     assert pops.effective_tile(254, 128) == 127
 
 
-def test_shared_memory_budget_of_both_nets():
-    """The net is resident in shared memory, rows padded by one float."""
+def _block_bytes(widths, rows):
+    """Shared memory a block of the cluster kernel must have, counted from
+    its layout: the plan's copy and two mbarriers (288 floats), each
+    layer's W (rows padded to 4) and b, QAT's column scales, two x and two
+    y row buffers, each hidden layer's activations and two delta buffers
+    (rows 4 floats longer than the padded width), the loss terms and 4
+    floats; each buffer of ``rows`` rounded up to the register tile (2
+    rows, 1 at a single row)."""
+    def pad(n):
+        return -(-n // 4) * 4
+
+    rpad = 1 if rows == 1 else -(-rows // 2) * 2
+    p = [pad(w) for w in widths]
+    net = sum(k * n + n for k, n in zip(p[:-1], p[1:])) + sum(p[1:])
+    row = (2 * (p[0] + 4) + 2 * p[-1] + sum(n + 4 for n in p[1:-1])
+           + 2 * (max(p[1:]) + 4) + p[-1])
+    return 4 * (288 + net + rpad * row + 4)
+
+
+@pytest.mark.parametrize("tile", [1, 4, 32, 127, 128, 256])
+def test_shared_memory_budget_of_both_nets(tile):
+    """The cluster kernel's per-block budget at the cluster the wrapper
+    picks, for both nets: the replica, the block's rows and deltas (all of
+    it required), then QAT's fake-quantized weights and the partial dW/db
+    buffers where they fit; a net or a cluster whose required part exceeds
+    a block is refused."""
+    for hidden in (mrf_net.ADAPTED_HIDDEN, mrf_net.ORIGINAL_HIDDEN):
+        widths = mrf_net.layer_sizes(32, hidden)
+        c = pkernel.cluster_size(tile, widths)
+        for qat in (False, True):
+            plan = pkernel.train_plan(widths, tile, c, qat)
+            assert plan.cluster == c and plan.rows == -(-tile // c)
+            assert plan.required_bytes == _block_bytes(widths, plan.rows)
+            assert plan.required_bytes <= plan.smem_bytes <= pkernel.SMEM_MAX
+        for c in pkernel.cluster_sizes(tile, widths):
+            assert pkernel.train_plan(widths, tile, c).required_bytes == (
+                _block_bytes(widths, -(-tile // c)))
+        for c in set((1, 2, 4, 8, 16)) - set(pkernel.cluster_sizes(
+                tile, widths)):
+            assert _block_bytes(widths, -(-tile // c)) > pkernel.SMEM_MAX
+            with pytest.raises(ValueError, match="shared memory"):
+                pkernel.train_plan(widths, tile, c)
     fpga = mrf_net.layer_sizes(32, mrf_net.ADAPTED_HIDDEN)
     original = mrf_net.layer_sizes(32, mrf_net.ORIGINAL_HIDDEN)
-    assert pkernel.smem_bytes(fpga) == 47_112
-    assert pkernel.smem_bytes(original) == 163_848 <= pkernel.SMEM_MAX
-    assert pkernel.smem_bytes((256, 256, 2)) > pkernel.SMEM_MAX
+    if tile == 128:  # the training path's tile: 8 blocks of 16 rows
+        assert pkernel.train_plan(fpga, 128, 8).required_bytes == 81_200
+        qat_plan = pkernel.train_plan(fpga, 128, 8, True)
+        assert qat_plan.smem_bytes == 219_264 and qat_plan.wq_in_smem
+        assert qat_plan.bulk and all(qat_plan.part_in_smem)
+        assert qat_plan.gws_stride == 0
+        plan = pkernel.train_plan(original, 128, 8)
+        assert plan.required_bytes == 223_024 and not plan.bulk
+        assert pkernel.cluster_sizes(128, original) == (8, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        pkernel.cluster_size(tile, (64, 256, 256, 2))
+
+
+def test_cluster_size_is_a_function_of_tile_and_widths():
+    """The wrapper's cluster depends on the tile and the widths only (QAT,
+    the optimizer and the number of tiles do not change it), so a K-step
+    launch and K single-step launches sum in the same order: one block at
+    tile 1 and up to 16 rows, then the fewest blocks (up to the portable 8)
+    that leave at most 16 rows a block, more where the rows do not fit."""
+    fpga = mrf_net.layer_sizes(32, mrf_net.ADAPTED_HIDDEN)
+    original = mrf_net.layer_sizes(32, mrf_net.ORIGINAL_HIDDEN)
+    want = {1: 1, 4: 1, 16: 1, 17: 2, 32: 2, 64: 4, 127: 8, 128: 8, 256: 8}
+    for tile, c in want.items():
+        assert pkernel.cluster_size(tile, fpga) == c
+        assert pkernel.cluster_size(tile, fpga) == pkernel.cluster_size(
+            tile, list(fpga))
+    assert pkernel.cluster_size(128, original) == 8
+    assert pkernel.cluster_size(256, original) == 16  # 32 rows do not fit
+    for c in (0, 3, 12, 32):  # the kernel takes powers of two up to 16
+        with pytest.raises(ValueError, match="cluster"):
+            pkernel.train_plan(fpga, 128, c)
+    for tile in (1, 8, 24, 128):
+        for widths in (fpga, original):
+            c = pkernel.cluster_size(tile, widths)
+            assert c in pkernel.cluster_sizes(tile, widths)
+            assert pkernel.train_plan(widths, tile, c, False).ints[:3] == (
+                len(widths) - 1, c, tile)
+            assert pkernel.train_plan(widths, tile, c, True).cluster == c
 
 
 def test_wrappers_refuse_what_they_cannot_run():
