@@ -13,11 +13,18 @@ final result line):
 1. device facts (name, capability, ``nvidia-smi`` name and power limit);
 2. build the kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, started together;
-2b. ``cuobjdump -sass`` on the bf16 flash-attention library: its kernel
-   must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA) instructions;
+2b. ``cuobjdump -sass``: the bf16 flash-attention kernel must hold
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA) instructions, the int8 kernels
+   (B4, B5) ``IMMA`` (int8 tensor cores) and no ``IDP.4A`` (``__dp4a``);
 3. the serving kernels (B4, B5) against their plain versions on identical
-   tensors on the card, at the serving path's shapes (bit-exact: integer
-   arithmetic);
+   tensors on the card (bit-exact: integer arithmetic): B4 at every bucket
+   and at a whole wave (281,600 voxels) for mrf-fpga, mrf-original and a
+   (256, 256, 32) net, with and without the denorm row; B5 at every layer
+   shape of those nets at M=1,024 and at a whole wave, and at ragged
+   shapes (K, N not multiples of 32 and 8) with every epilogue;
+3a. the training data the card makes against the CPU's, on the same
+   (T1, T2) arrays: fingerprints, features and targets within
+   ``DATA_ATOL`` (``check_training_data``);
 3b. the training kernel, one thread-block cluster (B1 one step, B2 K SGD
    steps, B3 K Adam steps), against its plain version at mrf-fpga and
    mrf-original full width, with and without QAT, at the cluster the
@@ -62,7 +69,9 @@ final result line):
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
-   between CUDA events; B1-B3 also at each cluster size 1, 2, 4, 8, 16.
+   between CUDA events; B4 and B5 at M=1,024 and at a whole wave, beside
+   the device time of a one-element ``fill_`` (the launch floor); B1-B3
+   also at each cluster size 1, 2, 4, 8, 16.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -94,6 +103,8 @@ N_SMS = 132
 REPS = 30
 TRAIN_REPS = 20             # training kernels: ms-long launches
 BUCKETS = (128, 256, 512, 1024)
+WAVE_VOXELS = 281_600       # a wave of 8 phantom slices of 256 x 256
+DATA_ATOL = 1e-5            # training data, card vs CPU (phase 3d)
 LM_ARCH = "tinyllama-1.1b"
 LM_LAYER_ULPS = 4           # card vs CPU, one layer on the same input
 LM_LOGIT_ULPS = 8           # card vs CPU prefill logits after 22 layers
@@ -127,24 +138,44 @@ def device_facts() -> tuple:
     return name, smi
 
 
-def check_b6_sass(build) -> None:
-    """Phase 2b: the bf16 B6 library's machine code, through ``cuobjdump
-    -sass``: its kernel must hold tensor-core products (``HGMMA``, from
-    wgmma) and TMA loads (``UTMALDG``), or it is not the Hopper design."""
-    lib = build.library_path("flash_attn_sm90")
-    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+def sass_counts(build, kernel: str, func: str, ops) -> list:
+    """``cuobjdump -sass`` of kernel library ``kernel``: for each compiled
+    function whose name holds ``func``, its name and the count of each
+    mnemonic in ``ops``."""
+    lib = build.library_path(kernel)
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
     funcs = [f for f in sass.split("Function : ")[1:]
-             if "flash_attn_kernel_sm90" in f.splitlines()[0]]
+             if func in f.splitlines()[0]]
     if not funcs:
-        fail(f"cuobjdump finds no flash_attn_kernel_sm90 in {lib}")
-    for f in funcs:
-        n = {op: f.count(op) for op in ("HGMMA", "UTMALDG")}
+        fail(f"cuobjdump finds no {func} in {lib}")
+    return [(f.splitlines()[0][:90], {op: f.count(op) for op in ops})
+            for f in funcs]
+
+
+def check_sass(build) -> None:
+    """Phase 2b: the machine code, through ``cuobjdump -sass``.  The bf16 B6
+    kernel must hold tensor-core products (``HGMMA``, from wgmma) and TMA
+    loads (``UTMALDG``); B4 and B5 int8 tensor-core products (``IMMA``,
+    from mma.sync m16n8k32 s8) and no ``IDP.4A`` (``__dp4a``) — or they
+    are not the Hopper designs."""
+    for name, n in sass_counts(build, "flash_attn_sm90",
+                               "flash_attn_kernel_sm90",
+                               ("HGMMA", "UTMALDG")):
         if not all(n.values()):
-            fail(f"{f.splitlines()[0][:90]}: {n} (wgmma and TMA expected)")
-    log(f"cuobjdump: {len(funcs)} flash_attn_kernel_sm90 instances, each with "
-        f"HGMMA and UTMALDG (first: "
-        f"{ {op: funcs[0].count(op) for op in ('HGMMA', 'UTMALDG')} })")
+            fail(f"{name}: {n} (wgmma and TMA expected)")
+    log(f"cuobjdump: flash_attn_kernel_sm90 holds HGMMA and UTMALDG ({n})")
+    for kernel in ("qat_dense", "fused_forward"):
+        found = sass_counts(build, kernel, f"{kernel}_kernel",
+                            ("IMMA.16832.S8.S8", "IDP.4A"))
+        for name, n in found:
+            if not n["IMMA.16832.S8.S8"] or n["IDP.4A"]:
+                fail(f"{name}: {n} (int8 tensor-core IMMA and no IDP.4A "
+                     f"expected)")
+        log(f"cuobjdump: {len(found)} {kernel}_kernel instances, each with "
+            f"IMMA.16832.S8.S8 and no IDP.4A "
+            f"({[n['IMMA.16832.S8.S8'] for _, n in found]} IMMA)")
 
 
 def calibrated_net(hidden, seed: int, device):
@@ -176,14 +207,17 @@ def exact(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
 
 
 def check_kernels(nets, device) -> dict:
-    """Phase 3: B4 and B5 against their plain versions, bit-exact."""
+    """Phase 3: B4 and B5 against their plain versions, bit-exact: B4 at
+    every bucket and at a whole wave, with and without the denorm row; B5
+    at every layer shape of each net at the largest bucket and at a whole
+    wave, and at ragged shapes with every epilogue."""
     from repro_torch.kernels.qat_dense import fused, kernel, ops, ref
 
     errs = {"fused_forward": 0.0, "qat_dense": 0.0}
     drow = torch.tensor([4000.0, 600.0], device=device)
     gen = torch.Generator(device=device).manual_seed(7)
     for arch, net in nets.items():
-        for m in BUCKETS:
+        for m in (*BUCKETS, WAVE_VOXELS):
             x = torch.randn((m, net.in_dim), generator=gen, device=device)
             for d in (drow, None):
                 before = fused.fused_forward_call.launches
@@ -196,38 +230,93 @@ def check_kernels(nets, device) -> dict:
                 errs["fused_forward"] = max(errs["fused_forward"], exact(
                     got, want, f"fused_forward {arch} M={m} "
                                f"denorm={d is not None}"))
-        # every layer shape of the net at the largest bucket, as served
+        # every layer shape of the net at the largest bucket, as served,
+        # and at a whole wave
         for i in range(net.n_layers):
             w, b, s = net.packed[3 * i:3 * i + 3]
             last = i == net.n_layers - 1
-            xq = torch.randint(-128, 128, (1024, w.shape[0]), generator=gen,
-                               device=device, dtype=torch.int8)
-            before = kernel.qat_dense_call.launches
-            got = kernel.qat_dense_call(xq, w, b, s, relu=not last,
-                                        float_out=last)
-            want = ref.ref_qat_dense(xq, w, b, s, relu=not last,
-                                     float_out=last)
+            for m in (BUCKETS[-1], WAVE_VOXELS):
+                xq = torch.randint(-128, 128, (m, w.shape[0]), generator=gen,
+                                   device=device, dtype=torch.int8)
+                before = kernel.qat_dense_call.launches
+                got = kernel.qat_dense_call(xq, w, b, s, relu=not last,
+                                            float_out=last)
+                want = ref.ref_qat_dense(xq, w, b, s, relu=not last,
+                                         float_out=last)
+                torch.cuda.synchronize()
+                if kernel.qat_dense_call.launches != before + 1:
+                    fail("qat_dense launch counter did not advance")
+                errs["qat_dense"] = max(errs["qat_dense"], exact(
+                    got, want, f"qat_dense {arch} layer {i} "
+                               f"{tuple(w.shape)} M={m}"))
+    # ragged M/N/K edges (K, N not multiples of 32 and 8), every epilogue
+    for m, k, n in ((130, 200, 300), (1, 4, 4), (33, 72, 20), (5, 37, 13)):
+        xq = torch.randint(-128, 128, (m, k), generator=gen, device=device,
+                           dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=gen, device=device,
+                          dtype=torch.int8)
+        b = torch.randint(-2048, 2048, (n,), generator=gen, device=device,
+                          dtype=torch.int32)
+        s = torch.rand((n,), generator=gen, device=device) * 1e-2 + 1e-4
+        for relu, float_out in ((True, False), (False, False), (False, True)):
+            got = ops.qat_dense(xq, w, b, s, relu=relu, float_out=float_out)
+            want = ref.ref_qat_dense(xq, w, b, s, relu=relu,
+                                     float_out=float_out)
             torch.cuda.synchronize()
-            if kernel.qat_dense_call.launches != before + 1:
-                fail("qat_dense launch counter did not advance")
             errs["qat_dense"] = max(errs["qat_dense"], exact(
-                got, want, f"qat_dense {arch} layer {i} {tuple(w.shape)}"))
-    # ragged M/N/K edges, every epilogue
-    xq = torch.randint(-128, 128, (130, 200), generator=gen, device=device,
-                       dtype=torch.int8)
-    w = torch.randint(-128, 128, (200, 300), generator=gen, device=device,
-                      dtype=torch.int8)
-    b = torch.randint(-2048, 2048, (300,), generator=gen, device=device,
-                      dtype=torch.int32)
-    s = torch.rand((300,), generator=gen, device=device) * 1e-2 + 1e-4
-    for relu, float_out in ((True, False), (False, False), (False, True)):
-        got = ops.qat_dense(xq, w, b, s, relu=relu, float_out=float_out)
-        want = ref.ref_qat_dense(xq, w, b, s, relu=relu, float_out=float_out)
-        torch.cuda.synchronize()
-        errs["qat_dense"] = max(errs["qat_dense"], exact(
-            got, want, f"qat_dense ragged relu={relu} float_out={float_out}"))
-    log(f"kernels == plain versions: bit-exact ({errs})")
+                got, want, f"qat_dense ragged {(m, k, n)} relu={relu} "
+                           f"float_out={float_out}"))
+    log(f"kernels == plain versions: bit-exact ({errs}; nets "
+        f"{sorted(nets)}, M {(*BUCKETS, WAVE_VOXELS)})")
     return errs
+
+
+def check_training_data(device) -> float:
+    """Phase 3a: the training data the card makes, against the CPU's.
+    ``simulate_fingerprints`` on 4,096 log-uniform (T1, T2) draws over the
+    stream's ranges with T2 <= T1 (numpy, seed 0) plus the phantom's tissue
+    values, ``to_features`` of the same signal and the targets ``t / hi``
+    (``pipeline.targets``), on both devices from the same arrays: each
+    within ``DATA_ATOL`` (the fingerprints are L2-normalised, so 1e-5 of
+    their scale).  ``augment`` is left out: its noise comes from a device
+    generator, which cannot agree across devices.  Returns the largest
+    difference."""
+    import numpy as np
+
+    from repro_torch.data.epg import (default_sequence, simulate_fingerprints,
+                                      to_features)
+    from repro_torch.data.phantom import PHANTOM_T1T2_MS
+    from repro_torch.data.pipeline import MRFSampleStream, targets
+
+    stream = MRFSampleStream(seq=default_sequence(32), batch_size=4096)
+    rng = np.random.default_rng(0)
+    (lo1, hi1), (lo2, hi2) = stream.t1_range, stream.t2_range
+    t1 = np.exp(rng.uniform(np.log(lo1), np.log(hi1), 4096))
+    t2 = np.minimum(np.exp(rng.uniform(np.log(lo2), np.log(hi2), 4096)), t1)
+    tissues = np.array(list(PHANTOM_T1T2_MS.values()))
+    t1 = np.concatenate([t1, tissues[:, 0]]).astype(np.float32)
+    t2 = np.concatenate([t2, tissues[:, 1]]).astype(np.float32)
+    got, want = {}, {}
+    for dev, into in ((device, got), (torch.device("cpu"), want)):
+        a, b = torch.from_numpy(t1).to(dev), torch.from_numpy(t2).to(dev)
+        sig = simulate_fingerprints(stream.seq, a, b, device=dev)
+        into["fingerprints"] = torch.view_as_real(sig)
+        into["features"] = to_features(sig)
+        into["targets"] = targets(stream, a, b)
+    errs = {}
+    for key in want:
+        g = got[key].cpu()
+        if g.shape != want[key].shape or g.dtype != want[key].dtype:
+            fail(f"training data {key}: card {g.dtype}{tuple(g.shape)} vs "
+                 f"CPU {want[key].dtype}{tuple(want[key].shape)}")
+        errs[key] = float((g.double() - want[key].double()).abs().max())
+        if not math.isfinite(errs[key]) or errs[key] > DATA_ATOL:
+            fail(f"training data {key}: card vs CPU max abs err "
+                 f"{errs[key]} (limit {DATA_ATOL})")
+    log(f"training data, card vs CPU ({t1.size} (T1, T2) pairs, "
+        f"{stream.seq.n_frames} frames): max abs err {errs} "
+        f"(limit {DATA_ATOL}; augment's noise left out)")
+    return max(errs.values())
 
 
 def serve(argv, expect: str = "oracle: bit-exact") -> dict:
@@ -705,6 +794,13 @@ def training_timing(launches: dict, errs: dict, device) -> list:
         ("fused_train_adam", "src/repro/kernels/fused_train/multistep.py:172",
          "K=50 x 256 samples, tile 128, mrf-fpga", 12_800, 128, "adam"),
     ]
+    algorithms = {
+        "fused_train": "per-sample stream (SGD at tile 1, the paper's "
+                       "algorithm)",
+        "fused_train_multistep": "minibatch 256 at tile 128, SGD (a "
+                                 "reformulation beyond the paper)",
+        "fused_train_adam": "minibatch 256 at tile 128, Adam (a "
+                            "reformulation beyond the paper)"}
     counters = train_counters()
     rows = []
     for name, replaces, shape, n_rows, tile, opt in cases:
@@ -760,7 +856,7 @@ def training_timing(launches: dict, errs: dict, device) -> list:
                      "bound_c_sms_ms": t_ops * N_SMS / cluster,
                      "by_cluster": by_cluster,
                      "shape": shape, "bytes": nbytes, "ops": nops,
-                     "samples": n_rows})
+                     "samples": n_rows, "algorithm": algorithms[name]})
     return rows
 
 
@@ -830,62 +926,81 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
     return statistics.median(durs) / 1e3
 
 
-def timing_phase(net, int_layers, launches: dict, errs: dict,
-                 device) -> list:
-    """Phase 5: B4 at bucket 1024 with the denorm row (as served), B5 at the
-    first hidden layer's shape at M=1024.  B4's bound counts the net at its
-    true widths (``int_layers``): int8 weights, int32 bias and fp32 scale per
+def launch_floor_ms() -> float:
+    """The device time of the smallest kernel PyTorch launches, a
+    one-element ``fill_``: the floor under any launch's device time."""
+    buf = torch.empty((1,), device="cuda")
+    return device_ms(lambda: buf.fill_(1.0), None, label="fill_ (floor)")
+
+
+def int8_times(net, int_layers, m: int, gen, device) -> dict:
+    """B4 (``net``, with the denorm row, as served) and B5 (the first
+    hidden layer, (64, 64), ReLU) at M voxels: device ms (profiler median),
+    wall ms of one call, the plain version's device ms, the bound, and the
+    bytes and operations it counts.  B4's bound counts the net at its true
+    widths (``int_layers``): int8 weights, int32 bias and fp32 scale per
     output, never the kernel's padded shared-memory image."""
     from repro_torch.kernels.qat_dense import fused, kernel, ref
 
-    m = 1024
-    gen = torch.Generator(device=device).manual_seed(11)
     x = torch.randn((m, net.in_dim), generator=gen, device=device)
     drow = torch.tensor([4000.0, 600.0], device=device)
     shapes = [tuple(int(d) for d in layer.w_q.shape) for layer in int_layers]
-    b4_bytes = x.numel() * 4 + sum(k * n + 8 * n for k, n in shapes) \
-        + drow.numel() * 4 + m * net.out_dim * 4
-    b4_ops = 2 * m * sum(k * n for k, n in shapes)
-    saved = fused.fused_forward_call.launches
-    b4_call = lambda: fused.fused_forward_call(x, net, drow=drow)
-    b4 = {"ms": device_ms(b4_call, "fused_forward_kernel",
-                          label="fused_forward"),
-          "wall_ms": event_ms(b4_call),
-          "plain_ms": device_ms(lambda: ref.ref_fused_forward(
-              x, net.s_in, net.packed, net.out_dim, drow=drow), None)}
-    fused.fused_forward_call.launches = saved
-
     w, b, s = net.packed[3:6]  # layer 1: (64, 64), ReLU epilogue
     xq = torch.randint(-128, 128, (m, w.shape[0]), generator=gen,
                        device=device, dtype=torch.int8)
     k, n = w.shape
-    b5_bytes = m * k + k * n + 4 * n + 4 * n + m * n
-    b5_ops = 2 * m * k * n
-    saved = kernel.qat_dense_call.launches
-    b5_call = lambda: kernel.qat_dense_call(xq, w, b, s)
-    b5 = {"ms": device_ms(b5_call, "qat_dense_kernel", label="qat_dense"),
-          "wall_ms": event_ms(b5_call),
-          "plain_ms": device_ms(lambda: ref.ref_qat_dense(xq, w, b, s), None)}
-    kernel.qat_dense_call.launches = saved
-
-    rows = []
-    for name, src, replaces, t, nbytes, nops in (
-            ("fused_forward", "src/repro_torch/csrc/fused_forward.cu",
-             "src/repro/kernels/qat_dense/fused.py:68", b4, b4_bytes, b4_ops),
-            ("qat_dense", "src/repro_torch/csrc/qat_dense.cu",
-             "src/repro/kernels/qat_dense/kernel.py:64", b5, b5_bytes,
-             b5_ops)):
+    cases = {
+        "fused_forward": (
+            lambda: fused.fused_forward_call(x, net, drow=drow),
+            lambda: ref.ref_fused_forward(x, net.s_in, net.packed,
+                                          net.out_dim, drow=drow),
+            x.numel() * 4 + sum(kk * nn + 8 * nn for kk, nn in shapes)
+            + drow.numel() * 4 + m * net.out_dim * 4,
+            2 * m * sum(kk * nn for kk, nn in shapes),
+            f"M={m}, mrf-fpga, denorm"),
+        "qat_dense": (
+            lambda: kernel.qat_dense_call(xq, w, b, s),
+            lambda: ref.ref_qat_dense(xq, w, b, s),
+            m * k + k * n + 4 * n + 4 * n + m * n, 2 * m * k * n,
+            f"M={m}, K={k}, N={n}, relu")}
+    out = {}
+    for name, (call, plain, nbytes, nops, shape) in cases.items():
+        counter = (fused.fused_forward_call if name == "fused_forward"
+                   else kernel.qat_dense_call)
+        saved = counter.launches
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / INT8_OPS_PER_S * 1e3
+        out[name] = {"ms": device_ms(call, f"{name}_kernel",
+                                     label=f"{name} M={m}"),
+                     "wall_ms": event_ms(call),
+                     "plain_ms": device_ms(plain, None, reps=5),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "shape": shape, "bytes": nbytes, "ops": nops}
+        counter.launches = saved
+    return out
+
+
+def timing_phase(net, int_layers, launches: dict, errs: dict,
+                 device) -> list:
+    """Phase 5 for the serving kernels: B4 and B5 at the served bucket
+    (M=1024) and at a whole wave (M=281,600, the launcher's wave of 8
+    slices, in ``wave``), beside the launch floor (``launch_floor_ms``)."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    floor = launch_floor_ms()
+    tile = int8_times(net, int_layers, BUCKETS[-1], gen, device)
+    wave = int8_times(net, int_layers, WAVE_VOXELS, gen, device)
+    rows = []
+    for name, src, replaces in (
+            ("fused_forward", "src/repro_torch/csrc/fused_forward.cu",
+             "src/repro/kernels/qat_dense/fused.py:68"),
+            ("qat_dense", "src/repro_torch/csrc/qat_dense.cu",
+             "src/repro/kernels/qat_dense/kernel.py:64")):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "library_ms": None, "wall_ms": t["wall_ms"],
-                     "shape": (f"M={m}, mrf-fpga, denorm" if name == "fused_forward"
-                               else f"M={m}, K={k}, N={n}, relu"),
-                     "bytes": nbytes, "ops": nops})
+                     "max_abs_err": errs[name], **tile[name],
+                     "library_ms": None, "launch_floor_ms": floor,
+                     "wave": wave[name]})
     return rows
 
 
@@ -1382,14 +1497,16 @@ def main() -> int:
                                      "arning")):
                 log(f"  ptxas {kname}: {ln.strip()}")
 
-    check_b6_sass(build)
+    check_sass(build)
 
     from repro_torch.core import mrf_net
     layers = {arch: calibrated_net(hidden, 1, device)
               for arch, hidden in (("mrf-fpga", mrf_net.ADAPTED_HIDDEN),
-                                   ("mrf-original", mrf_net.ORIGINAL_HIDDEN))}
+                                   ("mrf-original", mrf_net.ORIGINAL_HIDDEN),
+                                   ("wide (256, 256, 32)", (256, 256, 32)))}
     nets = {arch: ops.prepad_int_layers(ls) for arch, ls in layers.items()}
     errs = check_kernels(nets, device)
+    check_training_data(device)
     errs.update(check_training_kernels(device))
     errs["flash_attn"] = check_flash_attention(device)
     flash_row = flash_attention_timing(errs["flash_attn"], device)
@@ -1426,14 +1543,23 @@ def main() -> int:
         if r["library_ms"] is not None:
             log(f"  {r['name']}: library call {r['library_ms']:.6f} ms on the "
                 f"device, {r['launches']} launches on the main path")
+        if "wave" in r:
+            w = r["wave"]
+            log(f"time {r['name']} ({w['shape']}): {w['ms']:.6f} ms on the "
+                f"device, {w['wall_ms']:.6f} ms per call, plain "
+                f"{w['plain_ms']:.6f} ms, bound {w['bound_ms']:.6f} ms "
+                f"({w['bound_by']}); launch floor {r['launch_floor_ms']:.6f} "
+                f"ms; {r['launches']} launches on the main path  [{smi}]")
         if "samples" in r:
             per_sample = r["ms"] / r["samples"]
             log(f"  {r['name']}: cluster {r['cluster']}, "
                 f"{per_sample * 1e3:.4f} us a sample, one-SM bound "
                 f"{r['bound_one_sm_ms']:.6f} ms, {r['cluster']} SMs' "
                 f"{r['bound_c_sms_ms']:.6f} ms; projection, not a "
-                f"measurement: 250 M samples x {per_sample * 1e3:.4f} us = "
-                f"{per_sample * 250e6 / 1e3:.1f} s")
+                f"measurement, for the {r['algorithm']}: 250 M samples x "
+                f"{per_sample * 1e3:.4f} us = {per_sample * 250e6 / 1e3:.1f} "
+                f"s (the FPGA's stated 200 s: 160 cycles a sample at "
+                f"200 MHz)")
             for b in r["by_cluster"]:
                 log(f"  {r['name']} cluster {b['cluster']}: " + (
                     f"{b['ms']:.6f} ms on the device, {b['cluster']} SMs' "

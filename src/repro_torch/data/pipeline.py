@@ -59,9 +59,14 @@ def sample_batch(stream: MRFSampleStream, generator: torch.Generator):
     t2 = torch.minimum(t2, t1)  # T2 <= T1 (physical constraint in tissue)
     sig = simulate_fingerprints(stream.seq, t1, t2, device=dev)
     sig = augment(generator, sig, stream.snr_range)
-    x = to_features(sig)
-    y = torch.stack([t1 / hi1, t2 / hi2], dim=-1).to(torch.float32)
-    return x, y
+    return to_features(sig), targets(stream, t1, t2)
+
+
+def targets(stream: MRFSampleStream, t1, t2) -> torch.Tensor:
+    """(B, 2) fp32 targets in NORMALISED units, (T1/T1_max, T2/T2_max), on
+    ``t1``'s device."""
+    hi1, hi2 = stream.t1_range[1], stream.t2_range[1]
+    return torch.stack([t1 / hi1, t2 / hi2], dim=-1).to(torch.float32)
 
 
 def batch_seed(seed: int, step: int) -> int:

@@ -4,8 +4,9 @@ Each source under ``src/repro_torch/csrc/`` is compiled on first use by its
 own ``nvcc`` process into a shared library with a plain C interface, and
 loaded with ``ctypes``.  Libraries go into ``build/repro_torch_kernels/``
 at the checkout root (listed in ``.gitignore``), in a directory keyed by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.
+hash of the flags, the source and every header it includes from
+``csrc/`` (``#include "..."``, followed through headers), so an edited
+source or header rebuilds and an unchanged one is reused.
 
 ``--use_fast_math`` is never passed: it makes ``/`` approximate and
 flushes denormals, which breaks bit-exactness against the integer oracle.
@@ -18,6 +19,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -31,6 +33,9 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 SOURCES = {"qat_dense": "qat_dense.cu", "fused_forward": "fused_forward.cu",
            "fused_train": "fused_train.cu", "flash_attn": "flash_attn.cu",
            "flash_attn_sm90": "flash_attn_sm90.cu"}
+
+#: bytes of shared memory a block may use on sm_90
+SMEM_MAX = 232_448
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -49,11 +54,29 @@ def cuda_tool(name: str = "nvcc") -> str:
                        f"CUDA kernels cannot be built or read")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(source: str) -> list:
+    """The headers under ``csrc/`` that ``source`` includes with
+    ``#include "..."``, directly or through another such header, sorted."""
+    found, todo = set(), [CSRC / source]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_bytes()):
+            path = CSRC / inc.decode()
+            if path.is_file() and path not in found:
+                found.add(path)
+                todo.append(path)
+    return sorted(found)
+
+
 def library_path(name: str) -> pathlib.Path:
-    """Where kernel ``name``'s library lives: keyed by its source and the
-    flags, so an edited source builds anew."""
+    """Where kernel ``name``'s library lives: keyed by the flags, its
+    source and the headers it includes, so an edit to any of them builds
+    anew."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / SOURCES[name]).read_bytes())
+    for path in (CSRC / SOURCES[name], *included_headers(SOURCES[name])):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
 

@@ -1,10 +1,12 @@
 """Wrapper of the int8 dense CUDA kernel (``csrc/qat_dense.cu``), the port of
 ``repro.kernels.qat_dense.kernel.qat_dense_call``.
 
-Tiled int8 x int8 -> int32 dense layer with the fused epilogue (bias,
-fp32 rescale, round half to even, clamp to int8 — or fp32 out for the
-float head), bit-exact against ``ref.ref_qat_dense``.  The kernel masks
-ragged M/N/K edges itself, so no operand is padded.
+Int8 x int8 -> int32 dense layer on the int8 tensor cores with the fused
+epilogue (bias, fp32 rescale, round half to even, clamp to int8 — or fp32
+out for the float head), bit-exact against ``ref.ref_qat_dense``.  The
+kernel masks ragged M/N/K edges itself, so no operand is padded.  Each
+block holds a (K, slab) slice of the weights in shared memory
+(:func:`smem_bytes`); a K whose slice does not fit is refused.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.  ``qat_dense_call.launches`` counts kernel launches.
@@ -20,7 +22,15 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.qat_dense.ref import ref_qat_dense
 
-_GRID_Y_MAX = 65535  # CUDA's limit on gridDim.y (64-row tiles of M)
+
+def smem_bytes(k: int, n: int) -> int:
+    """Shared memory of a launch (``slab_smem`` in the .cu): the block's
+    weight slab of 16, 32 or 64 columns (the narrowest that covers N, up
+    to 64) as B fragments, K padded to 32, plus the slab's bias and
+    scale."""
+    n16 = -(-n // 16)
+    nt = 2 * (1 if n16 <= 1 else 2 if n16 == 2 else 4)
+    return -(-k // 32) * nt * 256 + 64 * nt
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,9 +60,10 @@ def _check(x_q, w_q, b_q, scale):
         raise ValueError(f"shape mismatch: x {tuple(x_q.shape)}, w "
                          f"{tuple(w_q.shape)}, b {tuple(b_q.shape)}, scale "
                          f"{tuple(scale.shape)}")
-    if -(-m // 64) > _GRID_Y_MAX:
-        raise ValueError(f"M={m} exceeds the kernel's grid ({_GRID_Y_MAX} "
-                         f"tiles of 64 rows)")
+    if smem_bytes(k, w_q.shape[1]) > build.SMEM_MAX:
+        raise ValueError(f"K={k} is too deep for the kernel's weight slab "
+                         f"({smem_bytes(k, w_q.shape[1])} B of shared memory, "
+                         f"{build.SMEM_MAX} B a block)")
 
 
 def qat_dense_call(x_q, w_q, b_q, scale, *, relu: bool = True,

@@ -32,8 +32,10 @@ from repro_torch.kernels.qat_dense.kernel import qat_dense_call
 # sum of an int8 x int8 dot stays exact below this.
 _F32_EXACT_LIMIT = float(2 ** 24)
 
-#: K and N are padded to multiples of this: four int8 make one 32-bit word
-#: of the kernels' __dp4a dot
+#: K and N of the layered chain are padded to multiples of this, so that
+#: every int8 activation row is a whole number of 32-bit words (B5 then
+#: loads them 4 or 8 bytes at a time); the fused kernel's image pads
+#: further, K to 32 and N to 8 (``fused.pack_image``)
 PAD = 4
 
 
@@ -124,7 +126,8 @@ class PaddedInt8Net:
     and ``s_p`` (Np,) fp32 — requant multipliers for hidden layers, the
     head scale for the last — with Kp, Np multiples of :data:`PAD`.
     ``image`` is the same net as the fused kernel's shared-memory image
-    (uint8 on the device); ``act_words`` its widest activation in words.
+    (uint8 on the device); ``act_chunks`` its widest activation in 32-wide
+    chunks.
     """
 
     packed: tuple          # flat (w_p, b_p, s_p) * n_layers, on the device
@@ -135,7 +138,7 @@ class PaddedInt8Net:
     in_dim_p: int          # padded fan-in
     out_dim: int           # true fan-out of the head
     image: torch.Tensor
-    act_words: int
+    act_chunks: int
 
     @property
     def padded_widths(self) -> tuple:
@@ -168,7 +171,7 @@ def prepad_int_layers(int_layers) -> PaddedInt8Net:
         sp = _pad_to(torch.from_numpy(scale.astype(np.float32)).to(dev),
                      PAD, 0).contiguous()
         packed.extend((wp, bp, sp))
-    image, act_words = pack_image(packed)
+    image, act_chunks = pack_image(packed)
     s_in_host = float(np.float32(int_layers[0].s_in.cpu()))
     return PaddedInt8Net(
         packed=tuple(packed),
@@ -177,7 +180,7 @@ def prepad_int_layers(int_layers) -> PaddedInt8Net:
         in_dim=int(int_layers[0].w_q.shape[0]),
         in_dim_p=int(packed[0].shape[0]),
         out_dim=int(int_layers[-1].w_q.shape[1]),
-        image=torch.from_numpy(image).to(dev), act_words=act_words)
+        image=torch.from_numpy(image).to(dev), act_chunks=act_chunks)
 
 
 def int_forward_fused(net, x, *, denorm_scale=None):

@@ -40,10 +40,12 @@ def _net(hidden, device):
     return ops.prepad_int_layers(qat.export_int8(params, qs))
 
 
-# the wide net's image (~90 KB) needs the dynamic shared-memory limit raised
+# every serving bucket, a whole wave of 8 slices (281,600 voxels), and
+# ragged tiles; the wide net's image (~90 KB) needs the dynamic
+# shared-memory limit raised
 @pytest.mark.parametrize("hidden", [mrf_net.ADAPTED_HIDDEN,
                                     mrf_net.ORIGINAL_HIDDEN, (256, 256, 32)])
-@pytest.mark.parametrize("m", [1, 129, 1024])
+@pytest.mark.parametrize("m", [1, 129, 128, 256, 512, 1024, 281_600])
 def test_fused_forward_matches_plain(cuda, hidden, m):
     net = _net(hidden, cuda)
     x = torch.randn((m, 64), device=cuda)
@@ -57,25 +59,47 @@ def test_fused_forward_matches_plain(cuda, hidden, m):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mkn", [(1024, 64, 64), (130, 200, 300), (1, 4, 4)])
+def _dense_case(mkn, device):
+    m, k, n = mkn
+    g = torch.Generator(device=device).manual_seed(sum(mkn))
+    x = torch.randint(-128, 128, (m, k), generator=g, device=device,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=device,
+                      dtype=torch.int8)
+    b = torch.randint(-2048, 2048, (n,), generator=g, device=device,
+                      dtype=torch.int32)
+    s = torch.rand((n,), generator=g, device=device) * 1e-2 + 1e-4
+    return x, w, b, s
+
+
+# K and N that are not multiples of 32 and 8 (and of 4 and 2), a whole
+# wave's M, and a K deeper than one 64-column slab's default
+@pytest.mark.parametrize("mkn", [(1024, 64, 64), (130, 200, 300), (1, 4, 4),
+                                 (33, 72, 20), (5, 37, 13), (77, 30, 6),
+                                 (281_600, 64, 64), (300, 1000, 70)])
 @pytest.mark.parametrize("relu,float_out",
                          [(True, False), (False, False), (False, True)])
 def test_qat_dense_matches_plain(cuda, mkn, relu, float_out):
-    m, k, n = mkn
-    g = torch.Generator(device=cuda).manual_seed(sum(mkn))
-    x = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
-                      dtype=torch.int8)
-    w = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
-                      dtype=torch.int8)
-    b = torch.randint(-2048, 2048, (n,), generator=g, device=cuda,
-                      dtype=torch.int32)
-    s = torch.rand((n,), generator=g, device=cuda) * 1e-2 + 1e-4
+    x, w, b, s = _dense_case(mkn, cuda)
     before = kernel.qat_dense_call.launches
     got = kernel.qat_dense_call(x, w, b, s, relu=relu, float_out=float_out)
     want = ref.ref_qat_dense(x, w, b, s, relu=relu, float_out=float_out)
     torch.cuda.synchronize()
     assert kernel.qat_dense_call.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [1024, 281_600])
+def test_int8_kernels_repeat_bit_for_bit(cuda, m):
+    """A second launch on the same inputs equals the first, bit for bit."""
+    net = _net(mrf_net.ADAPTED_HIDDEN, cuda)
+    x = torch.randn((m, 64), device=cuda)
+    drow = torch.tensor([4000.0, 600.0], device=cuda)
+    first = fused.fused_forward_call(x, net, drow=drow)
+    assert torch.equal(fused.fused_forward_call(x, net, drow=drow), first)
+    xq, w, b, s = _dense_case((m, 64, 64), cuda)
+    first = kernel.qat_dense_call(xq, w, b, s)
+    assert torch.equal(kernel.qat_dense_call(xq, w, b, s), first)
 
 
 def test_empty_outputs_launch_and_count_nothing(cuda):
@@ -108,6 +132,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernel.qat_dense_call(x.float(), w, b, s)
     with pytest.raises(ValueError):
         kernel.qat_dense_call(x, w, b.cpu(), s)
+    deep = torch.zeros((4, 8192), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="too deep"):
+        kernel.qat_dense_call(deep, torch.zeros((8192, 64), dtype=torch.int8,
+                                                device=cuda),
+                              torch.zeros((64,), dtype=torch.int32,
+                                          device=cuda),
+                              torch.ones((64,), device=cuda))
 
 
 # --------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 * The port imports neither JAX nor the JAX package — nor does
   ``chip_smoke.py``.
-* Every CUDA source that kernels.build names exists, and the flags keep IEEE
+* Every CUDA source that kernels.build names exists, every header is
+  included by a source (and so keys its build), and the flags keep IEEE
   arithmetic (no fast math) for ``sm_90a``.
 * Devices are explicit: asking for CUDA without a card raises instead of
   falling back to the CPU.
@@ -85,6 +86,36 @@ def test_kernel_sources_exist_and_build_flags_are_exact():
         text = (build.CSRC / name).read_text()
         for tpu_file in tpu_files:
             assert tpu_file in text and (ROOT / tpu_file).is_file()
+    # every header is included by some source, so it enters that source's
+    # build key (build.library_path)
+    headers = set(build.CSRC.glob("*.cuh"))
+    included = {h for src in build.SOURCES.values()
+                for h in build.included_headers(src)}
+    assert headers == included
+    for h in headers:
+        assert "roundf(" not in h.read_text().replace("rintf(", "")
+
+
+def test_library_path_keys_on_included_headers(tmp_path, monkeypatch):
+    """Editing a header a source includes (directly or through another
+    header) moves the library to a new path, so no stale build is reused;
+    editing a header nobody includes does not."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b = 1;\n")
+    (tmp_path / "c.cuh").write_text("int c = 1;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "SOURCES", {"k": "k.cu"})
+    assert build.included_headers("k.cu") == [tmp_path / "a.cuh",
+                                              tmp_path / "b.cuh"]
+    first = build.library_path("k")
+    (tmp_path / "c.cuh").write_text("int c = 2;\n")
+    assert build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("int b = 2;\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// x\n')
+    assert build.library_path("k") not in (first, second)
 
 
 def test_int8_impl_resolution_has_no_rig_fallback():
