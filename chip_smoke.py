@@ -45,7 +45,21 @@ final result line):
    through the launcher — sync and pipelined via the fused kernel, sync via
    the layered kernel chain, and mrf-original via the fused kernel — each
    run checked bit for bit against the CPU integer oracle, with the kernels'
-   launch counts read just before and after;
+   launch counts read just before and after; a run whose report says
+   ``degraded`` or counts a kernel failure fails (a circuit-breaker trip
+   outside the chaos phase is a fault, never a quiet pass);
+4a. the serving robustness layer through the launcher's chaos path
+   (``chaos_phase``): mrf-fpga int8, fused, pipelined, adaptive, 16
+   requests of one 256x256 slice (35,200 tissue voxels) under a pending-
+   voxel budget of 8 slices and a wave cap of 2, with a fault schedule
+   that fires every kind (``CHAOS_SCHEDULE``): every ticket ends in one
+   terminal state, 8 are shed ``queue_full``, exactly the poisoned request
+   fails, the breaker trips from B4 to B5, B4's launches equal the tiles
+   served before the trip and B5's 7 x the tiles after it (the launcher's
+   fault-free reference on B5 included), and every served map equals
+   fault-free serving and the CPU integer oracle bit for bit; then a float
+   run with one ``kernel_fail`` that has nothing to trip to and serves
+   through the retry path;
 4b. the training path through the launcher at full width, batch 256, tile
    128 — fused SGD and Adam chunked (50 steps per launch), fused SGD
    stepwise, float, qat-int8 and fused mrf-original — each with its launch
@@ -73,7 +87,9 @@ final result line):
    the device time of a one-element ``fill_`` (the launch floor); B1-B3
    also at each cluster size 1, 2, 4, 8, 16.
 
-The last two lines are ``{"kernels": [...]}`` and
+Before them, ``chaos_run {json}`` records the chaos phase: states, waves,
+retries, slow waves, the final depth and wave cap, voxels/s, p50/p99 and
+both kernels' launches.  The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -319,10 +335,13 @@ def check_training_data(device) -> float:
     return max(errs.values())
 
 
-def serve(argv, expect: str = "oracle: bit-exact") -> dict:
+def serve(argv, expect: str = "oracle: bit-exact",
+          chaos: bool = False) -> dict:
     """One launcher run with the kernels' counts reset just before it;
     returns its report plus the counts read just after.  ``expect``: the
-    launcher's line that says its maps passed their check."""
+    launcher's line that says its maps passed their check.  Outside the
+    chaos phase a run that reports a kernel failure or a breaker trip
+    fails."""
     from repro_torch.kernels.qat_dense import fused, kernel
     from repro_torch.launch import serve as launcher
 
@@ -342,7 +361,19 @@ def serve(argv, expect: str = "oracle: bit-exact") -> dict:
         fail(f"launcher {' '.join(argv)}: no oracle check / report")
     report = json.loads(lines[-1].split(" ", 1)[1])
     report["launches"] = counts
+    if not chaos and (report["degraded"] or report["n_kernel_failures"]):
+        fail(f"launcher {' '.join(argv)}: degraded "
+             f"{report['degraded']}, {report['n_kernel_failures']} kernel "
+             f"failures outside the chaos phase")
     return report
+
+
+def int8_launches(report, n_layers: int) -> dict:
+    """The launches a run's tiles ask for: one B4 launch a fused tile, one
+    B5 launch a layer of a layered tile."""
+    tiles = report["tiles_by_impl"]
+    return {"fused_forward": tiles.get("fused", 0),
+            "qat_dense": tiles.get("layered", 0) * n_layers}
 
 
 def serve_phase(tmp: pathlib.Path, device) -> dict:
@@ -367,11 +398,8 @@ def serve_phase(tmp: pathlib.Path, device) -> dict:
         rep = serve(["--arch", arch, *base, "--artifact", str(paths[arch]),
                      "--int8-impl", impl, "--serve-mode", mode,
                      "--requests", str(n_req)])
-        n_layers = 7 if arch == "mrf-fpga" else 9
-        want = ({"fused_forward": rep["tiles"], "qat_dense": 0}
-                if impl == "fused" else
-                {"fused_forward": 0, "qat_dense": rep["tiles"] * n_layers})
-        if rep["launches"] != want:
+        want = int8_launches(rep, 7 if arch == "mrf-fpga" else 9)
+        if rep["launches"] != want or set(rep["tiles_by_impl"]) != {impl}:
             fail(f"{arch} {impl} {mode}: launches {rep['launches']}, "
                  f"expected {want} for {rep['tiles']} tiles")
         for k, v in rep["launches"].items():
@@ -381,6 +409,87 @@ def serve_phase(tmp: pathlib.Path, device) -> dict:
             f"p99 {rep['p99_ms']} ms, {rep['tiles']} tiles, launches "
             f"{rep['launches']}")
     return launches
+
+
+# every fault kind once: the transient dispatch fault sends wave 0's two
+# slices to solo retries (waves 1 and 2), the kernel failure trips the
+# breaker on wave 2 after wave 1 ran on B4, the timeout hits wave 3, whose
+# slices are all fresh and retry alone, and slice-7 is poisoned at assembly
+# (no retry there), so it alone fails
+CHAOS_SCHEDULE = [{"kind": "dispatch_raise", "wave": 0},
+                  {"kind": "kernel_fail", "wave": 2},
+                  {"kind": "tile_timeout", "wave": 3},
+                  {"kind": "slow_wave", "wave": 4},
+                  {"kind": "assembly_corrupt", "request_id": "slice-7"}]
+SLICE_VOXELS = 35_200       # tissue voxels of a 256 x 256 phantom slice
+
+
+def chaos_phase(tmp: pathlib.Path, device) -> dict:
+    """Phase 4a: the serving robustness layer through the launcher's chaos
+    path at full mrf-fpga width; returns its record for ``chaos_run``."""
+    from repro_torch.core import mrf_net, qat
+    from repro_torch.serve.faults import FAULT_KINDS
+
+    path = qat.save_int8_artifact(
+        tmp / "chaos_int8", calibrated_net(mrf_net.ADAPTED_HIDDEN, 0, device))
+    n_req, admitted = 16, 8
+    rep = serve(["--arch", "mrf-fpga", "--backend", "int8", "--device",
+                 "cuda", "--phantom-n", "256", "--artifact", str(path),
+                 "--int8-impl", "fused", "--serve-mode", "pipelined",
+                 "--requests", str(n_req),
+                 "--max-wave-voxels", str(2 * SLICE_VOXELS),
+                 "--max-pending-voxels", str(admitted * SLICE_VOXELS),
+                 "--fault-schedule", json.dumps(CHAOS_SCHEDULE),
+                 "--adaptive", "--wave-timeout-ms", "1000",
+                 "--expect-shed", "--expect-degraded"], chaos=True)
+    states = (rep["n_done"], rep["n_failed"], rep["n_shed"])
+    if sum(states) != n_req or states != (admitted - 1, 1, n_req - admitted):
+        fail(f"chaos: done/failed/shed {states}, expected "
+             f"{(admitted - 1, 1, n_req - admitted)} of {n_req}")
+    if rep["failed_ids"] != ["slice-7"]:
+        fail(f"chaos: failed {rep['failed_ids']}, expected the poisoned "
+             f"slice-7 alone")
+    fired = {kind for _, kind in rep["fired"]}
+    if fired != set(FAULT_KINDS):
+        fail(f"chaos: fired {sorted(fired)}, expected every kind")
+    if not rep["degraded"] or rep["n_kernel_failures"] != 1:
+        fail(f"chaos: degraded {rep['degraded']}, "
+             f"{rep['n_kernel_failures']} kernel failures; expected one trip")
+    if rep["launches"] != int8_launches(rep, 7):
+        fail(f"chaos: launches {rep['launches']} for tiles "
+             f"{rep['tiles_by_impl']}")
+    ours = rep["chaos_tiles_by_impl"]
+    if min(ours.get("fused", 0), ours.get("layered", 0)) <= 0:
+        fail(f"chaos: the engine's tiles by implementation {ours}: B4 must "
+             f"serve before the trip and B5 after it")
+    log(f"chaos: done/failed/shed {states}, {rep['waves']} waves, "
+        f"{rep['retries']} retries, {rep['n_slow_waves']} slow, depth "
+        f"{rep['inflight_depth']}, cap {rep['max_wave_voxels']}, "
+        f"{rep['voxels_per_s']} voxels/s, p50 {rep['p50_ms']} ms, p99 "
+        f"{rep['p99_ms']} ms, tiles {rep['tiles_by_impl']} (chaos engine "
+        f"{ours}), launches {rep['launches']}")
+
+    rep_f = serve(["--arch", "mrf-fpga", "--backend", "float", "--device",
+                   "cuda", "--phantom-n", "64", "--requests", "4",
+                   "--train-steps", "30", "--fault-schedule",
+                   json.dumps([{"kind": "kernel_fail", "wave": 0}])],
+                  expect="float engine == mrf_net.forward oracle", chaos=True)
+    if (rep_f["degraded"] or rep_f["n_kernel_failures"] != 1
+            or rep_f["retries"] < 1 or rep_f["n_done"] != 4
+            or any(rep_f["launches"].values())):
+        fail(f"chaos float: degraded {rep_f['degraded']}, "
+             f"{rep_f['n_kernel_failures']} kernel failures, "
+             f"{rep_f['retries']} retries, {rep_f['n_done']} done, launches "
+             f"{rep_f['launches']}; expected the retry path, no trip")
+    log(f"chaos float: kernel_fail took the retry path ({rep_f['retries']} "
+        f"retries, {rep_f['n_done']} served, not degraded)")
+    keep = ("n_done", "n_failed", "n_shed", "waves", "retries",
+            "n_slow_waves", "inflight_depth", "max_wave_voxels",
+            "voxels_per_s", "p50_ms", "p99_ms", "launches", "tiles_by_impl",
+            "chaos_tiles_by_impl", "degraded", "n_kernel_failures", "fired")
+    return {**{k: rep[k] for k in keep},
+            "float_run": {k: rep_f[k] for k in (
+                "n_done", "retries", "degraded", "n_kernel_failures")}}
 
 
 def train_counters() -> dict:
@@ -890,11 +999,14 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
     first 1-4 of 10 back-to-back launches of the ms-long training kernel,
     the only launch of a one-launch session, 1 of 30 launches of B5 —
     whatever idle time or lead-in kernel opened the session, in this
-    process or a new one — and once every record of a session (the
-    per-sample plain version's ~150,000 small kernels).  So a short count
-    is logged (``label`` names the call), not fatal, and a session that
-    recorded nothing is taken again, at most twice; a sum over
-    ``kernel=None`` may read low.
+    process or a new one — later in a long process up to 11 of 20 launches
+    of the training kernel, and once every record of a session (the
+    per-sample plain version's ~150,000 small kernels).  So a session
+    timing ``kernel`` first makes ``reps`` launches of its own, whose
+    records absorb that loss, and keeps the last ``reps`` records of
+    ``kernel``; a short count is logged (``label`` names the call), not
+    fatal, and a session that recorded nothing is taken again, at most
+    twice; a sum over ``kernel=None`` may read low.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -904,6 +1016,8 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
     torch.cuda.synchronize()
     for _ in range(3):  # a session that recorded nothing is taken again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps if kernel is not None else 0):
+                fn()  # the session's own warm-up (see above)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -916,8 +1030,14 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
         fail("the profiler recorded no device activity: no device time")
     if kernel is None:
         return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
-    durs = [e.time_range.elapsed_us() for e in evs if kernel in e.name]
-    if not reps // 2 <= len(durs) <= reps:
+    recorded = [e.time_range.elapsed_us()
+                for e in sorted(evs, key=lambda e: e.time_range.start)
+                if kernel in e.name]
+    if len(recorded) > 2 * reps:
+        fail(f"{label}: profiler saw {len(recorded)} launches of {kernel} "
+             f"in {2 * reps} calls")
+    durs = recorded[-reps:]
+    if len(durs) < reps // 2:
         fail(f"{label}: profiler saw {len(durs)} launches of {kernel} in "
              f"{reps}")
     if len(durs) < reps:
@@ -1513,6 +1633,11 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = serve_phase(pathlib.Path(tmp), device)
+        t_chaos = time.perf_counter()
+        chaos = chaos_phase(pathlib.Path(tmp), device)
+        for kname, n in chaos["launches"].items():
+            launches[kname] += n
+        log(f"chaos phase: {time.perf_counter() - t_chaos:.1f} s")
         t_train = time.perf_counter()
         train_launches, reports = train_phase(pathlib.Path(tmp), device)
         launches["fused_forward"] += train_then_serve(device)
@@ -1577,6 +1702,7 @@ def main() -> int:
     for rep in token_reports:
         log("token_run " + json.dumps(
             {k: v for k, v in rep.items() if k != "tokens"}))
+    log("chaos_run " + json.dumps(chaos))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -23,8 +23,8 @@ class Ewma:
     """Exponentially-weighted moving average over a stream of observations.
 
     ``value = alpha * value + (1 - alpha) * x`` — the first observation
-    seeds the average.  The serving admission of the JAX package reuses
-    it; the port's arrives with the serving robustness slice.
+    seeds the average.  The serving layer's admission policy and adaptive
+    controller (``serve.admission``) reuse it.
     """
 
     alpha: float = 0.9

@@ -26,13 +26,30 @@ copy within rtol 1e-5 of the map's scale.  ``--serve-mode pipelined``
 serves the same trace through the double-buffered executor and also
 asserts that its maps are bit-identical to sync serving.
 
+Chaos run: ``--fault-schedule`` (a ``serve.faults`` JSON schedule) and/or
+the admission knobs (``--max-pending-voxels``, ``--shed-deadline-ms``)
+switch the MRF family onto the overload/fault accounting path — no warm-up
+wave, enqueue everything, drain through the injected faults, then audit:
+every ticket landed in exactly one terminal state (done/failed/shed),
+something was served, and every served map equals fault-free serving on
+the implementation the engine ended on (bit for bit for int8) and the
+oracle above.  ``--adaptive`` tunes the in-flight depth and the wave cap
+live (pipelined only), ``--wave-timeout-ms`` counts slow waves.
+``--expect-shed`` / ``--expect-degraded`` fail the run unless load
+shedding / the circuit breaker (the fused kernel B4 giving way to the
+layered chain B5) actually engaged.
+
 For the MRF family the last line printed is ``serve_report {json}``:
-throughput, latency percentiles and the tiles served.
+throughput, latency percentiles, the tiles each implementation served and
+the engine's health counters (``degraded``, ``n_kernel_failures``,
+``n_shed_total``, ``n_slow_waves``); a chaos run adds the tickets' states,
+retries, the fired faults and the final depth and wave cap.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import tempfile
 import time
@@ -46,12 +63,37 @@ from repro_torch.data.epg import default_sequence
 from repro_torch.data.phantom import acquire_slice, make_phantom, tissue_errors
 from repro_torch.data.pipeline import denormalize_targets
 from repro_torch.kernels.common import disable_tf32, resolve_device
+from repro_torch.serve.admission import AdmissionPolicy
+from repro_torch.serve.faults import FaultInjector
+from repro_torch.serve.queue import RequestState
 from repro_torch.serve.recon import (ReconEngine, ReconRequest,
                                      latency_percentiles)
+
+#: health() counters every serve_report carries
+HEALTH_KEYS = ("degraded", "n_kernel_failures", "n_shed_total",
+               "n_slow_waves")
 
 
 def _maps_equal(a, b) -> bool:
     return np.array_equal(a.t1_ms, b.t1_ms) and np.array_equal(a.t2_ms, b.t2_ms)
+
+
+def _float_err(got, want) -> float:
+    """Largest difference of two (n, 2) float map sets, over each map's
+    scale."""
+    worst = 0.0
+    for j in range(want.shape[1]):
+        scale = max(float(np.abs(want[:, j]).max()), 1e-30)
+        worst = max(worst, float(np.abs(got[:, j] - want[:, j]).max())
+                    / scale)
+    return worst
+
+
+def _maps_close(a, b) -> bool:
+    """Float maps within 1e-5 of each map's scale."""
+    def stack(r):
+        return np.stack([r.t1_ms.ravel(), r.t2_ms.ravel()], 1)
+    return _float_err(stack(a), stack(b)) <= 1e-5
 
 
 def _train_mrf(args, cfg, device, *, qat_mode: bool):
@@ -158,6 +200,134 @@ def serve_tokens(args, cfg) -> int:
     return 0
 
 
+def _check_oracle(backend, requests, results, vox, ints_cpu, params) -> bool:
+    """Every served map against the plain oracle on a CPU copy, so the
+    check does not run through the kernel it checks: the integer oracle
+    ``qat.int_forward`` bit for bit (the paper's FPGA-vs-Python
+    criterion), or ``mrf_net.forward`` within 1e-5 of the map's scale
+    (fp32 sums run in another order on the card)."""
+    if backend == "int8":
+        for r, got in zip(requests, results):
+            want = denormalize_targets(
+                qat.int_forward(ints_cpu, r.features.cpu())).numpy()
+            if not (np.array_equal(got.t1_ms[vox], want[:, 0])
+                    and np.array_equal(got.t2_ms[vox], want[:, 1])):
+                print(f"FAIL: int8 engine diverges from qat.int_forward "
+                      f"oracle ({r.request_id})")
+                return False
+        print(f"int8 engine == qat.int_forward oracle: bit-exact "
+              f"({len(requests)} requests)")
+        return True
+    p_cpu = [{k: v.detach().cpu() for k, v in layer.items()}
+             for layer in params]
+    worst = 0.0
+    for r, got in zip(requests, results):
+        with torch.no_grad():
+            want = denormalize_targets(
+                mrf_net.forward(p_cpu, r.features.cpu())).numpy()
+        worst = max(worst, _float_err(
+            np.stack([got.t1_ms[vox], got.t2_ms[vox]], 1), want))
+    if worst > 1e-5:
+        print(f"FAIL: float engine diverges from mrf_net.forward: "
+              f"max error {worst:.3g} of the map's scale > 1e-5")
+        return False
+    print(f"float engine == mrf_net.forward oracle: max error "
+          f"{worst:.3g} of the map's scale ({len(requests)} requests)")
+    return True
+
+
+def _report(args, cfg, engine, engines, requests, results, device) -> dict:
+    wave = engine.last_wave
+    pct = latency_percentiles(results)
+    tiles = collections.Counter()
+    for e in engines:
+        tiles.update(e.executor.tiles_by_impl)
+    health = engine.health()
+    return {"arch": cfg.name, "backend": args.backend,
+            "impl": engine.int8_impl, "mode": args.serve_mode,
+            "device": str(device), "requests": len(requests),
+            "voxels": wave["total_voxels"],
+            "voxels_per_s": wave["voxels_per_s"], "wall_s": wave["wall_s"],
+            "p50_ms": pct["p50_ms"], "p99_ms": pct["p99_ms"],
+            "tiles": sum(tiles.values()), "tiles_by_impl": dict(tiles),
+            **{k: health[k] for k in HEALTH_KEYS}}
+
+
+def _chaos_serve(args, cfg, engine, net_kw, requests, oracle, injector,
+                 device) -> int:
+    """Overload/fault accounting path: enqueue everything, drain through
+    the injected schedule, then audit the lifecycle ledger.
+
+    Enqueue-all-then-drain (not enqueue/poll interleaved) on purpose: the
+    pending backlog builds before any wave retires, so admission-policy
+    shedding is deterministic — the same requests shed every run.
+    """
+    tickets = [engine.enqueue(r) for r in requests]
+    engine.drain()
+    stats, health = engine.last_wave, engine.health()
+    states = collections.Counter(t.state for t in tickets)
+    print(f"chaos drain: done={states['done']} failed={states['failed']} "
+          f"shed={states['shed']} waves={stats['n_waves']} "
+          f"retries={stats['n_retries']} slow={health['n_slow_waves']} "
+          f"degraded={health['degraded']}")
+    for t in tickets:
+        if t.state == RequestState.SHED:
+            print(f"  shed   {t.request.request_id}: {t.shed_reason}")
+        elif t.state == RequestState.FAILED:
+            print(f"  failed {t.request.request_id}: {t.error}")
+    bad = [t for t in tickets if t.state not in RequestState.TERMINAL]
+    if bad:
+        print(f"FAIL: {len(bad)} ticket(s) stranded non-terminal: "
+              f"{[t.state for t in bad]}")
+        return 1
+    done = [t for t in tickets if t.state == RequestState.DONE]
+    if not done:
+        print("FAIL: chaos schedule starved the drain — nothing served")
+        return 1
+    # every served map against fault-free serving on the implementation
+    # the engine ended on: bit for bit for int8 (integer arithmetic does
+    # not depend on which wave or tile row a voxel rode in); float within
+    # 1e-5 of the map's scale, since a voxel's fp32 sums may run in
+    # another order in a tile of another shape
+    ref_kw = dict(net_kw)
+    if ref_kw["backend"] == "int8":
+        ref_kw["int8_impl"] = engine.int8_impl
+    ref = ReconEngine(**ref_kw)
+    for t in done:
+        want, = ref.reconstruct([t.request])
+        same = (_maps_equal if args.backend == "int8" else _maps_close)
+        if not same(t.result, want):
+            print(f"FAIL: served maps diverge from healthy serving "
+                  f"({t.request.request_id})")
+            return 1
+    print(f"served maps == healthy serving on {ref.int8_impl or 'float'}: "
+          f"{'bit-exact' if args.backend == 'int8' else 'within 1e-5'} "
+          f"({len(done)} requests)")
+    if not oracle([t.request for t in done], [t.result for t in done]):
+        return 1
+    if args.expect_shed and states["shed"] == 0:
+        print("FAIL: --expect-shed but the admission policy shed nothing")
+        return 1
+    if args.expect_degraded and not health["degraded"]:
+        print("FAIL: --expect-degraded but the circuit breaker never "
+              "tripped")
+        return 1
+    print("chaos smoke: clean drain, every ticket terminal")
+    report = _report(args, cfg, engine, [engine, ref], requests,
+                     [t.result for t in done], device)
+    report.update(
+        n_done=states["done"], n_failed=states["failed"],
+        n_shed=states["shed"], waves=stats["n_waves"],
+        retries=stats["n_retries"], inflight_depth=health["inflight_depth"],
+        max_wave_voxels=health["max_wave_voxels"],
+        chaos_tiles_by_impl=dict(engine.executor.tiles_by_impl),
+        fired=injector.fired if injector is not None else [],
+        failed_ids=[t.request.request_id for t in tickets
+                    if t.state == RequestState.FAILED])
+    print("serve_report " + json.dumps(report))
+    return 0
+
+
 def serve_mrf(args, cfg) -> int:
     """The MRF reconstruction family through the batched serving engine."""
     if args.backend not in ("float", "int8"):
@@ -187,9 +357,20 @@ def serve_mrf(args, cfg) -> int:
     else:
         params, _ = _train_mrf(args, cfg, device, qat_mode=False)
         net_kw = dict(backend="float", params=params, device=device)
+    injector = admission = None
+    if args.fault_schedule:
+        injector = FaultInjector(json.loads(args.fault_schedule))
+    if args.max_pending_voxels is not None or \
+            args.shed_deadline_ms is not None:
+        admission = AdmissionPolicy(max_pending_voxels=args.max_pending_voxels,
+                                    deadline_ms=args.shed_deadline_ms)
     engine = ReconEngine(mode=args.serve_mode,
                          max_wave_voxels=args.max_wave_voxels,
-                         max_wait_ms=args.max_wait_ms, **net_kw)
+                         max_wait_ms=args.max_wait_ms, admission=admission,
+                         injector=injector, adaptive=args.adaptive,
+                         wave_timeout_s=(args.wave_timeout_ms * 1e-3
+                                         if args.wave_timeout_ms is not None
+                                         else None), **net_kw)
     if args.backend == "int8":
         print(f"int8 impl: {engine.int8_impl} (requested {args.int8_impl}) "
               f"on {device}")
@@ -204,6 +385,18 @@ def serve_mrf(args, cfg) -> int:
                                    device=device)
         requests.append(ReconRequest(features=feats, mask=msk,
                                      request_id=f"slice-{i}"))
+    vox = np.asarray(mask, bool)
+
+    def oracle(reqs, results):
+        return _check_oracle(args.backend, reqs, results, vox, ints_cpu,
+                             params)
+
+    if injector is not None or admission is not None:
+        # no warm-up wave: it would consume fault-schedule wave indices and
+        # pre-feed the admission service rate
+        return _chaos_serve(args, cfg, engine, net_kw, requests, oracle,
+                            injector, device)
+
     engines = [engine]
 
     engine.reconstruct(requests)  # warmup wave (builds and loads kernels)
@@ -247,48 +440,9 @@ def serve_mrf(args, cfg) -> int:
         print(f"  {name:6s}: T1 err {e['T1_err_%']:5.1f}%   "
               f"T2 err {e['T2_err_%']:5.1f}%")
 
-    vox = np.asarray(mask, bool)
-    if args.backend == "int8":
-        # the acceptance check: every served map == the plain integer
-        # oracle on a CPU copy, bit for bit (the paper's FPGA-vs-Python
-        # criterion)
-        for r, got in zip(requests, results):
-            want = denormalize_targets(
-                qat.int_forward(ints_cpu, r.features.cpu())).numpy()
-            if not (np.array_equal(got.t1_ms[vox], want[:, 0])
-                    and np.array_equal(got.t2_ms[vox], want[:, 1])):
-                print(f"FAIL: int8 engine diverges from qat.int_forward "
-                      f"oracle ({r.request_id})")
-                return 1
-        print(f"int8 engine == qat.int_forward oracle: bit-exact "
-              f"({len(requests)} requests)")
-    else:
-        # fp32 sums run in another order on the card: rtol 1e-5 of the
-        # map's scale
-        p_cpu = [{k: v.detach().cpu() for k, v in layer.items()}
-                 for layer in params]
-        worst = 0.0
-        for r, got in zip(requests, results):
-            with torch.no_grad():
-                want = denormalize_targets(
-                    mrf_net.forward(p_cpu, r.features.cpu())).numpy()
-            for j, got_map in enumerate((got.t1_ms[vox], got.t2_ms[vox])):
-                scale = max(float(np.abs(want[:, j]).max()), 1e-30)
-                worst = max(worst, float(np.abs(got_map - want[:, j]).max())
-                            / scale)
-        if worst > 1e-5:
-            print(f"FAIL: float engine diverges from mrf_net.forward: "
-                  f"max error {worst:.3g} of the map's scale > 1e-5")
-            return 1
-        print(f"float engine == mrf_net.forward oracle: max error "
-              f"{worst:.3g} of the map's scale ({len(requests)} requests)")
-    report = {"arch": cfg.name, "backend": args.backend,
-              "impl": engine.int8_impl,
-              "mode": args.serve_mode, "device": str(device),
-              "requests": len(requests), "voxels": wave["total_voxels"],
-              "voxels_per_s": wave["voxels_per_s"], "wall_s": wave["wall_s"],
-              "p50_ms": pct["p50_ms"], "p99_ms": pct["p99_ms"],
-              "tiles": sum(e.executor.n_tiles_dispatched for e in engines)}
+    if not oracle(requests, results):
+        return 1
+    report = _report(args, cfg, engine, engines, requests, results, device)
     print("serve_report " + json.dumps(report))
     return 0
 
@@ -319,6 +473,28 @@ def main(argv=None) -> int:
     ap.add_argument("--max-wait-ms", type=float, default=None,
                     help="admission deadline from enqueue before a wave is "
                          "due (default: no deadline trigger)")
+    ap.add_argument("--fault-schedule", default=None,
+                    help="chaos: JSON list of serve.faults FaultSpec "
+                         'dicts, e.g. \'[{"kind": "kernel_fail", '
+                         '"wave": 0}]\' — switches to the chaos '
+                         "accounting path")
+    ap.add_argument("--max-pending-voxels", type=int, default=None,
+                    help="chaos: admission budget — shed arrivals that "
+                         "would push the pending backlog past this")
+    ap.add_argument("--shed-deadline-ms", type=float, default=None,
+                    help="chaos: shed arrivals whose estimated queue wait "
+                         "exceeds this deadline")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="tune the in-flight depth and the wave cap from "
+                         "observed staging/compute (pipelined only)")
+    ap.add_argument("--wave-timeout-ms", type=float, default=None,
+                    help="count waves whose completion wait exceeds this "
+                         "as stalls (health accounting)")
+    ap.add_argument("--expect-shed", action="store_true",
+                    help="chaos: fail unless load shedding engaged")
+    ap.add_argument("--expect-degraded", action="store_true",
+                    help="chaos: fail unless the int8 circuit breaker "
+                         "tripped (fused B4 -> layered B5)")
     ap.add_argument("--artifact", default=None,
                     help="int8: serve this .npz artifact instead of "
                          "QAT-training one")

@@ -19,10 +19,29 @@ forward sees one of ``len(buckets)`` shapes.  Backends: ``float``
 epilogue), ``layered`` (the per-layer CUDA kernel chain) or ``lax`` (plain
 PyTorch).  All int8 implementations serve bit-identical maps.  On the CPU
 the kernels' plain versions run.
+
+Graceful degradation
+--------------------
+The executor carries the reference's **circuit breaker** with the port's
+own target.  When the fused forward raises (at tile enqueue here, or at the
+wave's event wait — the engine reports those through
+:meth:`WaveExecutor.note_kernel_failure`), ``breaker_threshold`` failures
+trip it and the executor rebuilds its forward on the ``layered`` chain:
+the whole-network kernel B4 (``csrc/fused_forward.cu``) gives way to the
+per-layer kernel B5 (``csrc/qat_dense.cu``).  The reference trips to its
+plain ``lax`` forward; the port's ``lax`` is the plain PyTorch version,
+and a kernel never falls back to its plain version here, so the port
+trips to the other hand-written kernel that is bit-exact against the same
+oracle and shares no code with B4.  Degraded waves serve identical maps;
+``degraded`` / ``degraded_reason`` / ``n_degraded_waves`` record the trip.
+The float backend and an explicit ``layered`` or ``lax`` have nothing to
+trip to: their failures raise into the engine's retry path.  Fault
+schedules (``serve.faults``) fire a ``kernel_fail`` here deterministically.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Sequence
 
@@ -114,12 +133,16 @@ class WaveExecutor:
     ``qat.load_int8_artifact`` list), which are moved to ``device`` and
     padded once here.  ``int8_impl`` picks the full-integer implementation
     (``None`` = ``"fused"``).  ``device`` defaults to ``"cuda"`` and raises
-    without a card.
+    without a card.  ``injector`` (a ``serve.faults.FaultInjector``) fires
+    ``kernel_fail`` at tile enqueue; ``breaker_threshold`` forward failures
+    trip the fused -> layered circuit breaker (see the module doc).
+    ``tiles_by_impl`` counts the tiles each implementation served.
     """
 
     def __init__(self, *, backend: str = "float", params=None, int_layers=None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 int8_impl: str | None = None, device="cuda"):
+                 int8_impl: str | None = None, injector=None,
+                 breaker_threshold: int = 1, device="cuda"):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         if backend == "float" and params is None:
@@ -149,7 +172,18 @@ class WaveExecutor:
                           else self.int_layers[0].w_q.shape[0])
         self._fwd = self._make_forward()
         self.bucket_shapes_run: set = set()
-        self.n_tiles_dispatched = 0
+        self.tiles_by_impl: collections.Counter = collections.Counter()
+        # fault injection + the fused -> layered circuit breaker
+        if breaker_threshold < 1:
+            raise ValueError(f"breaker_threshold must be >= 1, "
+                             f"got {breaker_threshold}")
+        self._injector = injector
+        self.breaker_threshold = breaker_threshold
+        self.degraded = False
+        self.degraded_reason: str | None = None
+        self.n_kernel_failures = 0
+        self.n_degraded_waves = 0
+        self._wave_seq = 0  # wave numbering for direct callers
 
     def _make_forward(self):
         # denormalization runs on the device inside the forward (or the
@@ -212,21 +246,68 @@ class WaveExecutor:
                                device=self.device)
         return pool.contiguous(), tiles, total
 
-    def dispatch(self, features_list: Sequence) -> InflightWave:
+    # -- degradation (the circuit breaker) ---------------------------------
+
+    def can_degrade(self) -> bool:
+        """True while a fallback exists for this executor's forward: the
+        fused int8 kernel B4 degrades to the layered chain B5."""
+        return (self.backend == "int8" and self.int8_impl == "fused"
+                and not self.degraded)
+
+    def note_kernel_failure(self) -> bool:
+        """Record one forward failure; trips the breaker onto the layered
+        chain once ``breaker_threshold`` failures accumulate and a fallback
+        exists.  Returns True iff the executor is (now) degraded.
+
+        Called internally when a tile enqueue raises, and by the engine
+        when a wave's wait raises (a kernel's failure can surface at the
+        launch or at the event that follows the wave).
+        """
+        self.n_kernel_failures += 1
+        if (self.can_degrade()
+                and self.n_kernel_failures >= self.breaker_threshold):
+            self.degraded = True
+            self.degraded_reason = (
+                f"int8 fused kernel B4 (fused_forward.cu) failed "
+                f"{self.n_kernel_failures}x; circuit breaker tripped to the "
+                f"layered kernel chain B5 (qat_dense.cu), bit-exact against "
+                f"qat.int_forward like B4")
+            self.int8_impl = "layered"
+            self._fwd = self._make_forward()
+        return self.degraded
+
+    def dispatch(self, features_list: Sequence, *,
+                 wave_index: int | None = None) -> InflightWave:
         """Stage one wave and enqueue all its tiles; never blocks.
 
         Each tile's output is copied into pinned host memory on the same
         stream and followed by an event, so ``wait()`` needs one
-        synchronization and ``wait_tiles()`` one per tile.
+        synchronization and ``wait_tiles()`` one per tile.  ``wave_index``
+        labels the wave for fault schedules (the engine passes its dispatch
+        sequence number; direct callers get an internal counter).  A
+        forward that raises at enqueue feeds the circuit breaker: if it
+        trips, the failing tile is enqueued again on the layered chain and
+        the wave still completes.
         """
         pool, tiles, total = self.stage(features_list)
+        widx = self._wave_seq if wave_index is None else wave_index
+        self._wave_seq = widx + 1
         on_cuda = self.device.type == "cuda"
         host, events = [], []
         for off, _count, bucket in tiles:
             # only the trailing tile is padded, so pool offsets == voxel
             # offsets and every slice is a contiguous (bucket, in_dim) view
+            tile = pool[off:off + bucket]
             with torch.no_grad():
-                out = self._fwd(pool[off:off + bucket])
+                try:
+                    if self._injector is not None:
+                        self._injector.fire_kernel(widx)
+                    out = self._fwd(tile)
+                except Exception:
+                    if not self.note_kernel_failure():
+                        raise  # nothing to trip to: the engine retries
+                    out = self._fwd(tile)  # degraded: B5, bit-exact maps
+            self.tiles_by_impl[self.int8_impl or self.backend] += 1
             if on_cuda:
                 buf = torch.empty(out.shape, dtype=torch.float32,
                                   pin_memory=True)
@@ -238,5 +319,6 @@ class WaveExecutor:
             host.append(buf)
             events.append(ev)
             self.bucket_shapes_run.add(bucket)
-        self.n_tiles_dispatched += len(tiles)
+        if self.degraded:
+            self.n_degraded_waves += 1
         return InflightWave(tiles=tiles, host=host, events=events, total=total)

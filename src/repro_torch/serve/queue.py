@@ -1,17 +1,16 @@
 """Admission layer of the recon serving stack: a persistent request queue
-(counterpart of ``repro.serve.queue``, kept as a copy because
-``repro.serve`` imports JAX; load shedding arrives with the serving
-robustness slice).
+(a copy of ``repro.serve.queue``; the port imports nothing of the JAX
+package).
 
-A :class:`RequestQueue` outlives any single wave — requests are *admitted* (validated once, stamped with their enqueue
-time) and then *scheduled* into waves by an explicit formation policy,
-instead of the engine serving whatever list one ``reconstruct`` call
-happened to pass.
+A :class:`RequestQueue` outlives any single wave — requests are *admitted*
+(validated once, stamped with their enqueue time) and then *scheduled* into
+waves by an explicit formation policy, instead of the engine serving
+whatever list one ``reconstruct`` call happened to pass.
 
 Request lifecycle
 -----------------
 Every admitted request is wrapped in a :class:`QueuedRequest` ticket that
-moves through ``pending -> scheduled -> done | failed``:
+moves through ``pending -> scheduled -> done | failed | shed``:
 
 * ``pending``   — admitted, waiting for a wave.
 * ``scheduled`` — handed to the executor as part of a formed wave.
@@ -23,6 +22,13 @@ moves through ``pending -> scheduled -> done | failed``:
   execution/assembly; ``ticket.error`` carries the reason.  Failures are
   lifecycle states, never exceptions thrown out of a wave: one bad request
   cannot leave its wave-mates half-served.
+* ``shed``      — rejected by the *load* policy (``serve.admission``), not
+  because the request is invalid: the pending-voxel budget is exhausted,
+  the estimated queue wait already exceeds the request's deadline, or a
+  higher-priority arrival displaced it.  ``ticket.shed_reason`` carries a
+  structured :class:`~repro_torch.serve.admission.ShedReason` code so
+  callers can tell "invalid, don't retry" (``failed``) from "overloaded,
+  retry later" (``shed``) without string-matching ``ticket.error``.
 
 Failed waves can also *requeue* tickets (``scheduled -> pending`` with
 ``ticket.retries`` incremented and ``ticket.solo`` set): the engine's
@@ -67,18 +73,19 @@ class RequestState:
     SCHEDULED = "scheduled"
     DONE = "done"
     FAILED = "failed"
+    SHED = "shed"
 
     #: states a ticket can never leave (every admitted ticket must end in
-    #: exactly one of these)
-    TERMINAL = (DONE, FAILED)
+    #: exactly one of these — the chaos-suite property)
+    TERMINAL = (DONE, FAILED, SHED)
 
 
 @dataclasses.dataclass(eq=False)
 class QueuedRequest:
     """One admitted request's ticket through the queue lifecycle.
 
-    ``request`` is duck-typed: the queue only reads ``n_voxels``
-    (``serve.recon.ReconRequest`` in production).
+    ``request`` is duck-typed: the queue only reads ``n_voxels`` and
+    ``request_id`` (``serve.recon.ReconRequest`` in production).
     """
 
     request: object
@@ -89,6 +96,11 @@ class QueuedRequest:
     error: str | None = None
     result: object | None = None
     done_t: float | None = None
+    #: structured load-shedding code (None unless state == "shed")
+    shed_reason: str | None = None
+    #: per-request deadline consulted by the admission policy (ms from
+    #: enqueue); None falls back to the policy default
+    deadline_ms: float | None = None
     #: times this ticket was requeued after a failed wave (bounded by the
     #: engine's max_retries)
     retries: int = 0
@@ -110,11 +122,20 @@ class RequestQueue:
     ``validator`` (optional) maps a request to an error string (or None);
     invalid requests are returned as ``failed`` tickets and never admitted,
     so they cannot poison a wave.
+
+    ``admission`` (optional, a ``serve.admission.AdmissionPolicy``) is the
+    *load* gate consulted after validation: it may shed the arriving ticket
+    (returned already ``shed`` with a structured ``shed_reason``) or
+    displace pending lower-priority tickets to make room.  Validation
+    answers "is this request well-formed?"; admission answers "can we
+    afford to serve it right now?" — the two rejections stay distinct
+    lifecycle outcomes.
     """
 
     def __init__(self, *, max_wave_voxels: int | None = None,
                  max_wait_ms: float | None = None,
                  validator: Callable[[object], str | None] | None = None,
+                 admission=None,
                  clock: Callable[[], float] = time.perf_counter):
         if max_wave_voxels is not None and max_wave_voxels <= 0:
             raise ValueError(f"max_wave_voxels must be positive or None, "
@@ -125,6 +146,7 @@ class RequestQueue:
         self.max_wave_voxels = max_wave_voxels
         self.max_wait_ms = max_wait_ms
         self._validator = validator
+        self._admission = admission
         self._clock = clock
         self._pending: list[QueuedRequest] = []
         self._sorted = True  # lazily re-sorted on the next form_wave
@@ -135,11 +157,12 @@ class RequestQueue:
         self._oldest: QueuedRequest | None = None
         self._seq = 0
         self.n_rejected = 0
+        self.n_shed = 0
 
     # -- admission ---------------------------------------------------------
 
-    def submit(self, request, *, priority: int = 0,
-               validate: bool = True) -> QueuedRequest:
+    def submit(self, request, *, priority: int = 0, validate: bool = True,
+               deadline_ms: float | None = None) -> QueuedRequest:
         """Admit one request; returns its lifecycle ticket.
 
         Validation happens here, once, at admission: a rejected request
@@ -148,9 +171,15 @@ class RequestQueue:
         requests already pending.  Callers that already validated (the
         engine's all-or-nothing batch path) pass ``validate=False`` to
         avoid paying the mask-sum check twice.
+
+        When an admission policy is installed, a *valid* request can still
+        come back ``shed`` (``shed_reason`` set) — the load-shedding
+        outcome; ``deadline_ms`` is this request's wait budget for the
+        policy's deadline-aware rejection (None: the policy default).
         """
         ticket = QueuedRequest(request=request, priority=int(priority),
-                               seq=self._seq, enqueue_t=self._clock())
+                               seq=self._seq, enqueue_t=self._clock(),
+                               deadline_ms=deadline_ms)
         self._seq += 1
         if validate and self._validator is not None:
             try:
@@ -173,6 +202,20 @@ class RequestQueue:
                             f"{type(e).__name__}: {e}")
             self.n_rejected += 1
             return ticket
+        if self._admission is not None:
+            try:
+                reason = self._admission.admit(ticket, nv, self)
+            except Exception as e:
+                # a crashing policy must not break admission either; fail
+                # open (admit) would silently disable load shedding, so
+                # shed with the error recorded instead
+                reason = f"admission policy error: {type(e).__name__}: {e}"
+            if reason is not None:
+                ticket.state = RequestState.SHED
+                ticket.shed_reason = reason
+                ticket.error = f"shed at admission: {reason}"
+                self.n_shed += 1
+                return ticket
         self._pending.append(ticket)
         self._pending_voxels += nv
         if self._oldest is None:  # new tickets are never older
@@ -198,6 +241,28 @@ class RequestQueue:
         # enqueue_t is monotone in seq, so min-seq is again the oldest
         if self._oldest is None or ticket.seq < self._oldest.seq:
             self._oldest = ticket
+
+    def shed_pending(self, tickets: list, reason: str) -> None:
+        """Shed already-pending tickets (the displacement path): each moves
+        to the ``shed`` terminal state with ``reason`` recorded."""
+        ids = {id(t) for t in tickets}
+        if not ids:
+            return
+        self._pending = [t for t in self._pending if id(t) not in ids]
+        for t in tickets:
+            self._pending_voxels -= int(t.request.n_voxels)
+            t.state = RequestState.SHED
+            t.shed_reason = reason
+            t.error = f"shed while pending: {reason}"
+            self.n_shed += 1
+        if self._oldest is not None and id(self._oldest) in ids:
+            self._oldest = (min(self._pending, key=lambda t: t.seq)
+                            if self._pending else None)
+
+    def pending_tickets(self) -> tuple:
+        """Read-only view of the pending pool (admission policies inspect
+        priorities/sizes here to pick displacement victims)."""
+        return tuple(self._pending)
 
     # -- introspection -----------------------------------------------------
 

@@ -4,8 +4,8 @@
 Serving is a three-layer stack; this module is the top:
 
 * **Admission** (``serve.queue``) — a persistent :class:`RequestQueue` of
-  lifecycle tickets (``pending -> scheduled -> done | failed``) stamped
-  with their enqueue time; waves form under ``max_wave_voxels`` /
+  lifecycle tickets (``pending -> scheduled -> done | failed | shed``)
+  stamped with their enqueue time; waves form under ``max_wave_voxels`` /
   ``max_wait_ms`` / priority policy.
 * **Execution** (``serve.executor``) — the double-buffered
   :class:`WaveExecutor`: pad-to-bucket tiling over a fixed shape set,
@@ -21,11 +21,32 @@ Serving is a three-layer stack; this module is the top:
   bit-identical.  ``reconstruct(requests)`` validates everything, enqueues
   everything and drains.
 
-A wave that crashes at dispatch or execution does not fail its wave-mates
-outright: tickets with retry budget left (``max_retries``, default 1) are
-requeued as *solo* waves, so only a request that keeps failing fails, and
-alone.  Load shedding, fault injection, the watchdog and adaptive
-pipelining arrive with the serving robustness slice.
+Robustness layer
+----------------
+The engine is overload- and fault-hardened end to end:
+
+* **Admission control** — pass ``admission=AdmissionPolicy(...)`` and the
+  queue sheds (never queues-to-collapse) under load: bounded pending-voxel
+  budget, deadline-aware rejection against the observed service rate (the
+  engine feeds ``observe_service`` at every wave retire), priority
+  displacement.  Shed tickets end in the distinct ``shed`` terminal state
+  with a structured ``ShedReason``.
+* **Bounded retry, solo blast radius** — a wave that crashes at dispatch
+  or execution does not fail its wave-mates outright: tickets with retry
+  budget left (``max_retries``, default 1) are requeued as *solo* waves
+  (each retries alone, optionally after ``retry_backoff_s *
+  2**(retries-1)`` of backoff), so only a request that keeps failing
+  fails, and alone.
+* **Degradation** — execution failures feed the executor's circuit
+  breaker; once it trips, retried and later waves serve through the
+  layered kernel chain B5 instead of the fused kernel B4, bit-exact
+  (``engine.health()["degraded"]``).
+* **Watchdog + adaptive pipelining** — each wave's staging and compute
+  times are measured; ``wave_timeout_s`` flags stalls, and with
+  ``adaptive=True`` an ``AdaptiveController`` (EWMA-driven, clamped)
+  tunes ``inflight_depth`` and the wave voxel cap live.
+* **Fault injection** — ``injector=FaultInjector(schedule)`` fires
+  deterministic faults (``serve.faults``) at every lifecycle point.
 
 Per-voxel predictions are denormalised on the device inside the executor's
 forward and scattered back into map-shaped arrays through each request's
@@ -42,7 +63,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.serve.admission import AdaptiveController
 from repro_torch.serve.executor import DEFAULT_BUCKETS, WaveExecutor
+from repro_torch.serve.faults import WaveTimeout
 from repro_torch.serve.queue import QueuedRequest, RequestQueue, RequestState
 
 SERVE_MODES = ("sync", "pipelined")
@@ -94,17 +117,32 @@ class ReconEngine:
     per-tile retirement; "pipelined" = up to ``inflight_depth`` waves in
     flight, one synchronization per wave); ``max_wave_voxels`` caps a wave,
     ``max_wait_ms`` is the admission deadline from enqueue.  ``int8_impl``
-    selects the int8 implementation (``None`` = ``"fused"``).
-    ``max_retries`` bounds the solo requeues a ticket gets after a failed
-    wave (0: a failed wave fails its tickets).  ``device`` defaults to
+    selects the int8 implementation (``None`` = ``"fused"``).  The
+    reference's Pallas-only ``interpret`` and ``int8_block_m`` have no
+    counterpart: the CUDA kernels need no interpreter, and B4 picks its
+    warps per tile from the tile's rows.  ``device`` defaults to
     ``"cuda"`` and raises without a card.
+
+    Robustness knobs: ``admission`` installs a load-shedding policy
+    (``serve.admission.AdmissionPolicy``); ``max_retries`` bounds the solo
+    requeues a ticket gets after a failed wave (0: a failed wave fails its
+    tickets); ``retry_backoff_s`` sleeps ``retry_backoff_s *
+    2**(retries-1)`` before a retry wave dispatches (0 = immediate);
+    ``wave_timeout_s`` flags waves whose completion wait exceeds it as
+    stalls (health accounting + the adaptive controller's shrink signal);
+    ``adaptive=True`` (or a configured ``AdaptiveController``) tunes
+    ``inflight_depth`` and ``max_wave_voxels`` live — pipelined mode only;
+    ``injector`` threads a deterministic ``serve.faults.FaultInjector``
+    through every lifecycle point.
     """
 
     def __init__(self, *, backend: str = "float", params=None, int_layers=None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, mode: str = "sync",
                  max_wave_voxels: int | None = None,
                  max_wait_ms: float | None = None, inflight_depth: int = 2,
-                 int8_impl: str | None = None, max_retries: int = 1,
+                 int8_impl: str | None = None, admission=None, injector=None,
+                 max_retries: int = 1, retry_backoff_s: float = 0.0,
+                 wave_timeout_s: float | None = None, adaptive=False,
                  clock=time.perf_counter, device="cuda"):
         if mode not in SERVE_MODES:
             raise ValueError(f"mode {mode!r} not in {SERVE_MODES}")
@@ -112,25 +150,52 @@ class ReconEngine:
             raise ValueError(f"inflight_depth must be >= 1: {inflight_depth}")
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0: {max_retries}")
+        if retry_backoff_s < 0:
+            raise ValueError(f"retry_backoff_s must be >= 0: "
+                             f"{retry_backoff_s}")
+        if adaptive and mode != "pipelined":
+            raise ValueError("adaptive pipelining tunes inflight_depth — "
+                             "it requires mode='pipelined'")
         self.mode = mode
         self.executor = WaveExecutor(backend=backend, params=params,
                                      int_layers=int_layers, buckets=buckets,
-                                     int8_impl=int8_impl, device=device)
+                                     int8_impl=int8_impl, injector=injector,
+                                     device=device)
         # one time source for enqueue and completion stamps
         self._clock = clock
+        self.admission = admission
         self.queue = RequestQueue(max_wave_voxels=max_wave_voxels,
                                   max_wait_ms=max_wait_ms,
-                                  validator=self._validate, clock=clock)
+                                  validator=self._validate,
+                                  admission=admission, clock=clock)
+        self._injector = injector
         self.max_retries = int(max_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.wave_timeout_s = wave_timeout_s
+        if isinstance(adaptive, AdaptiveController):
+            self.controller = adaptive
+        elif adaptive:
+            self.controller = AdaptiveController(
+                depth=inflight_depth,
+                max_depth=max(AdaptiveController.max_depth, inflight_depth),
+                wave_voxels=max_wave_voxels,
+                max_wave_voxels=(max_wave_voxels * 4 if max_wave_voxels
+                                 else AdaptiveController.max_wave_voxels))
+        else:
+            self.controller = None
         self._depth = 1 if mode == "sync" else int(inflight_depth)
         self._inflight: collections.deque = collections.deque()
+        self._wave_seq = 0  # engine dispatch counter = fault-schedule index
         # stats of waves poll() retired (or that died at dispatch) since
         # the last drain — folded into the next drain's last_wave.  Stats
         # only, never tickets: the streaming caller holds those.
         self._early_stats = self._zero_stats()
+        self._shed_mark = 0    # queue.n_shed watermark at the last drain
         self._t_epoch: float | None = None  # first dispatch since last drain
         self.last_wave: dict = {}
+        # lifetime health counters (never reset by drain)
         self.n_retries_total = 0
+        self.n_slow_waves = 0
 
     @staticmethod
     def _zero_stats() -> dict:
@@ -191,12 +256,19 @@ class ReconEngine:
 
     # -- streaming API -----------------------------------------------------
 
-    def enqueue(self, request: ReconRequest, *,
-                priority: int = 0) -> QueuedRequest:
-        """Admit one request; returns its lifecycle ticket.  Invalid
-        requests come back already ``failed`` (``ticket.error`` set);
-        admission never raises."""
-        return self.queue.submit(request, priority=priority)
+    def enqueue(self, request: ReconRequest, *, priority: int = 0,
+                deadline_ms: float | None = None) -> QueuedRequest:
+        """Admit one request; returns its lifecycle ticket.
+
+        Invalid requests come back already ``failed`` (``ticket.error``
+        set); admission never raises.  With an admission policy installed,
+        a valid request can instead come back ``shed``
+        (``ticket.shed_reason`` set): overloaded, retry later.
+        ``deadline_ms`` is this request's wait budget for deadline-aware
+        shedding (None: the policy default).
+        """
+        return self.queue.submit(request, priority=priority,
+                                 deadline_ms=deadline_ms)
 
     def poll(self) -> int:
         """Dispatch every wave the formation policy says is due; blocks only
@@ -229,6 +301,8 @@ class ReconEngine:
         self._early_stats = self._zero_stats()
         wall = self._clock() - t0
         self._t_epoch = None
+        n_shed = self.queue.n_shed - self._shed_mark
+        self._shed_mark = self.queue.n_shed
         served = [t for t in retired if t.state == RequestState.DONE]
         total = sum(t.request.n_voxels for t in served) + early["voxels"]
         self.last_wave = {"n_requests": len(served) + early["n_done"],
@@ -238,16 +312,37 @@ class ReconEngine:
                           "mode": self.mode,
                           "n_failed": (len(retired) - len(served)
                                        + early["n_failed"]),
-                          "n_retries": early["n_retries"]}
+                          "n_shed": n_shed,
+                          "n_retries": early["n_retries"],
+                          "degraded": self.executor.degraded}
         return [t.result for t in served]
+
+    def health(self) -> dict:
+        """Live robustness snapshot: degradation, failures, retries,
+        shedding, stalls, and the current (possibly adaptive) knobs."""
+        ex = self.executor
+        return {"degraded": ex.degraded,
+                "degraded_reason": ex.degraded_reason,
+                "int8_impl": ex.int8_impl,
+                "n_kernel_failures": ex.n_kernel_failures,
+                "n_degraded_waves": ex.n_degraded_waves,
+                "n_retries_total": self.n_retries_total,
+                "n_slow_waves": self.n_slow_waves,
+                "n_shed_total": self.queue.n_shed,
+                "n_rejected_total": self.queue.n_rejected,
+                "inflight_depth": self._depth,
+                "max_wave_voxels": self.queue.max_wave_voxels,
+                "service_rate_voxels_per_s": (
+                    self.admission.service_rate
+                    if self.admission is not None else None)}
 
     def reconstruct(self, requests: Sequence[ReconRequest]) -> list:
         """Serve one batch: validate all, enqueue all, drain.
 
         All-or-nothing admission: a bad request raises here before any is
         admitted.  Returns one :class:`ReconOutput` per request, in request
-        order; if serving any request failed, the wave still completes for
-        everyone else and *then* this raises.
+        order; if serving any request failed or was shed, the wave still
+        completes for everyone else and *then* this raises.
         """
         if not requests:
             self.last_wave = {"n_requests": 0, "total_voxels": 0,
@@ -260,7 +355,8 @@ class ReconEngine:
                 raise ValueError(err)
         tickets = [self.queue.submit(r, validate=False) for r in requests]
         self.drain()
-        failed = [t for t in tickets if t.state == RequestState.FAILED]
+        failed = [t for t in tickets if t.state in (RequestState.FAILED,
+                                                    RequestState.SHED)]
         if failed:
             raise ValueError(
                 f"{len(failed)} request(s) failed while serving the wave: "
@@ -272,7 +368,9 @@ class ReconEngine:
     def _wave_failed(self, wave: list, stage: str, exc: Exception) -> int:
         """Bounded-retry failure policy for a crashed wave; returns how many
         tickets it marked failed.  Still-scheduled tickets with retry budget
-        left go back to the queue as *solo* tickets; the rest fail."""
+        left go back to the queue as *solo* tickets; the rest fail.  With
+        ``retry_backoff_s`` the engine sleeps before the retry waves can
+        dispatch, doubling per retry already taken."""
         retried = failed = 0
         for t in wave:
             if t.state != RequestState.SCHEDULED:
@@ -291,24 +389,37 @@ class ReconEngine:
         if retried:
             self._early_stats["n_retries"] += retried
             self.n_retries_total += retried
+            if self.retry_backoff_s > 0:
+                worst = max(t.retries for t in wave
+                            if t.state == RequestState.PENDING)
+                time.sleep(self.retry_backoff_s * 2 ** (worst - 1))
         return failed
 
     def _dispatch(self, wave: list) -> bool:
         """Stage + enqueue one wave; True iff it actually entered flight."""
         if not wave:
             return False
+        widx = self._wave_seq
+        self._wave_seq += 1
         t_start = self._clock()
         try:
-            handle = self.executor.dispatch([t.request.features for t in wave])
+            if self._injector is not None:
+                self._injector.fire_dispatch(
+                    widx, [t.request.request_id for t in wave])
+            handle = self.executor.dispatch(
+                [t.request.features for t in wave], wave_index=widx)
         except Exception as e:  # a lifecycle state, not a raise
             # a wave that cannot stage requeues/fails its tickets instead of
-            # raising out of poll()/drain() and stranding them "scheduled"
+            # raising out of poll()/drain() and stranding them "scheduled";
+            # it never entered flight, so its failures count here
             self._early_stats["n_failed"] += self._wave_failed(
                 wave, "dispatch", e)
             return False
         if self._t_epoch is None:
+            # the session clock starts at the first wave that entered flight
             self._t_epoch = t_start
-        self._inflight.append((wave, handle))
+        staging_s = self._clock() - t_start
+        self._inflight.append((wave, handle, widx, staging_s))
         return True
 
     def _retire_oldest(self) -> list:
@@ -317,11 +428,13 @@ class ReconEngine:
 
         Sync mode syncs tile by tile so each request is assembled the moment
         its last tile lands; pipelined mode synchronizes once for the whole
-        wave (``InflightWave.wait``).
+        wave (``InflightWave.wait``).  The wait is watchdogged
+        (``wave_timeout_s``) and its measured staging/compute split feeds
+        the admission service-rate estimate and the adaptive controller.
         """
         if not self._inflight:
             return []
-        wave, handle = self._inflight.popleft()
+        wave, handle, widx, staging_s = self._inflight.popleft()
         counts = [t.request.n_voxels for t in wave]
         ends = np.cumsum(counts) if counts else np.zeros(0, np.int64)
         pred_ms = None
@@ -332,10 +445,17 @@ class ReconEngine:
             now = self._clock()
             while done < len(wave) and ends[done] <= covered:
                 end = int(ends[done])
-                self._finish(wave[done], pred_ms[end - counts[done]:end], now)
+                self._finish(wave[done], pred_ms[end - counts[done]:end],
+                             now, widx)
                 done += 1
 
+        t_wait = self._clock()
+        stall_s = 0.0
         try:
+            if self._injector is not None:
+                spec = self._injector.fire_wait(widx)  # raises WaveTimeout
+                if spec is not None:  # slow_wave: a synthetic stall
+                    stall_s = spec.delay_s
             if self.mode == "sync":
                 pred_ms = np.empty((handle.total, 2), np.float32)
                 covered = 0
@@ -347,14 +467,38 @@ class ReconEngine:
                 pred_ms = handle.wait()
             assemble_upto(handle.total)  # remainder incl. zero-voxel requests
         except Exception as e:  # a lifecycle state, not a raise
+            # the wave was already popped, so strand nothing "scheduled":
+            # retry-budgeted tickets requeue solo, the rest fail
+            if not isinstance(e, WaveTimeout):
+                # a kernel's failure can surface at the event sync; feed
+                # the circuit breaker so retries (and later waves) serve
+                # degraded
+                self.executor.note_kernel_failure()
             self._wave_failed(wave, "execution", e)
             return [t for t in wave
                     if t.state in (RequestState.DONE, RequestState.FAILED)]
+        compute_s = self._clock() - t_wait + stall_s
+        stalled = stall_s > 0 or (self.wave_timeout_s is not None
+                                  and compute_s > self.wave_timeout_s)
+        if stalled:
+            self.n_slow_waves += 1
+        if self.admission is not None:
+            self.admission.observe_service(handle.total, compute_s)
+        if self.controller is not None:
+            depth, cap = self.controller.observe(
+                staging_s=staging_s, compute_s=compute_s,
+                n_voxels=handle.total, stalled=stalled)
+            self._depth = depth
+            if cap is not None:
+                self.queue.max_wave_voxels = cap
         return wave
 
     def _finish(self, ticket: QueuedRequest, pred_ms_slice: np.ndarray,
-                now: float) -> None:
+                now: float, wave_index: int = -1) -> None:
         try:
+            if self._injector is not None:
+                self._injector.fire_assemble(wave_index,
+                                             ticket.request.request_id)
             ticket.result = self._assemble(ticket.request, pred_ms_slice,
                                            now - ticket.enqueue_t)
         except Exception as e:  # surfaced as a lifecycle state

@@ -156,11 +156,11 @@ def test_bounded_solo_retry(artifact, monkeypatch):
     real = eng.executor.dispatch
     calls = {"n": 0}
 
-    def flaky(features):
+    def flaky(features, **kw):
         calls["n"] += 1
         if calls["n"] == 1:
             raise RuntimeError("transient")
-        return real(features)
+        return real(features, **kw)
 
     monkeypatch.setattr(eng.executor, "dispatch", flaky)
     reqs = _requests(seed=6)
@@ -169,7 +169,8 @@ def test_bounded_solo_retry(artifact, monkeypatch):
     assert calls["n"] == 1 + len(reqs)
 
     monkeypatch.setattr(eng.executor, "dispatch",
-                        lambda f: (_ for _ in ()).throw(RuntimeError("dead")))
+                        lambda f, **kw: (_ for _ in ()).throw(
+                            RuntimeError("dead")))
     with pytest.raises(ValueError, match="after retry"):
         eng.reconstruct(reqs[:2])
 
