@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the CUDA kernels,
 holds each against its plain PyTorch version, trains and serves MRF nets end
 to end through ``repro_torch.launch.train`` / ``repro_torch.launch.serve``,
-serves tokens from tinyllama-1.1b at full width through
+runs the paper's experiment through the port's examples, serves tokens from
+tinyllama-1.1b, deepseek-moe-16b and phi3.5-moe at full width through
 ``repro_torch.launch.serve`` and times the kernels.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
@@ -31,14 +32,17 @@ final result line):
    wrapper picks and at every cluster size whose plan fits a block (losses
    and params atol 1e-5, Adam moments atol 1e-6 / rtol 1e-5; B1 also over
    the per-sample stream's 1,024 rows at tile 1, where with QAT the two
-   runs part at the first int8 level flip, see ``check_sample_stream``), a
+   runs part at the first int8 level flip, see ``held_stream``; B2 at the
+   stream's own shape in phase 4e, 3 steps of 512 rows at tile 1 on one
+   block, held the same way), a
    K=4 launch against 4 single-step launches, one launch over the stream
    against one launch per row and a launch against its repeat (bit for
    bit), a ragged tile of 127 rows and tiles of 4 rows on 8 blocks; the
    wrapper's launches at tile 128 ran on more than one block;
 3c. B6 (flash attention) against its plain version: bf16 on the Hopper
    kernel at its tiles, at the launcher's serving shape, granite-8b's dh
-   128 and small masked cases (``hold_b6_bf16``), f32 on the scalar kernel
+   128, deepseek-moe-16b's (16 query heads over 16 kv heads: group 1, dh
+   128) and small masked cases (``hold_b6_bf16``), f32 on the scalar kernel
    within atol 2e-5;
 4. the serving path: a calibrated mrf-fpga int8 artifact (random He-uniform
    weights, QAT observer calibration on simulated fingerprints) served
@@ -62,8 +66,8 @@ final result line):
    through the retry path;
 4b. the training path through the launcher at full width, batch 256, tile
    128 — fused SGD and Adam chunked (50 steps per launch), fused SGD
-   stepwise, float, qat-int8 and fused mrf-original — each with its launch
-   counts and a falling loss; chunked == stepwise and crash + restart ==
+   stepwise (B2 at K = 1, one launch a step), float, qat-int8 and fused
+   mrf-original — each with its launch counts and a falling loss; chunked == stepwise and crash + restart ==
    uninterrupted (``engine.train``), bit for bit; and the paper's
    per-sample stream (``fused_train_step`` at tile 1);
 4c. train, then serve: the serve launcher QAT-trains mrf-fpga (600 steps),
@@ -79,18 +83,38 @@ final result line):
    the prefill's last-token logits within ``LM_LOGIT_ULPS``, greedy tokens
    equal wherever the margin exceeds twice that (``model_vs_cpu``); and
    where a prefill's and a decode step's device time goes, by kernel
-   class, with the device's idle share (``lm_breakdown``);
+   class, with the device's idle share (``lm_breakdown``, also for
+   deepseek-moe-16b);
+4e. the paper's experiment through the port's examples (``paper_phase``):
+   ``examples/torch_quickstart.py`` (B4 and B5 bit-exact against the
+   integer oracle), ``examples/torch_mrf_fpga_train.py`` — the per-sample
+   stream chunked (B2 at tile 1), the minibatch at tile 128 stepwise (B2
+   at K = 1), and the stream once more on the host CPU with the card's
+   loop — and
+   ``examples/torch_phantom_recon.py`` (every slice done, B4's launches
+   equal to its tiles); each run with its exact launch counts;
+4f. the MoE family: deepseek-moe-16b at full width through the launcher,
+   twice (8 x 2,048-token prompts, 32 tokens; 56 B6 launches a run, the
+   same tokens), phi3.5-moe at full width with 16 of its 32 layers once
+   (32 B6 launches; ``moe_phase``); then deepseek's first two layers on
+   the card against a CPU copy, routing compared first
+   (``moe_vs_cpu``), and the MoE block's two forms timed at the prefill
+   shape (``moe_forms``);
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
    between CUDA events; B4 and B5 at M=1,024 and at a whole wave, beside
    the device time of a one-element ``fill_`` (the launch floor); B1-B3
-   also at each cluster size 1, 2, 4, 8, 16.
+   also at each cluster size 1, 2, 4, 8, 16; B6 at the three prefill
+   shapes beside SDPA.
 
 Before them, ``chaos_run {json}`` records the chaos phase: states, waves,
 retries, slow waves, the final depth and wave cap, voxels/s, p50/p99 and
-both kernels' launches.  The last two lines are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.
+both kernels' launches; ``eq3_run {json}`` the paper's Eq. 3 comparison
+(``eq3_summary``).  The last two lines are ``{"kernels": [...]}`` and
+``{"ok": true, "device": {...}}``.  Bounds use the card's published peaks
+(``repro_torch.analysis.roofline.H100``; training's through
+``repro_torch.core.fpga_cost_model``).
 """
 
 from __future__ import annotations
@@ -111,17 +135,23 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
-BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
-FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
-N_SMS = 132
+# the card's peaks (bytes/s, FLOP/s, SMs): ``repro_torch.analysis.roofline.H100``
 REPS = 30
+MARKER = "FillFunctor<short>"  # device_ms's marker, a one-element int16 fill_
 TRAIN_REPS = 20             # training kernels: ms-long launches
 BUCKETS = (128, 256, 512, 1024)
 WAVE_VOXELS = 281_600       # a wave of 8 phantom slices of 256 x 256
 DATA_ATOL = 1e-5            # training data, card vs CPU (phase 3d)
 LM_ARCH = "tinyllama-1.1b"
+MOE_ARCH = "deepseek-moe-16b"
+MOE_WIDE = "phi3.5-moe-42b-a6.6b"
+MOE_WIDE_LAYERS = 16        # of 32: full width, depth cut to fit one card
+# card vs CPU, deepseek-moe-16b: at most this share of a layer's (token,
+# choice) pairs routed differently (a near-tie in the router meets the ~1
+# bf16 ulp the two sides' attention outputs differ by); outputs are held
+# only at tokens routed and dispatched alike
+MOE_FLIP_SHARE = 0.05
+MOE_INDEX_ULPS = 2          # index dispatch vs the dense one-hot, on the card
 LM_LAYER_ULPS = 4           # card vs CPU, one layer on the same input
 LM_LOGIT_ULPS = 8           # card vs CPU prefill logits after 22 layers
 # B6 in bf16 against its plain version, element by element (``ref.bf16_ulps``):
@@ -532,15 +562,41 @@ def training_data(device, steps: int, seed: int = 5):
             torch.cat([b["y"] for b in batches]))
 
 
+def held_stream(train, x, y, flat, widths, lr: float, qat: bool,
+                what: str) -> dict:
+    """``train`` — one SGD update a row at tile 1, ``(x_row, y_row, params)
+    -> (params, losses)`` — held row by row against the plain version
+    (``ref.stream_divergence``): every update, taken from ``train``'s own
+    net, within atol 1e-5, and the two runs side by side within atol 1e-5
+    up to the first update whose int8 weight levels differ (without QAT:
+    over the whole stream).  Returns the divergence record with ``err``,
+    the largest error held against the limit."""
+    from repro_torch.kernels.fused_train import ref
+
+    div = ref.stream_divergence(train, x, y, flat, widths, lr=lr, qat=qat)
+    if not qat and div["first_flip"] is not None:
+        fail(f"{what}: int8 levels compared without QAT")
+    div["err"] = max(div["local_err"], div["free_err"])
+    if div["err"] > 1e-5:
+        fail(f"{what}: max abs err vs plain {div['err']} > 1e-5 (one update "
+             f"from the kernel's nets {div['local_err']}, side by side "
+             f"before the first level flip {div['free_err']})")
+    span = ("the whole stream" if div["first_flip"] is None else
+            f"update {div['first_flip']}, the first int8 level flip")
+    log(f"{what}, {x.shape[0]} samples: one update from each of the "
+        f"kernel's nets within {div['local_err']:.3g} of the plain version; "
+        f"side by side within {div['free_err']:.3g} up to {span}; at the "
+        f"end {div['flipped']} levels differ, max abs err "
+        f"{div['end_err']:.3g}")
+    return div
+
+
 def check_sample_stream(x, y, flat, widths, qat: bool, what: str) -> float:
-    """B1 at the per-sample stream's shape (all rows of x, tile 1) against
-    the plain version (``ref.stream_divergence``): every update, taken from
-    the kernel's own net, within atol 1e-5, and the kernel's and the plain
-    version's runs side by side within atol 1e-5 up to the first update
-    whose int8 weight levels differ (without QAT: over the whole stream);
-    the run as one launch bit-equals its repeat and one launch per row.
-    Returns the largest error held against the limit."""
-    from repro_torch.kernels.fused_train import kernel, ref
+    """B1 at the per-sample stream's shape (all rows of x, tile 1) held row
+    by row against the plain version (``held_stream``); the run as one
+    launch bit-equals its repeat and one launch per row.  Returns the
+    largest error held against the limit."""
+    from repro_torch.kernels.fused_train import kernel
 
     counter = train_counters()["fused_train"]
     before = counter.launches
@@ -550,28 +606,14 @@ def check_sample_stream(x, y, flat, widths, qat: bool, what: str) -> float:
                                        tile_batch=1, qat=qat)
 
     got, again = b1(x, y, flat), b1(x, y, flat)
-    div = ref.stream_divergence(b1, x, y, flat, widths, lr=1e-2, qat=qat)
+    div = held_stream(b1, x, y, flat, widths, 1e-2, qat, what)
     torch.cuda.synchronize()
     if counter.launches != before + 2 + x.shape[0]:
         fail(f"{what}: launch counter did not advance per launch")
     bitequal(again, got, f"{what}, two identical launches")
     bitequal((div["params"], div["losses"]), got,
              f"{what}: one launch vs {x.shape[0]} one-row launches")
-    if not qat and div["first_flip"] is not None:
-        fail(f"{what}: int8 levels compared without QAT")
-    err = max(div["local_err"], div["free_err"])
-    if err > 1e-5:
-        fail(f"{what}: max abs err vs plain {err} > 1e-5 (one update from "
-             f"the kernel's nets {div['local_err']}, side by side before "
-             f"the first level flip {div['free_err']})")
-    span = ("the whole stream" if div["first_flip"] is None else
-            f"update {div['first_flip']}, the first int8 level flip")
-    log(f"{what}, {x.shape[0]} samples: one update from each of the "
-        f"kernel's nets within {div['local_err']:.3g} of the plain version; "
-        f"side by side within {div['free_err']:.3g} up to {span}; at the "
-        f"end {div['flipped']} levels differ, max abs err "
-        f"{div['end_err']:.3g}")
-    return err
+    return div["err"]
 
 
 def hold_multistep(what, params, x, y, per_step, optimizer, qat, cluster,
@@ -579,9 +621,12 @@ def hold_multistep(what, params, x, y, per_step, optimizer, qat, cluster,
     """B2 (SGD) or B3 (Adam) over ``x``/``y`` as K steps of ``per_step``
     rows in one launch against the plain version (params and losses atol
     1e-5, Adam's moments atol 1e-6 / rtol 1e-5), then bit for bit against K
-    single-step launches and against its repeat.  Returns the max abs
-    error."""
-    from repro_torch.kernels.fused_train import kernel, ops, ref
+    single-step launches and against its repeat.  At tile 1 (SGD, the
+    per-sample stream) the launch is held row by row as B1 is
+    (``held_stream``, one one-row launch a row: with QAT the two runs part
+    at the first int8 level flip) and bit for bit against those one-row
+    launches.  Returns the max abs error."""
+    from repro_torch.kernels.fused_train import kernel, multistep, ops, ref
     from repro_torch.optim import adam
 
     name = "fused_train_adam" if optimizer == "adam" else \
@@ -598,29 +643,44 @@ def hold_multistep(what, params, x, y, per_step, optimizer, qat, cluster,
             p, s, xs, ys, n_steps=n, lr=1e-3, optimizer=optimizer,
             tile_batch=tile_batch, qat=qat, cluster=cluster)
 
+    def one_row(xr, yr, p):
+        return multistep.fused_train_multistep_call(
+            xr, yr, p, widths=widths, lr=1e-3, tile_batch=1, qat=qat,
+            cluster=cluster)
+
     before = counter.launches
     got_p, got_s, got_l = run(params, fresh(), x, y, k_steps)
     flat, widths = ops.pack_params(params)
-    moments = step0 = None
-    if optimizer == "adam":
-        moments = (torch.zeros_like(flat), torch.zeros_like(flat))
-        step0 = torch.zeros((1,), dtype=torch.int32, device=x.device)
-    want_p, want_mu, want_nu, want_l = ref.fused_train_plain(
-        x, y, flat, widths, lr=1e-3, tile_batch=tile, qat=qat,
-        moments=moments, step0=step0)
-    err = max_err((ops.pack_params(got_p)[0], got_l.reshape(-1)),
-                  (want_p, want_l))
-    if err > 1e-5:
-        fail(f"{what}: params/losses max abs err {err} > 1e-5")
-    if optimizer == "adam":
-        for got_m, want_m in ((got_s.mu, want_mu), (got_s.nu, want_nu)):
-            packed = ops.pack_params(got_m)[0]
-            if not torch.allclose(packed, want_m, atol=1e-6, rtol=1e-5):
-                fail(f"{what}: moments beyond atol 1e-6, rtol 1e-5 "
-                     f"(max abs err {max_err(packed, want_m)})")
-            err = max(err, max_err(packed, want_m))
-        if int(got_s.step) != k_steps * (per_step // tile):
-            fail(f"{what}: Adam step {int(got_s.step)}")
+    row_launches = 0
+    if tile == 1:
+        if optimizer != "sgd":
+            fail(f"{what}: tile 1 is held for SGD only")
+        div = held_stream(one_row, x, y, flat, widths, 1e-3, qat, what)
+        bitequal((div["params"], div["losses"]),
+                 (ops.pack_params(got_p)[0], got_l.reshape(-1)),
+                 f"{what}: one launch vs {x.shape[0]} one-row launches")
+        err, row_launches = div["err"], x.shape[0]
+    else:
+        moments = step0 = None
+        if optimizer == "adam":
+            moments = (torch.zeros_like(flat), torch.zeros_like(flat))
+            step0 = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        want_p, want_mu, want_nu, want_l = ref.fused_train_plain(
+            x, y, flat, widths, lr=1e-3, tile_batch=tile, qat=qat,
+            moments=moments, step0=step0)
+        err = max_err((ops.pack_params(got_p)[0], got_l.reshape(-1)),
+                      (want_p, want_l))
+        if err > 1e-5:
+            fail(f"{what}: params/losses max abs err {err} > 1e-5")
+        if optimizer == "adam":
+            for got_m, want_m in ((got_s.mu, want_mu), (got_s.nu, want_nu)):
+                packed = ops.pack_params(got_m)[0]
+                if not torch.allclose(packed, want_m, atol=1e-6, rtol=1e-5):
+                    fail(f"{what}: moments beyond atol 1e-6, rtol 1e-5 "
+                         f"(max abs err {max_err(packed, want_m)})")
+                err = max(err, max_err(packed, want_m))
+            if int(got_s.step) != k_steps * (per_step // tile):
+                fail(f"{what}: Adam step {int(got_s.step)}")
     seq_p, seq_s, rows = params, fresh(), []
     for k in range(k_steps):
         sl = slice(per_step * k, per_step * (k + 1))
@@ -628,7 +688,7 @@ def hold_multistep(what, params, x, y, per_step, optimizer, qat, cluster,
         rows.append(tl[0])
     again = run(params, fresh(), x, y, k_steps)
     torch.cuda.synchronize()
-    if counter.launches != before + 2 + k_steps:
+    if counter.launches != before + 2 + k_steps + row_launches:
         fail(f"{what}: launch counter did not advance per launch")
     want_c = kernel.cluster_size(tile, widths) if cluster is None else cluster
     if kernel.run_fused_train.last_cluster != want_c:
@@ -717,6 +777,15 @@ def check_training_kernels(device) -> dict:
                                  x[:rows], y[:rows], per_step, optimizer,
                                  False, cluster, tile_batch=tile_batch)
             errs[name] = max(errs[name], err)
+    # B2 at the per-sample stream's own shape (phase 4e runs it chunked):
+    # steps of 512 rows at tile 1 on one block, with and without QAT
+    xs, ys = training_data(device, 6, seed=8)
+    for qat in (False, True):
+        err = hold_multistep(
+            f"fused_train_multistep mrf-fpga K=3 x 512 tile 1 qat={qat}",
+            params, xs, ys, 512, "sgd", qat, None, tile_batch=1)
+        errs["fused_train_multistep"] = max(errs["fused_train_multistep"],
+                                            err)
     log(f"training kernels == plain versions within atol 1e-5 at clusters "
         f"{clusters_held} and the wrapper's own; K-step == K single-step "
         f"launches and repeats bit-exact ({errs})")
@@ -774,7 +843,7 @@ def train_phase(tmp: pathlib.Path, device) -> tuple:
          {"fused_train_adam": 4}),
         ("mrf-fpga fused sgd stepwise", ["--arch", "mrf-fpga", *fused,
          "--optimizer", "sgd", "--steps", "20"],
-         {"fused_train_multistep": 20}),
+         {"fused_train_multistep": 20}),  # B2 at K = 1, one a step
         ("mrf-fpga float adam", ["--arch", "mrf-fpga", "--backend", "float",
          "--steps", "100"], {}),
         ("mrf-fpga qat-int8 adam", ["--arch", "mrf-fpga", "--backend",
@@ -864,28 +933,196 @@ def train_then_serve(device) -> int:
     return rep["launches"]["fused_forward"]
 
 
+EQ3_SAMPLES = 250_000_000  # the paper's training run (Eq. 3)
+
+
+def example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mrf_counters() -> dict:
+    """Every kernel wrapper of the MRF path (B1-B5), each with its count."""
+    from repro_torch.kernels.qat_dense import fused, kernel
+
+    return {**train_counters(), "fused_forward": fused.fused_forward_call,
+            "qat_dense": kernel.qat_dense_call}
+
+
+def run_example(name: str, argv, want: dict | None) -> tuple:
+    """One example's ``main(argv)`` with the MRF kernels' counts reset just
+    before it; fails on a non-zero exit or unless the counts read just
+    after are ``want`` (0 for a kernel not named; ``None``: not checked
+    here).  Returns (its lines, the counts)."""
+    counters = mrf_counters()
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = example(name).main(argv)
+    counts = {k: c.launches for k, c in counters.items()}
+    lines = buf.getvalue().splitlines()
+    what = f"examples/{name}.py {' '.join(argv)}"
+    if rc != 0:
+        log("\n".join(lines[-20:]))
+        fail(f"{what} exited {rc}")
+    if want is not None and counts != {k: want.get(k, 0) for k in counters}:
+        fail(f"{what}: launches {counts}, expected {want}")
+    log(f"{what}: {time.perf_counter() - t0:.1f} s, launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    return lines, counts
+
+
+def report_of(lines, tag: str, what: str) -> dict:
+    found = [ln for ln in lines if ln.startswith(tag + " ")]
+    if not found:
+        fail(f"{what}: no {tag} line")
+    return json.loads(found[-1].split(" ", 1)[1])
+
+
+def paper_phase() -> tuple:
+    """Phase 4e: the paper's experiment through the port's examples.
+
+    * ``torch_quickstart``: QAT training, export, Table 1, and the int8 net
+      through B4 (one launch) and B5 (one a layer, 7) — both lines must
+      read bit-exact against the integer oracle;
+    * ``torch_mrf_fpga_train``: the per-sample stream (tile 1) chunked, 60
+      steps of 512 in chunks of 20 (3 B2 launches: the runner's
+      checkpoints every 20 steps end the chunks), and the minibatch at tile
+      128 stepwise, 300 steps of 512 (300 B2 launches at K = 1); each loss
+      must fall; then the stream again on the host CPU (``--device cpu``,
+      the kernel's plain version) with the card's loop — the same steps,
+      chunks and checkpoints — for the CPU's rate;
+    * ``torch_phantom_recon``: 200 QAT steps, 4 slices streamed through the
+      pipelined engine on B4, every slice ``done``.
+
+    Returns (each kernel's launches over the runs, the training runs'
+    ``eq3_report`` by run)."""
+    launches = {k: 0 for k in mrf_counters()}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    lines, counts = run_example("torch_quickstart", ["--device", "cuda"],
+                                {"fused_forward": 1, "qat_dense": 7})
+    exact = [ln.strip() for ln in lines if "qat.int_forward == " in ln]
+    if exact != ["qat.int_forward == B4 (fused kernel): True",
+                 "qat.int_forward == B5 (layered kernel chain): True"]:
+        fail(f"quickstart: {exact}")
+    log("\n".join(ln for ln in lines
+                   if "MAPE" in ln or "qat.int_forward ==" in ln))
+    add(counts)
+
+    runs = {}
+    stream = ["--mode", "stream", "--steps", "60", "--chunk-steps", "20"]
+    for key, argv, want in (
+            ("stream", [*stream, "--device", "cuda"],
+             {"fused_train_multistep": 3}),
+            ("minibatch", ["--mode", "minibatch", "--steps", "300",
+                           "--device", "cuda"], {"fused_train_multistep": 300}),
+            ("stream on the host CPU", [*stream, "--device", "cpu"], {})):
+        lines, counts = run_example("torch_mrf_fpga_train", argv, want)
+        rep = report_of(lines, "eq3_report", f"mrf_fpga_train {key}")
+        first, last = rep["first_loss"], rep["last_loss"]
+        if not (math.isfinite(last) and last < first):
+            fail(f"mrf_fpga_train {key}: loss {first} -> {last}")
+        log("\n".join(lines[-6:-1]))
+        rep["launches"] = {k: n for k, n in counts.items() if n}
+        runs[key] = rep
+        add(counts)
+
+    lines, counts = run_example(
+        "torch_phantom_recon", ["--device", "cuda", "--train-steps", "200"],
+        None)
+    rep = report_of(lines, "phantom_report", "phantom_recon")
+    want = {"fused_forward": rep["tiles_by_impl"].get("fused", 0)}
+    if rep["n_done"] != rep["slices"] or rep["states"] != ["done"] * 4:
+        fail(f"phantom_recon: states {rep['states']}")
+    if counts != {k: want.get(k, 0) for k in counts} or not want[
+            "fused_forward"]:
+        fail(f"phantom_recon: launches {counts} for tiles "
+             f"{rep['tiles_by_impl']}")
+    log("\n".join(lines[-30:]))
+    add(counts)
+    return launches, runs
+
+
+def eq3_summary(runs: dict, rows: list, name: str, smi: str) -> dict:
+    """The ``eq3_run`` record: the paper's Eq. 3 comparison for 250 M
+    samples, each figure under its algorithm's name — this program's wall
+    time on the card and on the host CPU (phase 4e), the kernel alone
+    (phase 5's device time a sample: B1 at tile 1, B2 at tile 128), the
+    H100 roofline of each algorithm (``core.fpga_cost_model``), the FPGA's
+    200 s and the paper's 16 h CPU; ``card_over_cpu`` is how many times
+    faster the card ran the per-sample stream than the host CPU did."""
+    from repro_torch.core import fpga_cost_model as fcm
+
+    per_sample_ms = {r["name"]: r["ms"] / r["samples"] for r in rows
+                     if "samples" in r}
+    kernel_only = {fcm.train_algorithm(1): (
+                       "B1 at tile 1", per_sample_ms["fused_train"]),
+                   fcm.train_algorithm(128): (
+                       "B2 at tile 128", per_sample_ms["fused_train_multistep"])}
+    out = {"runs": {key: {k: rep[k] for k in (
+        "algorithm", "device", "tile", "chunk_steps", "steps", "batch",
+        "samples", "wall_s", "s_per_250m", "launches", "h100_roofline_s",
+        "cluster", "first_loss", "last_loss")} for key, rep in runs.items()},
+        "kernel_only_s_per_250m": {
+            alg: {"kernel": k, "s": ms * EQ3_SAMPLES / 1e3}
+            for alg, (k, ms) in kernel_only.items()},
+        "paper_fpga_s": fcm.paper_eq3_seconds(),
+        "cycle_model_s": runs["stream"]["cycle_model_s"],
+        "paper_cpu_s": fcm.PAPER["cpu_train_seconds"],
+        "paper_cpu_over_fpga": fcm.PAPER["cpu_train_seconds"]
+        / fcm.paper_eq3_seconds(),
+        "card_over_cpu": runs["stream on the host CPU"]["s_per_250m"]
+        / runs["stream"]["s_per_250m"],
+        "device": name, "nvidia_smi": smi}
+    for key, r in out["runs"].items():
+        log(f"eq3 {key} ({r['algorithm']}) on {r['device']}: {r['samples']} "
+            f"samples in {r['wall_s']:.3f} s of wall time -> "
+            f"{r['s_per_250m']:.1f} s per 250 M samples (measured, this "
+            f"program); H100 roofline {r['h100_roofline_s']:.2f} s")
+    for alg, r in out["kernel_only_s_per_250m"].items():
+        log(f"eq3 kernel only, {alg}: {r['kernel']} {r['s']:.1f} s per 250 M "
+            f"samples (phase 5 device time a sample x 250 M: a projection)")
+    log(f"eq3: the FPGA's {out['paper_fpga_s']:.0f} s, the paper's CPU "
+        f"{out['paper_cpu_s']:.0f} s ({out['paper_cpu_over_fpga']:.0f}x); the "
+        f"card ran the per-sample stream {out['card_over_cpu']:.1f}x faster "
+        f"than this host's CPU  [{smi}]")
+    return out
+
+
 def training_timing(launches: dict, errs: dict, device) -> list:
     """Phase 5 for the training kernel at mrf-fpga full width: B1 over 1,024
     samples at tile 1, B2 and B3 over K=50 steps of 256 at tile 128.  The
     device time is the profiler's median over the launches it records of
-    20 back-to-back ones (:func:`device_ms`).  The bound counts x and y read once, the net (and Adam's moments) read and
-    written once, the losses written; the operations are the products of
-    the forward, dW and dh (59,584 FLOP a sample) plus the update (2 FLOP a
-    parameter a tile for SGD, 16 for Adam), at the card's fp32 rate, at
-    one SM's (1/132 of it) and at the launch's C SMs' (one cluster of C
-    blocks walks the tiles in order).  Each kernel is also timed at every
-    cluster size 1, 2, 4, 8, 16 (``by_cluster``; a size whose rows do not
-    fit a block is refused, one the card cannot place fails to launch)."""
+    20 back-to-back ones (:func:`device_ms`).  The bounds are the cost
+    model's (``core.fpga_cost_model.h100_train_seconds``): x and y read
+    once, the net (and Adam's moments) read and written once, the losses
+    written; the forward, dW and dh products (59,584 FLOP a sample) plus the
+    update (2 FLOP a parameter a tile for SGD, 16 for Adam) at the card's
+    fp32 rate, at one SM's (1/132 of it) and at the launch's C SMs' (one
+    cluster of C blocks walks the tiles in order).  Each kernel is also
+    timed at every cluster size 1, 2, 4, 8, 16 (``by_cluster``; a size
+    whose rows do not fit a block is refused, one the card cannot place
+    fails to launch)."""
+    from repro_torch.analysis.roofline import H100
     from repro_torch.core import mrf_net
+    from repro_torch.core.fpga_cost_model import h100_train_seconds
     from repro_torch.kernels.fused_train import kernel, multistep, ops, ref
 
     gen = torch.Generator(device=device).manual_seed(9)
     widths = mrf_net.layer_sizes(32)
     flat, _ = ops.pack_params(mrf_net.init_params(gen, widths))
-    n = flat.numel()
-    macs = sum(k * m for k, m in zip(widths[:-1], widths[1:]))
-    per_sample = 2 * macs + 2 * macs + 2 * sum(
-        k * m for k, m in zip(widths[1:-1], widths[2:]))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     x, y = training_data(device, 50, seed=8)
@@ -927,10 +1164,12 @@ def training_timing(launches: dict, errs: dict, device) -> list:
             xs, ys, flat, widths, lr=1e-3, tile_batch=tile,
             moments=(zeros, zeros) if opt else None,
             step0=step0 if opt else None)
-        n_tiles = n_rows // tile
-        nbytes = 4 * (n_rows * (widths[0] + widths[-1]) + 2 * n
-                      + (4 * n + 1 if opt else 0) + n_tiles)
-        nops = n_rows * per_sample + n_tiles * n * (16 if opt else 2)
+
+        def bound(c):
+            return h100_train_seconds(widths, n_rows, tile=tile, cluster=c,
+                                      optimizer=opt or "sgd")
+
+        card = bound(H100["n_sms"])
         saved = counters[name].launches
         t = {"ms": device_ms(call, "fused_train_kernel", reps=TRAIN_REPS,
                              warmup=1, label=name),
@@ -938,16 +1177,14 @@ def training_timing(launches: dict, errs: dict, device) -> list:
              "plain_ms": device_ms(plain, None, reps=2, warmup=1,
                                    label=f"{name} plain")}
         cluster = kernel.run_fused_train.last_cluster
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_FLOPS_PER_S * 1e3
         by_cluster = []
         for c in (1, 2, 4, 8, 16):
             kw["cluster"] = c
             try:
                 ms = device_ms(call, "fused_train_kernel", reps=TRAIN_REPS,
                                warmup=1, label=f"{name} cluster {c}")
-                by_cluster.append({"cluster": c, "ms": ms,
-                                   "bound_c_sms_ms": t_ops * N_SMS / c})
+                by_cluster.append({"cluster": c, "ms": ms, "bound_c_sms_ms":
+                                   bound(c)["t_compute_s"] * 1e3})
             except (ValueError, RuntimeError) as e:
                 by_cluster.append({"cluster": c, "refused": str(e)})
         del kw["cluster"]
@@ -957,14 +1194,15 @@ def training_timing(launches: dict, errs: dict, device) -> list:
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": errs[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"],
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bound_ms": card["t_total_s"] * 1e3,
+                     "bound_by": ("bytes" if card["bound"] == "memory"
+                                  else "operations"),
                      "library_ms": None, "wall_ms": t["wall_ms"],
                      "cluster": cluster,
-                     "bound_one_sm_ms": t_ops * N_SMS,
-                     "bound_c_sms_ms": t_ops * N_SMS / cluster,
-                     "by_cluster": by_cluster,
-                     "shape": shape, "bytes": nbytes, "ops": nops,
+                     "bound_one_sm_ms": bound(1)["t_compute_s"] * 1e3,
+                     "bound_c_sms_ms": bound(cluster)["t_compute_s"] * 1e3,
+                     "by_cluster": by_cluster, "shape": shape,
+                     "bytes": card["bytes"], "ops": card["ops"],
                      "samples": n_rows, "algorithm": algorithms[name]})
     return rows
 
@@ -986,7 +1224,7 @@ def event_ms(fn, reps: int = REPS) -> float:
 
 
 def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
-              label: str = "") -> float:
+              label: str = "", lead: int = 0) -> float:
     """Device time per call from the profiler's CUDA activity: the median
     duration of the launches of ``kernel`` it recorded, or
     (``kernel=None``) the summed duration of every device activity over
@@ -1006,7 +1244,9 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
     records absorb that loss, and keeps the last ``reps`` records of
     ``kernel``; a short count is logged (``label`` names the call), not
     fatal, and a session that recorded nothing is taken again, at most
-    twice; a sum over ``kernel=None`` may read low.
+    twice; a sum over ``kernel=None`` may read low, unless ``lead`` calls
+    open the session: then a one-element int16 ``fill_`` follows them as a
+    marker, and only the activity after the marker is summed.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1014,25 +1254,32 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    marker = torch.zeros((1,), dtype=torch.int16, device="cuda")
     for _ in range(3):  # a session that recorded nothing is taken again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps if kernel is not None else 0):
+            for _ in range(reps if kernel is not None else lead):
                 fn()  # the session's own warm-up (see above)
+            if kernel is None and lead:
+                marker.fill_(1)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if kernel is None and lead:
+            marks = [i for i, e in enumerate(evs) if MARKER in e.name]
+            evs = evs[marks[-1] + 1:] if marks else []
         if evs:
             break
         log(f"  {label or 'device_ms'}: the profiler recorded no device "
-            f"activity; session taken again")
+            f"activity{' after the marker' if lead else ''}; session taken "
+            f"again")
     if not evs:
         fail("the profiler recorded no device activity: no device time")
     if kernel is None:
         return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
-    recorded = [e.time_range.elapsed_us()
-                for e in sorted(evs, key=lambda e: e.time_range.start)
-                if kernel in e.name]
+    recorded = [e.time_range.elapsed_us() for e in evs if kernel in e.name]
     if len(recorded) > 2 * reps:
         fail(f"{label}: profiler saw {len(recorded)} launches of {kernel} "
              f"in {2 * reps} calls")
@@ -1060,6 +1307,7 @@ def int8_times(net, int_layers, m: int, gen, device) -> dict:
     bytes and operations it counts.  B4's bound counts the net at its true
     widths (``int_layers``): int8 weights, int32 bias and fp32 scale per
     output, never the kernel's padded shared-memory image."""
+    from repro_torch.analysis.roofline import H100
     from repro_torch.kernels.qat_dense import fused, kernel, ref
 
     x = torch.randn((m, net.in_dim), generator=gen, device=device)
@@ -1088,8 +1336,8 @@ def int8_times(net, int_layers, m: int, gen, device) -> dict:
         counter = (fused.fused_forward_call if name == "fused_forward"
                    else kernel.qat_dense_call)
         saved = counter.launches
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / INT8_OPS_PER_S * 1e3
+        t_bytes = nbytes / H100["hbm_bytes_per_s"] * 1e3
+        t_ops = nops / H100["peak_int8_ops"] * 1e3
         out[name] = {"ms": device_ms(call, f"{name}_kernel",
                                      label=f"{name} M={m}"),
                      "wall_ms": event_ms(call),
@@ -1216,6 +1464,8 @@ def check_flash_attention(device) -> float:
         ("dh 128 window 24", 1, 320, 8, 2, 128, True, 24, bf16, None),
         ("dh 128, granite-8b prefill shape", 8, 2048, 32, 8, 128, True, 0,
          bf16, None),
+        ("group 1 at dh 128, deepseek-moe-16b prefill shape", 8, 2048, 16, 16,
+         128, True, 0, bf16, None),
         ("f32", 1, 256, 8, 2, 64, True, 0, f32, 64),
         ("f32 window 8, ragged 50, blocks 16", 1, 50, 6, 2, 16, True, 8, f32,
          16),
@@ -1279,6 +1529,7 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device) -> dict:
     never calls."""
     import torch.nn.functional as F
 
+    from repro_torch.analysis.roofline import H100
     from repro_torch.kernels.flash_attn import kernel, ref
     from repro_torch.kernels.flash_attn.ops import kernel_layout
 
@@ -1298,14 +1549,15 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device) -> dict:
          "wall_ms": event_ms(call, reps=20),
          "plain_ms": device_ms(lambda: ref.flash_attention_plain(
              qf, kf, vf, **kw), None, reps=2, warmup=1),
-         "library_ms": device_ms(lib, None, reps=20)}
+         "library_ms": device_ms(lib, None, reps=20, lead=20,
+                                 label=f"SDPA dh {dh}")}
     lib_err = float((lib().transpose(1, 2).double() - call().reshape(
         b, hq, s, dh).transpose(1, 2).double()).abs().max())
     counter.launches = saved
     nops = 4 * b * hq * dh * s * (s + 1) // 2
     nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
-    t_ops = nops / BF16_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / H100["peak_bf16_flops"] * 1e3
+    t_bytes = nbytes / H100["hbm_bytes_per_s"] * 1e3
     log(f"  B6 vs scaled_dot_product_attention at dh {dh}: max abs diff "
         f"{lib_err:.3g} (not held: another algorithm)")
     t.update({"bound_ms": max(t_ops, t_bytes),
@@ -1318,9 +1570,11 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device) -> dict:
 def flash_attention_timing(err: float, device) -> dict:
     """Phase 5 for B6, right after its checks: the serving shape (B 8, Hq
     32, Hkv 4, dh 64, S 2,048) makes the kernel row; granite-8b's (Hkv 8,
-    dh 128) rides in it as ``dh128``."""
+    dh 128) rides in it as ``dh128``, deepseek-moe-16b's (Hq 16, Hkv 16,
+    group 1, dh 128) as ``deepseek``."""
     row = b6_time(8, 2048, 32, 4, 64, device)
     row["dh128"] = b6_time(8, 2048, 32, 8, 128, device)
+    row["deepseek"] = b6_time(8, 2048, 16, 16, 128, device)
     row.update({"name": "flash_attn", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attn_sm90.cu",
                 "replaces": "src/repro/kernels/flash_attn/kernel.py:86",
@@ -1328,58 +1582,109 @@ def flash_attention_timing(err: float, device) -> dict:
     return row
 
 
-def token_phase(device) -> tuple:
-    """Phase 4d: token serving through the launcher at full width, twice,
-    with B6's count reset just before each run and read just after.
-    Returns (B6's launches over both runs, the reports)."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve as launcher
-
-    cfg = get_config(LM_ARCH)
-    argv = ["--arch", LM_ARCH, "--device", "cuda", "--requests", "8",
-            "--prompt-len", "2048", "--gen-len", "32"]
+def token_runs(label: str, cfg, run, n_runs: int) -> tuple:
+    """``n_runs`` token-serving runs of ``cfg`` at 8 requests of 2,048-token
+    prompts and 32 tokens (``run()`` serves and returns the exit code),
+    B6's count reset just before each run and read just after: each run
+    makes exactly one B6 launch a layer a prefill (warm-up and timed), its
+    tokens lie in the vocab, and every run gives the same tokens.  Returns
+    (B6's launches over the runs, the reports)."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
 
     counter = flash_attention_call
     reports, total = [], 0
-    for _ in range(2):
+    for _ in range(n_runs):
         counter.launches = 0
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = launcher.main(argv)
+            rc = run()
         launches = counter.launches
         out = buf.getvalue().splitlines()
         if rc != 0 or not out or not out[-1].startswith("token_report "):
-            fail(f"token serving {' '.join(argv)}: rc {rc}, no report")
+            fail(f"token serving {label}: rc {rc}, no report")
         log("\n".join(out[:-1]))
         rep = json.loads(out[-1].split(" ", 1)[1])
+        rep["layers"] = cfg.n_layers
         toks = torch.tensor(rep["tokens"])
         want = 2 * cfg.n_layers  # warm-up + timed prefill, one launch a layer
         if launches != want or rep["flash_attn_launches"] != want:
-            fail(f"token serving: {launches} B6 launches (report "
+            fail(f"token serving {label}: {launches} B6 launches (report "
                  f"{rep['flash_attn_launches']}), expected {want}")
         if toks.shape != (8, 32) or not (0 <= int(toks.min())
                                          and int(toks.max()) < cfg.vocab_size):
-            fail(f"token serving: tokens {tuple(toks.shape)} outside the vocab")
+            fail(f"token serving {label}: tokens {tuple(toks.shape)} outside "
+                 f"the vocab")
         total += launches
         reports.append(rep)
         log("token_report " + json.dumps(
             {k: v for k, v in rep.items() if k != "tokens"}))
-    if reports[0]["tokens"] != reports[1]["tokens"]:
-        fail("token serving: greedy tokens differ between two runs")
-    log(f"token serving: {total} B6 launches in 2 runs ({cfg.n_layers} a "
-        f"prefill), greedy tokens identical across the runs")
+    if any(r["tokens"] != reports[0]["tokens"] for r in reports):
+        fail(f"token serving {label}: greedy tokens differ between runs")
+    log(f"token serving {label}: {total} B6 launches in {n_runs} run(s) "
+        f"({cfg.n_layers} a prefill), greedy tokens identical across runs")
     return total, reports
 
 
-def lm_model(device) -> tuple:
-    """tinyllama-1.1b's model functions and bf16 params at full width,
-    random weights from seed 0 (as the launcher makes them)."""
+def launcher_argv(arch: str) -> list:
+    return ["--arch", arch, "--device", "cuda", "--requests", "8",
+            "--prompt-len", "2048", "--gen-len", "32"]
+
+
+def token_phase() -> tuple:
+    """Phase 4d: token serving through the launcher at full width, twice.
+    Returns (B6's launches over both runs, the reports)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+
+    return token_runs(LM_ARCH, get_config(LM_ARCH),
+                      lambda: launcher.main(launcher_argv(LM_ARCH)), 2)
+
+
+def free_device() -> None:
+    """Return the cached blocks of freed tensors to the card, so a model of
+    other shapes can take their memory."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_phase() -> tuple:
+    """Phase 4f, serving: deepseek-moe-16b, all 28 layers at full width,
+    through the launcher twice (56 B6 launches a run); phi3.5-moe at full
+    width with ``MOE_WIDE_LAYERS`` of its 32 layers (its 78 GiB of bf16
+    weights do not fit beside the cache and activations), once, through the
+    launcher's ``serve_tokens`` on a config cut in depth only (32 B6
+    launches).  Returns (B6's launches, the reports)."""
+    import argparse
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+
+    n_ds, reports = token_runs(MOE_ARCH, get_config(MOE_ARCH),
+                               lambda: launcher.main(launcher_argv(MOE_ARCH)),
+                               2)
+    free_device()
+    wide = dataclasses.replace(get_config(MOE_WIDE),
+                               n_layers=MOE_WIDE_LAYERS)
+    args = argparse.Namespace(requests=8, prompt_len=2048, gen_len=32,
+                              device="cuda")
+    n_wide, wide_reports = token_runs(
+        f"{MOE_WIDE} ({MOE_WIDE_LAYERS} of 32 layers)", wide,
+        lambda: launcher.serve_tokens(args, wide), 1)
+    free_device()
+    return n_ds + n_wide, reports + wide_reports
+
+
+def lm_model(device, arch: str = LM_ARCH) -> tuple:
+    """An LM's model functions and bf16 params at full width, random weights
+    from seed 0 (as the launcher makes them)."""
     from repro_torch.configs import get_config
     from repro_torch.models import registry
     from repro_torch.models.common import COMPUTE
 
-    fns = registry.build(get_config(LM_ARCH))
+    fns = registry.build(get_config(arch))
     return fns, fns.init(0, device=device, dtype=COMPUTE)
 
 
@@ -1398,14 +1703,30 @@ def lm_breakdown(fns, params, device) -> dict:
     raises.  Device time is summed by kernel class (B6,
     the matrix products, everything else); the idle share is 1 - busy /
     wall, wall on the host clock between synchronisations (kernels of one
-    stream do not overlap)."""
+    stream do not overlap).  Beside each, a lower bound from
+    ``analysis.roofline``: the weight products' 2 x N_active FLOP a token
+    at the bf16 peak, against the bf16 weights read once over HBM — all of
+    them for the prefill (its 16,384 tokens reach every expert), one
+    token's active weights a decode step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.analysis.roofline import (model_flops_decode,
+                                               roofline_terms)
+    from repro_torch.configs.base import active_param_count, param_count
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
     cfg = fns.cfg
+    active = active_param_count(cfg)
+    bounds = {"prefill 8 x 2048": roofline_terms(
+                  flops_per_device=model_flops_decode(active, 8 * 2048),
+                  bytes_per_device=2 * param_count(cfg),
+                  collective_bytes_per_device=0, chips=1),
+              "decode, 8 steps": roofline_terms(
+                  flops_per_device=model_flops_decode(active, 8 * 8),
+                  bytes_per_device=8 * 2 * active,
+                  collective_bytes_per_device=0, chips=1)}
     counter = flash_attention_call
     saved = counter.launches
     gen = torch.Generator(device=device).manual_seed(3)
@@ -1436,8 +1757,8 @@ def lm_breakdown(fns, params, device) -> dict:
             run_decode()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        log("prefill and 8 decode steps: no host synchronisation (sync "
-            "debug mode 'error')")
+        log(f"{cfg.name} prefill and 8 decode steps: no host "
+            f"synchronisation (sync debug mode 'error')")
         for what, fn in (("prefill 8 x 2048", run_prefill),
                          ("decode, 8 steps", run_decode)):
             torch.cuda.synchronize()
@@ -1458,11 +1779,15 @@ def lm_breakdown(fns, params, device) -> dict:
             if busy <= 0:
                 fail(f"{what}: the profiler recorded no device activity")
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            bound = bounds[what]
             out[what] = {"wall_ms": wall, "busy_ms": busy,
                          "idle_share": 1 - busy / wall,
-                         "by_class_ms": by_class}
-            log(f"breakdown {what}: wall {wall:.3f} ms, device busy "
-                f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}); by "
+                         "by_class_ms": by_class,
+                         "bound_ms": bound["t_bound_s"] * 1e3,
+                         "bound_by": bound["dominant"]}
+            log(f"breakdown {cfg.name} {what}: wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}), bound "
+                f"{bound['t_bound_s'] * 1e3:.3f} ms ({bound['dominant']}); by "
                 f"class {json.dumps({k: round(v, 3) for k, v in by_class.items()})}"
                 f"; top {[(n[:60], round(v, 3)) for n, v in top]}")
     counter.launches = saved
@@ -1588,6 +1913,180 @@ def model_vs_cpu(fns, params, device) -> dict:
             "attn_held": attn_held}
 
 
+def moe_forms(fns, params, device) -> dict:
+    """The MoE block's two forms at deepseek-moe-16b's prefill shape (8 x
+    2,048 tokens: 64 groups, capacity 30 a expert), on layer 0's params and
+    a random bf16 input: the model's index dispatch (``moe.moe_block``) and
+    the reference's dense one-hot (``moe.moe_block_plain``), each timed
+    between CUDA events (median of 10 calls); the two must agree within
+    ``MOE_INDEX_ULPS``.  The model keeps the faster form."""
+    from repro_torch.models import moe
+
+    cfg = fns.cfg
+    p = params["layers"][0]["moe"]
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn((8, 2048, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    kw = {"top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor}
+    forms = {"index": moe.moe_block, "dense": moe.moe_block_plain}
+    with torch.no_grad():
+        y_index, y_dense = (f(p, x, **kw)[0] for f in forms.values())
+        ulps = float((y_index.float() - y_dense.float()).abs().max()) \
+            / bf16_ulp(y_dense)
+        if ulps > MOE_INDEX_ULPS:
+            fail(f"{MOE_ARCH} MoE block, 8 x 2048 tokens: the index form "
+                 f"{ulps:g} ulps from the dense one-hot (limit "
+                 f"{MOE_INDEX_ULPS})")
+        ms = {form: event_ms(lambda f=f: f(p, x, **kw), reps=10)
+              for form, f in forms.items()}
+    log(f"{MOE_ARCH} MoE block (layer 0, 8 x 2048 tokens): index dispatch "
+        f"{ms['index']:.3f} ms, dense one-hot {ms['dense']:.3f} ms between "
+        f"CUDA events; outputs within {ulps:g} ulps")
+    return {"ms": ms, "ulps": ulps}
+
+
+def moe_vs_cpu(fns, params, device) -> list:
+    """Phase 4f, the MoE layer on the card against a CPU copy:
+    deepseek-moe-16b's first two layers at full width on one 256-token
+    prompt (one routing group: capacity 30 a expert), each layer one step
+    from the CPU chain's input, on the card and on a CPU copy of its bf16
+    params.
+
+    * Routing first: the two sides' MoE inputs differ by the attention's
+      bf16 roundings, so a near-tie in the f32 router can pick another
+      expert.  The (token, choice) pairs routed differently are counted; a
+      layer fails above ``MOE_FLIP_SHARE`` of them.  A token is alike when
+      its experts and the experts it is dispatched to (within capacity)
+      are the same on both sides.
+    * The layer's output, held within ``LM_LAYER_ULPS`` bf16 ulps of its
+      largest magnitude at the alike tokens only.
+    * B6 on the layer's own q, k, v (group 1, dh 128): ``hold_b6_bf16``.
+    * The model's index dispatch against the dense one-hot form
+      (``moe.moe_block_plain``) on the card, on the card's own input: the
+      same dispatched slots exactly, outputs within ``MOE_INDEX_ULPS``.
+    Returns each layer's readings."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+    from repro_torch.kernels.flash_attn.ops import kernel_layout
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm, moe
+    from repro_torch.tree import tree_map
+
+    cfg = fns.cfg
+    n_exp = cfg.n_experts
+    gen = torch.Generator(device=device).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                           device=device, dtype=torch.int32)
+    counter = flash_attention_call
+    original_attn, original_moe = attn_mod.flash_attention, lm.moe_block
+    seen = {"attn": [], "moe": []}
+
+    def recording_attn(q, k, v, **kw):
+        out = original_attn(q, k, v, **kw)
+        seen["attn"].append((q, k, v, kw, out))
+        return out
+
+    def recording_moe(p, x, **kw):
+        y, aux = original_moe(p, x, **kw)
+        seen["moe"].append((p, x, kw, y))
+        return y, aux
+
+    def step(h, lp):
+        attn_mod.flash_attention, lm.moe_block = recording_attn, recording_moe
+        try:
+            out, _ = lm._block(cfg, 1, h, lp, return_kv=False)
+        finally:
+            attn_mod.flash_attention, lm.moe_block = original_attn, \
+                original_moe
+        return out
+
+    def routing(p, x, kw):
+        r = moe.route(p.router, moe._groups(x, moe.GROUP_SIZE), cfg.top_k,
+                      kw["capacity_factor"])
+        slot, keep = moe.slots(r, n_exp)
+        kept = torch.zeros((*r.idx.shape[:2], n_exp + 1), dtype=torch.bool,
+                           device=r.idx.device)
+        kept.scatter_(2, torch.where(keep, r.idx, n_exp), True)
+        return r, slot, keep, kept[..., :n_exp]
+
+    readings = []
+    with torch.no_grad():
+        h_c = lm._embed(params, tokens).cpu()
+        for i, lp_g in enumerate(params["layers"][:2]):
+            lp_c = tree_map(lambda t: t.cpu(), lp_g)
+            seen["attn"].clear(), seen["moe"].clear()
+            before = counter.launches
+            one = step(h_c.to(device), lp_g)
+            torch.cuda.synchronize()
+            launches = counter.launches - before
+            nxt = step(h_c, lp_c)
+            (p_g, x_g, kw, y_g), (p_c, x_c, _, _) = seen["moe"]
+            if launches != 1 or len(seen["attn"]) != 2:
+                fail(f"{MOE_ARCH} layer {i}: {launches} B6 launches")
+            r_g, slot_g, keep_g, kept_g = routing(p_g, x_g, kw)
+            r_c, _, _, kept_c = routing(p_c, x_c, kw)
+            flipped = r_g.idx.cpu() != r_c.idx
+            share = float(flipped.float().mean())
+            alike = (~flipped.any(-1) & (kept_g.cpu() == kept_c).all(-1))[0]
+            if share > MOE_FLIP_SHARE or not alike.any():
+                fail(f"{MOE_ARCH} layer {i}, card vs CPU: {share:.4f} of "
+                     f"the (token, choice) pairs routed differently (limit "
+                     f"{MOE_FLIP_SHARE}), {int(alike.sum())} of 256 tokens "
+                     f"alike")
+            got, want = one[0, alike].float().cpu(), nxt[0, alike].float()
+            layer_ulps = float((got - want).abs().max()) / bf16_ulp(want)
+            if layer_ulps > LM_LAYER_ULPS:
+                fail(f"{MOE_ARCH} layer {i}: one step {layer_ulps:g} bf16 "
+                     f"ulps off at the alike tokens (limit {LM_LAYER_ULPS})")
+            # B6 on the layer's own q, k, v
+            q, k, v, akw, out = seen["attn"][0]
+            qf, kf, vf, lkw = kernel_layout(q, k, v, **akw)
+            saved = counter.launches
+            b6 = counter(qf, kf, vf, **lkw)
+            counter.launches = saved
+            if not torch.equal(out, b6.reshape(
+                    q.shape[0], q.shape[2], -1, q.shape[3]).transpose(
+                        1, 2)[:, :q.shape[1]]):
+                fail(f"B6 in {MOE_ARCH} layer {i}: the model's call and a "
+                     f"repeat differ")
+            held = hold_b6_bf16(f"B6 in {MOE_ARCH} layer {i}", b6, qf, kf,
+                                vf, lkw)
+            # the index dispatch against the dense one-hot, on the card
+            dense = moe.dense_combine(r_g, n_exp) > 0
+            cap = r_g.capacity
+            mask = torch.zeros((*r_g.idx.shape[:2], n_exp * cap + 1),
+                               dtype=torch.bool, device=device)
+            mask.scatter_(2, torch.where(keep_g, r_g.idx * cap + slot_g,
+                                         n_exp * cap), True)
+            y_plain, _ = moe.moe_block_plain(p_g, x_g, **kw)
+            index_ulps = float((y_g.float() - y_plain.float()).abs().max()) \
+                / bf16_ulp(y_plain)
+            if not torch.equal(mask[..., :-1].reshape(dense.shape), dense) \
+                    or index_ulps > MOE_INDEX_ULPS:
+                fail(f"{MOE_ARCH} layer {i}: the index dispatch differs from "
+                     f"the dense one-hot ({index_ulps:g} ulps, limit "
+                     f"{MOE_INDEX_ULPS})")
+            reading = {"layer": i, "flip_share": share,
+                       "alike_tokens": int(alike.sum()),
+                       "dropped_choices": int((~keep_g).sum()),
+                       "layer_ulps": layer_ulps, "index_vs_dense_ulps":
+                       index_ulps, "b6": held}
+            log(f"{MOE_ARCH} layer {i}, 1 x 256 tokens, card vs CPU copy: "
+                f"{share:.4f} of the (token, choice) pairs routed "
+                f"differently (limit {MOE_FLIP_SHARE}), {reading['alike_tokens']}"
+                f" of 256 tokens alike; one step within {layer_ulps:g} bf16 "
+                f"ulps there (limit {LM_LAYER_ULPS}); "
+                f"{reading['dropped_choices']} of {256 * cfg.top_k} choices "
+                f"dropped at capacity {cap}; index dispatch == dense one-hot "
+                f"(slots equal, outputs within {index_ulps:g} ulps, limit "
+                f"{MOE_INDEX_ULPS}); B6 (group 1, dh 128): scores within "
+                f"{held['scores_vs_bound']:.3g} of the f32 orders' bound, "
+                f"on them {held['ulps']:g} ulps, {held['share']:.3g} of the "
+                f"elements differ")
+            readings.append(reading)
+            h_c = nxt
+    return readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1643,11 +2142,23 @@ def main() -> int:
         launches["fused_forward"] += train_then_serve(device)
         log(f"training phases: {time.perf_counter() - t_train:.1f} s")
     launches.update(train_launches)
+    t_paper = time.perf_counter()
+    paper_launches, eq3_runs = paper_phase()
+    for kname, n in paper_launches.items():
+        launches[kname] += n
+    log(f"paper phase (4e): {time.perf_counter() - t_paper:.1f} s")
     t_lm = time.perf_counter()
-    launches["flash_attn"], token_reports = token_phase(device)
+    launches["flash_attn"], token_reports = token_phase()
     fns, lm_params = lm_model(device)
     model_vs_cpu(fns, lm_params, device)
     log(f"LM phases: {time.perf_counter() - t_lm:.1f} s")
+    t_moe = time.perf_counter()
+    n_moe, moe_reports = moe_phase()
+    launches["flash_attn"] += n_moe
+    moe_fns, moe_params = lm_model(device, MOE_ARCH)
+    moe_vs_cpu(moe_fns, moe_params, device)
+    moe_forms(moe_fns, moe_params, device)
+    log(f"MoE phase (4f): {time.perf_counter() - t_moe:.1f} s")
     for kname, n in launches.items():
         if n <= 0:
             fail(f"kernel {kname} was never launched on the main path")
@@ -1659,7 +2170,8 @@ def main() -> int:
     rows.append(flash_row)
     # last: its profiler sessions come after every kernel's timing
     lm_breakdown(fns, lm_params, device)
-    del lm_params
+    lm_breakdown(moe_fns, moe_params, device)
+    del lm_params, moe_params
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "
@@ -1690,8 +2202,7 @@ def main() -> int:
                     f"{b['ms']:.6f} ms on the device, {b['cluster']} SMs' "
                     f"bound {b['bound_c_sms_ms']:.6f} ms" if "ms" in b
                     else f"not launched: {b['refused']}"))
-        if "dh128" in r:
-            d = r["dh128"]
+        for d in (r[k] for k in ("dh128", "deepseek") if k in r):
             log(f"time {r['name']} ({d['shape']}): {d['ms']:.6f} ms on the "
                 f"device, {d['wall_ms']:.6f} ms per call, plain "
                 f"{d['plain_ms']:.6f} ms, bound {d['bound_ms']:.6f} ms "
@@ -1699,10 +2210,11 @@ def main() -> int:
                 f"[{smi}]")
     for rep in reports:
         log(f"train_run {json.dumps(rep)}")
-    for rep in token_reports:
+    for rep in token_reports + moe_reports:
         log("token_run " + json.dumps(
             {k: v for k, v in rep.items() if k != "tokens"}))
     log("chaos_run " + json.dumps(chaos))
+    log("eq3_run " + json.dumps(eq3_summary(eq3_runs, rows, name, smi)))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,9 +1,10 @@
 """Model configuration schema (counterpart of ``repro.configs.base``): the
-``ModelConfig`` fields that the ``mrf`` and ``dense`` families read.
+``ModelConfig`` fields that the ``mrf``, ``dense`` and ``moe`` families
+read.
 
-The other LM families (``moe``, ``ssm``, ``hybrid``, ``encdec``, ``vlm``)
-are not ported yet: ``validate`` refuses them (ROADMAP.md §A).  Sharding is
-not ported either, so the tensor-parallel degree ``tp`` must be 1.
+The other LM families (``ssm``, ``hybrid``, ``encdec``, ``vlm``) are not
+ported yet: ``validate`` refuses them (ROADMAP.md §A).  Sharding is not
+ported either, so the tensor-parallel degree ``tp`` must be 1.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-PORTED_FAMILIES = ("mrf", "dense")
+PORTED_FAMILIES = ("mrf", "dense", "moe")
 
 
 def _check_tp(tp: int) -> None:
@@ -26,11 +27,11 @@ class ModelConfig:
     name: str
     family: str
     n_layers: int
-    # --- LM zoo (family == "dense") ---
+    # --- LM zoo (family "dense" or "moe") ---
     d_model: int = 0
     n_heads: int = 0          # query heads
     n_kv_heads: int = 0
-    d_ff: int = 0
+    d_ff: int = 0             # per-expert FFN width for MoE
     vocab_size: int = 0
     d_head: int = 0           # 0 -> d_model // n_heads
     swa_window: int = 0       # 0 = full attention
@@ -40,6 +41,11 @@ class ModelConfig:
     norm_eps: float = 1e-5
     quant: str = "none"       # only "none" until the LM-training slice
     decode_unroll: bool = False  # per-layer decode caches (else stacked)
+    # --- MoE (family == "moe") ---
+    n_experts: int = 0        # routed experts
+    n_shared_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     # --- MRF reconstruction nets (family == "mrf") ---
     mrf_n_frames: int = 0     # fingerprint frames; input dim = 2 * frames
     mrf_hidden: tuple = ()    # hidden widths ((T1, T2) head appended)
@@ -71,8 +77,11 @@ class ModelConfig:
             return self
         if min(self.n_layers, self.d_model, self.n_heads, self.n_kv_heads,
                self.d_ff, self.vocab_size) <= 0:
-            raise ValueError(f"{self.name}: dense configs need positive "
+            raise ValueError(f"{self.name}: LM configs need positive "
                              f"layers, widths, heads and vocab")
+        if self.family == "moe" and (self.n_experts <= 0 or self.top_k <= 0):
+            raise ValueError(f"{self.name}: MoE configs need experts and a "
+                             f"positive top_k")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: {self.n_heads} query heads do not "
                              f"group over {self.n_kv_heads} kv heads")
@@ -98,5 +107,18 @@ def param_count(cfg: ModelConfig) -> int:
     if cfg.qkv_bias:
         attn += (hq + 2 * hkv) * dh
     ffn = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
-    per_layer = 2 * d + attn + ffn
+    per_layer = 2 * d + attn
+    if cfg.family == "moe":
+        per_layer += d * cfg.n_experts  # router
+        per_layer += (cfg.n_experts + cfg.n_shared_experts) * ffn
+    else:
+        per_layer += ffn
     return cfg.vocab_size * d * 2 + cfg.n_layers * per_layer + d
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params a token uses (MoE: its top_k routed and the shared experts)."""
+    if cfg.family != "moe":
+        return param_count(cfg)
+    ffn = cfg.d_model * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    return param_count(cfg) - cfg.n_layers * (cfg.n_experts - cfg.top_k) * ffn

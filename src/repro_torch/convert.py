@@ -11,6 +11,7 @@ from repro_torch.core.qat import Int8Layer
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.attention import AttentionParams
 from repro_torch.models.mlp import MlpParams
+from repro_torch.models.moe import MoeParams
 from repro_torch.optim.optimizers import AdamState, SgdState
 from repro_torch.train.step import TrainState
 
@@ -84,9 +85,10 @@ def _part(tree, name):
 def lm_params_from_numpy(params, device="cuda") -> dict:
     """The reference's LM params as numpy — ``{"embed", "layers": {"ln1",
     "attn": (wq, wk, wv, wo, bq, bk, bv), "ln2", "mlp": (w_gate, w_in,
-    w_out)}, "final_norm", "head"}`` with the layer leaves stacked on L —
-    -> the port's params (``models.lm``): fp32, same values, same ``(in,
-    out)`` layout, one dict per layer."""
+    w_out) | "moe": (router (d, E), w_gate, w_in (E, d, ff), w_out (E, ff,
+    d), shared: (w_gate, w_in, w_out) | None)}, "final_norm", "head"}`` with
+    the layer leaves stacked on L — -> the port's params (``models.lm``):
+    fp32, same values, same ``(in, out)`` layout, one dict per layer."""
     dev = resolve_device(device)
 
     def t(arr):
@@ -94,21 +96,31 @@ def lm_params_from_numpy(params, device="cuda") -> dict:
             np.array(arr, np.float32)).to(dev)
 
     layers = params["layers"]
-    attn, mlp = layers["attn"], layers["mlp"]
     n_layers = np.asarray(layers["ln1"]).shape[0]
 
     def at(arr, i):
         return None if arr is None else t(np.asarray(arr)[i])
 
+    def mlp_at(mlp, i):
+        return None if mlp is None else MlpParams(
+            *(at(_part(mlp, f), i) for f in MlpParams._fields))
+
+    def layer(i):
+        out = {"ln1": at(layers["ln1"], i), "ln2": at(layers["ln2"], i),
+               "attn": AttentionParams(*(at(_part(layers["attn"], f), i)
+                                         for f in AttentionParams._fields))}
+        if "moe" in layers:
+            moe = layers["moe"]
+            out["moe"] = MoeParams(
+                *(at(_part(moe, f), i) for f in MoeParams._fields[:-1]),
+                shared=mlp_at(_part(moe, "shared"), i))
+        else:
+            out["mlp"] = mlp_at(layers["mlp"], i)
+        return out
+
     return {
         "embed": t(params["embed"]),
-        "layers": [{
-            "ln1": at(layers["ln1"], i), "ln2": at(layers["ln2"], i),
-            "attn": AttentionParams(*(at(_part(attn, f), i)
-                                      for f in AttentionParams._fields)),
-            "mlp": MlpParams(*(at(_part(mlp, f), i)
-                               for f in MlpParams._fields)),
-        } for i in range(n_layers)],
+        "layers": [layer(i) for i in range(n_layers)],
         "final_norm": t(params["final_norm"]),
         "head": t(params["head"]),
     }

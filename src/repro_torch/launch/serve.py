@@ -1,5 +1,5 @@
 """Serving launcher of the port (counterpart of ``repro.launch.serve``): the
-dense LM family's token serving and the MRF reconstruction family.
+dense and MoE LM families' token serving and the MRF reconstruction family.
 
 Token serving: ``python -m repro_torch.launch.serve --arch tinyllama-1.1b
 --requests 8 --prompt-len 2048 --gen-len 32`` initialises the model from a
@@ -8,7 +8,12 @@ a seeded ``torch.Generator``, runs one warm-up prefill and decode step, then
 a timed batched prefill (attention on the flash-attention kernel B6) and a
 timed lockstep greedy decode loop with no host sync per token.  The last
 line printed is ``token_report {json}``: prefill ms, decode ms per token
-per batch, generated tokens/s, B6's launches and the sampled tokens.
+per batch, generated tokens/s, B6's launches and the sampled tokens.  An
+MoE arch (``--arch deepseek-moe-16b``, ``phi3.5-moe-42b-a6.6b``) routes its
+tokens in groups of 256 (one group of the batch at decode); a batch whose
+``requests x prompt-len`` (or ``requests``) is not a whole number of groups
+is refused before the weights are made, as the reference's assert refuses
+it: nothing is padded.
 
 ``python -m repro_torch.launch.serve --arch mrf-fpga --backend int8`` QAT-
 trains a net through the port's engine (600 steps, 60 with ``--smoke``, or
@@ -63,6 +68,7 @@ from repro_torch.data.epg import default_sequence
 from repro_torch.data.phantom import acquire_slice, make_phantom, tissue_errors
 from repro_torch.data.pipeline import denormalize_targets
 from repro_torch.kernels.common import disable_tf32, resolve_device
+from repro_torch.models.moe import group_of
 from repro_torch.serve.admission import AdmissionPolicy
 from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.queue import RequestState
@@ -135,7 +141,8 @@ def _sync(device) -> None:
 
 
 def serve_tokens(args, cfg) -> int:
-    """Batched prefill + lockstep greedy decode for the dense LM family."""
+    """Batched prefill + lockstep greedy decode for the dense and MoE LM
+    families."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
     from repro_torch.models import registry
     from repro_torch.models.common import COMPUTE
@@ -143,6 +150,9 @@ def serve_tokens(args, cfg) -> int:
 
     if min(args.requests, args.prompt_len, args.gen_len) < 1:
         raise SystemExit("--requests, --prompt-len and --gen-len must be >= 1")
+    if cfg.family == "moe":  # prefill's and decode's tokens route in groups
+        group_of(args.requests * args.prompt_len)
+        group_of(args.requests)
     device = resolve_device(args.device)
     if device.type == "cuda":
         disable_tf32()
@@ -451,8 +461,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True,
                     help="a dense LM (tinyllama-1.1b, granite-8b, "
-                         "qwen2.5-14b, minitron-8b) or mrf-fpga | "
-                         "mrf-original")
+                         "qwen2.5-14b, minitron-8b), an MoE LM "
+                         "(deepseek-moe-16b, phi3.5-moe-42b-a6.6b) or "
+                         "mrf-fpga | mrf-original")
     ap.add_argument("--backend", default="int8",
                     help="int8 (full-integer CUDA kernels, the default) or "
                          "float (a float net through the executor)")

@@ -1,14 +1,16 @@
-"""Decoder-only LM assembly for the dense family (counterpart of
+"""Decoder-only LM assembly for the dense and MoE families (counterpart of
 ``repro.models.lm``): init, prefill and single-token decode, and
 :class:`ModelFns`, the bundle of model functions every family builds.
 
 The layer stack is a Python loop over per-layer params (the reference
 scans over params stacked on a leading L axis).  Params are
 ``{"embed": (V, d), "layers": [{"ln1", "attn": AttentionParams, "ln2",
-"mlp": MlpParams}, ...], "final_norm": (d,), "head": (d, V)}`` in fp32, the
-``(in, out)`` layout of the reference; ``convert.lm_params_from_numpy``
-carries the reference's stacked params across.  Activations are bf16 from
-the embedding on.
+"mlp": MlpParams | "moe": MoeParams}, ...], "final_norm": (d,), "head":
+(d, V)}`` in fp32, the ``(in, out)`` layout of the reference;
+``convert.lm_params_from_numpy`` carries the reference's stacked params
+across.  Activations are bf16 from the embedding on.  An MoE layer's FFN is
+``models.moe.moe_block`` (attention stays on B6); its load-balance loss
+matters only to the LM training still to come and is dropped here.
 
 Caches are bf16: ``{"k", "v"}`` of shape (L, B, S, Hkv, dh) — the stacked
 cache — or, with ``cfg.decode_unroll``, a tuple of per-layer ``{"k", "v"}``
@@ -16,8 +18,7 @@ of shape (B, S, Hkv, dh).  Decode writes its token's K and V into the
 cache in place and returns the same cache object.
 
 LM training (``lm_loss`` / ``cross_entropy`` of the reference) and the
-MoE, SSM, hybrid, encoder-decoder and VLM families arrive with later
-slices.
+SSM, hybrid, encoder-decoder and VLM families arrive with later slices.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import COMPUTE, normal_init, rms_norm
 from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.tree import tree_map
 
 
@@ -58,12 +60,18 @@ def _layer_init(cfg: ModelConfig, generator, tp: int, device) -> dict:
     d = cfg.d_model
     hq, hkv, dh = _heads(cfg, tp)
     ones = partial(torch.ones, (d,), dtype=torch.float32, device=device)
-    return {"ln1": ones(),
-            "attn": attn.init_attn(generator, d, hq, hkv, dh, cfg.qkv_bias,
-                                   device=device),
-            "ln2": ones(),
-            "mlp": init_mlp(generator, d, cfg.d_ff, cfg.gated_mlp,
-                            device=device)}
+    layer = {"ln1": ones(),
+             "attn": attn.init_attn(generator, d, hq, hkv, dh, cfg.qkv_bias,
+                                    device=device),
+             "ln2": ones()}
+    if cfg.family == "moe":
+        layer["moe"] = init_moe(generator, d, cfg.d_ff, cfg.n_experts,
+                                cfg.n_shared_experts, cfg.gated_mlp,
+                                device=device)
+    else:
+        layer["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.gated_mlp,
+                                device=device)
+    return layer
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
@@ -75,7 +83,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     fp32 masters are alive at a time: qwen2.5-14b's bf16 params (30 GB) are
     made without its 59 GB of masters.  Every use of a param casts it to the
     bf16 activations first, so serving from the bf16 params gives the same
-    values as serving from the masters."""
+    values as serving from the masters; the one param used in f32, an MoE
+    layer's router, keeps its masters' values."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, vp = cfg.d_model, cfg.padded_vocab(tp)
@@ -83,12 +92,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     def cast(tree):
         return tree_map(lambda t: t.to(dtype), tree)
 
-    layers = [cast(_layer_init(cfg, gen, tp, dev))
+    def cast_layer(layer):
+        out = cast(layer)
+        if "moe" in layer:
+            out["moe"] = out["moe"]._replace(router=layer["moe"].router)
+        return out
+
+    layers = [cast_layer(_layer_init(cfg, gen, tp, dev))
               for _ in range(cfg.n_layers)]
     return {"embed": cast(normal_init(gen, (vp, d), device=dev)),
             "layers": layers,
             "final_norm": torch.ones((d,), dtype=dtype, device=dev),
             "head": cast(normal_init(gen, (d, vp), device=dev))}
+
+
+def _ffn(cfg: ModelConfig, lp, x):
+    """The layer's FFN on x (B, S, d): the dense MLP or the MoE block."""
+    if cfg.family == "moe":
+        y, _ = moe_block(lp["moe"], x, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor)
+        return y
+    return mlp_block(lp["mlp"], x, quant=cfg.quant)
 
 
 def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool):
@@ -102,9 +126,7 @@ def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool):
     if return_kv:
         a_out, kv = a_out
     h = h + a_out
-    h = h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                      quant=cfg.quant)
-    return h, kv
+    return h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps)), kv
 
 
 def _embed(params, tokens):
@@ -164,8 +186,10 @@ def _decode_block(cfg: ModelConfig, tp: int, h1, lp, cache_k, cache_v,
         lp["attn"], x, cache_k, cache_v, cache_len, cfg_heads=_heads(cfg, tp),
         rope_theta=cfg.rope_theta, quant=cfg.quant)
     h1 = h1 + a_out
-    return h1 + mlp_block(lp["mlp"], rms_norm(h1, lp["ln2"], cfg.norm_eps),
-                          quant=cfg.quant)
+    x2 = rms_norm(h1, lp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":  # the B tokens route as one group of (B, 1)
+        return h1 + _ffn(cfg, lp, x2[:, None, :])[:, 0, :]
+    return h1 + _ffn(cfg, lp, x2)
 
 
 def decode_token(cfg: ModelConfig, tp: int, params, cache, tokens1,
@@ -189,9 +213,9 @@ def _no_training(*_a, **_k):
 
 def build_lm(cfg: ModelConfig, tp: int = 1) -> ModelFns:
     cfg.validate()
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: only the dense LM family is "
-                                  f"ported (ROADMAP.md §A)")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: only the dense and MoE LM "
+                                  f"families are ported (ROADMAP.md §A)")
     cfg.padded_heads(tp)  # tp must be 1 until sharding is ported
     return ModelFns(
         cfg=cfg,

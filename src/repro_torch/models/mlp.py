@@ -25,13 +25,17 @@ def init_mlp(generator, d_model, d_ff, gated=True, device=None) -> MlpParams:
                      w_out=normal((d_ff, d_model)))
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU as ``jax.nn.silu`` lowers it, ``x * (1 / (1 + exp(-x)))``, each
+    op rounded to x's dtype: bit for bit the reference's on equal inputs
+    (``F.silu`` rounds once)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def mlp_block(p: MlpParams, x, *, quant="none"):
     h = dense(x, p.w_in, quant=quant)
     if p.w_gate is not None:
-        gate = dense(x, p.w_gate, quant=quant)
-        # silu as jax.nn.silu lowers it, x * (1 / (1 + exp(-x))), each op
-        # rounded to x's dtype: bit for bit the reference's on equal inputs
-        h = gate * (1.0 / (1.0 + torch.exp(-gate))) * h
+        h = silu(dense(x, p.w_gate, quant=quant)) * h
     else:
         h = torch.square(torch.relu(h))  # squared ReLU (nemotron / minitron)
     return dense(h, p.w_out, quant=quant)

@@ -1,6 +1,7 @@
 """Architecture registry (counterpart of ``repro.models.registry``):
 ``ModelConfig`` -> :class:`~repro_torch.models.lm.ModelFns`, by family.
-The port has the ``mrf`` and ``dense`` families; the others raise."""
+The port has the ``mrf``, ``dense`` and ``moe`` families; the others
+raise."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from repro_torch.models.mrf import build_mrf
 def build(cfg: ModelConfig, tp: int = 1) -> ModelFns:
     if cfg.family == "mrf":
         return build_mrf(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return build_lm(cfg, tp)
     raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
                               f"ported yet (ROADMAP.md §A)")

@@ -104,11 +104,11 @@ def test_config_refusals():
     with pytest.raises(NotImplementedError, match="sharding"):
         cfg.padded_heads(2)
     with pytest.raises(ValueError, match="ROADMAP"):
-        dataclasses.replace(cfg, family="moe").validate()
+        dataclasses.replace(cfg, family="ssm").validate()
     with pytest.raises(NotImplementedError, match="LM-training slice"):
         dataclasses.replace(cfg, quant="qat-int8").validate()
     with pytest.raises(KeyError, match="later slice"):
-        pconfigs.get_config("phi3.5-moe-42b")
+        pconfigs.get_config("mamba2-1.3b")
 
 
 def test_registry_builds_the_ported_families():

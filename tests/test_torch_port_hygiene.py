@@ -1,7 +1,7 @@
 """Structural guarantees of the PyTorch port (``src/repro_torch``).
 
-* The port imports neither JAX nor the JAX package — nor does
-  ``chip_smoke.py``.
+* The port imports neither JAX nor the JAX package — nor do its examples
+  (``examples/torch_*.py``) or ``chip_smoke.py``.
 * Every CUDA source that kernels.build names exists, every header is
   included by a source (and so keys its build), and the flags keep IEEE
   arithmetic (no fast math) for ``sm_90a``.
@@ -37,8 +37,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
+def _examples():
+    return sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + _examples()
+            + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(tree):
@@ -53,7 +58,7 @@ def _imported_roots(tree):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
-    assert len(files) > 20
+    assert len(files) > 20 and len(_examples()) == 3
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files
            for line, mod in _imported_roots(ast.parse(f.read_text()))
@@ -140,6 +145,7 @@ def test_cuda_without_a_card_raises(tmp_path):
     params, ints = _net()
     path = qat.save_int8_artifact(tmp_path / "net", ints)
     lm_fns = registry.build(get_smoke("tinyllama-1.1b"))
+    moe_fns = registry.build(get_smoke("deepseek-moe-16b"))
     calls = [
         lambda: resolve_device("cuda"),
         lambda: qat.init_qat_state(3),
@@ -152,6 +158,8 @@ def test_cuda_without_a_card_raises(tmp_path):
         lambda: lm_fns.init_cache(1, 8),
         lambda: lm_params_from_numpy({}),
         lambda: launcher.main(["--arch", "tinyllama-1.1b", "--smoke"]),
+        lambda: moe_fns.init(0),
+        lambda: launcher.main(["--arch", "deepseek-moe-16b", "--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -185,7 +193,7 @@ def _allowlisted_names():
 def test_port_identifiers_leave_the_dead_exports_gate_alone():
     allow = _allowlisted_names()
     assert {"IntLayer", "QATConfig", "PaddedIntNet"} <= allow
-    files = sorted(PORT.rglob("*.py")) + sorted(
+    files = sorted(PORT.rglob("*.py")) + _examples() + sorted(
         (ROOT / "tests").glob("test_torch_*.py"))
     hits = []
     for f in files:
