@@ -3,8 +3,8 @@
 holds each against its plain PyTorch version, trains and serves MRF nets end
 to end through ``repro_torch.launch.train`` / ``repro_torch.launch.serve``,
 runs the paper's experiment through the port's examples, serves tokens from
-tinyllama-1.1b, deepseek-moe-16b and phi3.5-moe at full width through
-``repro_torch.launch.serve`` and times the kernels.
+tinyllama-1.1b, deepseek-moe-16b, phi3.5-moe, mamba2-1.3b and hymba-1.5b at
+full width through ``repro_torch.launch.serve`` and times the kernels.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -42,8 +42,9 @@ final result line):
 3c. B6 (flash attention) against its plain version: bf16 on the Hopper
    kernel at its tiles, at the launcher's serving shape, granite-8b's dh
    128, deepseek-moe-16b's (16 query heads over 16 kv heads: group 1, dh
-   128) and small masked cases (``hold_b6_bf16``), f32 on the scalar kernel
-   within atol 2e-5;
+   128), hymba-1.5b's (25 query heads over 5 kv heads: group 5, dh 64)
+   with its window of 1,024 and fully causal, and small masked cases
+   (``hold_b6_bf16``), f32 on the scalar kernel within atol 2e-5;
 4. the serving path: a calibrated mrf-fpga int8 artifact (random He-uniform
    weights, QAT observer calibration on simulated fingerprints) served
    through the launcher — sync and pipelined via the fused kernel, sync via
@@ -100,13 +101,26 @@ final result line):
    the card against a CPU copy, routing compared first
    (``moe_vs_cpu``), and the MoE block's two forms timed at the prefill
    shape (``moe_forms``);
+4g. the SSM and hybrid families (``ssm_phase``): mamba2-1.3b (48 layers,
+   no attention: 0 B6 launches a run) and hymba-1.5b (32 layers, windows
+   of 1,024 on all but layers 0, 16 and 31: 64 B6 launches a run) at full
+   width through the launcher, twice each (8 x 2,048-token prompts, 32
+   tokens, the same tokens both times, peak device memory in the
+   report); then their first two layers on the card against a CPU copy
+   (``ssm_vs_cpu``: mamba2 on 600 tokens, padded to 768 by the scan,
+   hymba on 1,152, its layer 1's window biting and its ring rotated):
+   block outputs, the mixer's state and conv tails, the ring-aligned K
+   and V and B6 on the layer's own q, k, v, then 4 decode steps of those
+   layers; the SSD scan alone at the prefill shape (``ssd_time``);
+   ``examples/torch_serve_batch.py`` at its defaults;
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
    between CUDA events; B4 and B5 at M=1,024 and at a whole wave, beside
    the device time of a one-element ``fill_`` (the launch floor); B1-B3
-   also at each cluster size 1, 2, 4, 8, 16; B6 at the three prefill
-   shapes beside SDPA.
+   also at each cluster size 1, 2, 4, 8, 16; B6 at the five prefill
+   shapes beside SDPA (at hymba's window the band goes to SDPA as a
+   boolean mask); then the breakdowns of phase 4d for all four LMs.
 
 Before them, ``chaos_run {json}`` records the chaos phase: states, waves,
 retries, slow waves, the final depth and wave cap, voxels/s, p50/p99 and
@@ -146,6 +160,12 @@ LM_ARCH = "tinyllama-1.1b"
 MOE_ARCH = "deepseek-moe-16b"
 MOE_WIDE = "phi3.5-moe-42b-a6.6b"
 MOE_WIDE_LAYERS = 16        # of 32: full width, depth cut to fit one card
+SSM_ARCH = "mamba2-1.3b"
+HYBRID_ARCH = "hymba-1.5b"
+# card vs CPU, the mixer's f32 state: within this share of its largest
+# magnitude (it is linear in the mixer's bf16 inputs, whose GEMMs round
+# ~1 ulp apart on the two sides)
+SSM_STATE_RTOL = 5e-2
 # card vs CPU, deepseek-moe-16b: at most this share of a layer's (token,
 # choice) pairs routed differently (a near-tie in the router meets the ~1
 # bf16 ulp the two sides' attention outputs differ by); outputs are held
@@ -1466,6 +1486,10 @@ def check_flash_attention(device) -> float:
          bf16, None),
         ("group 1 at dh 128, deepseek-moe-16b prefill shape", 8, 2048, 16, 16,
          128, True, 0, bf16, None),
+        ("window 1024, group 5, hymba-1.5b prefill shape", 8, 2048, 25, 5, 64,
+         True, 1024, bf16, None),
+        ("global causal, group 5, hymba-1.5b prefill shape", 8, 2048, 25, 5,
+         64, True, 0, bf16, None),
         ("f32", 1, 256, 8, 2, 64, True, 0, f32, 64),
         ("f32 window 8, ragged 50, blocks 16", 1, 50, 6, 2, 16, True, 8, f32,
          16),
@@ -1518,15 +1542,19 @@ def check_flash_attention(device) -> float:
     return worst
 
 
-def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device) -> dict:
-    """B6 (bf16, causal) at one shape: the profiler's device time, the wall
-    time of one wrapper call (tensor maps encoded on the host included),
-    the plain version's and SDPA's device time, and the bound: the causal
-    pairs' products, 4*B*Hq*dh*S(S+1)/2 FLOP at the bf16 tensor-core peak,
-    against q, k, v read once and the output written once at 3.35 TB/s.
-    SDPA: ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-    on the same inputs in its (B, H, S, dh) layout, a yardstick the port
-    never calls."""
+def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device,
+            window: int = 0) -> dict:
+    """B6 (bf16, causal, within ``window`` if not 0) at one shape: the
+    profiler's device time, the wall time of one wrapper call (tensor maps
+    encoded on the host included), the plain version's and SDPA's device
+    time, and the bound: the products of the pairs the masks keep,
+    4*B*Hq*dh*sum_q min(q+1, W) FLOP (S(S+1)/2 pairs without a window) at
+    the bf16 tensor-core peak, against q, k, v read once and the output
+    written once at 3.35 TB/s.  SDPA:
+    ``scaled_dot_product_attention(enable_gqa=True)`` on the same inputs in
+    its (B, H, S, dh) layout, ``is_causal=True``, or with a window the band
+    as a boolean ``attn_mask`` (which takes SDPA off its flash path): a
+    yardstick the port never calls."""
     import torch.nn.functional as F
 
     from repro_torch.analysis.roofline import H100
@@ -1537,33 +1565,44 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device) -> dict:
     q, k, v = (torch.randn((b, s, h, dh), generator=gen,
                            device=device).to(torch.bfloat16)
                for h in (hq, hkv, hkv))
-    qf, kf, vf, kw = kernel_layout(q, k, v, causal=True)
+    qf, kf, vf, kw = kernel_layout(q, k, v, causal=True, window=window)
     ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     counter = kernel.flash_attention_call
     saved = counter.launches
     call = lambda: counter(qf, kf, vf, **kw)  # noqa: E731
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        ql, kl, vl, is_causal=True, enable_gqa=True)
+    if window:
+        pos = torch.arange(s, device=device)
+        band = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            ql, kl, vl, attn_mask=band, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            ql, kl, vl, is_causal=True, enable_gqa=True)
+    what = f"dh {dh}, group {hq // hkv}" + \
+        (f", window {window}" if window else "")
     t = {"ms": device_ms(call, "flash_attn_kernel", reps=20, warmup=2,
-                         label=f"flash_attn dh {dh}"),
+                         label=f"flash_attn {what}"),
          "wall_ms": event_ms(call, reps=20),
          "plain_ms": device_ms(lambda: ref.flash_attention_plain(
              qf, kf, vf, **kw), None, reps=2, warmup=1),
          "library_ms": device_ms(lib, None, reps=20, lead=20,
-                                 label=f"SDPA dh {dh}")}
+                                 label=f"SDPA {what}")}
     lib_err = float((lib().transpose(1, 2).double() - call().reshape(
         b, hq, s, dh).transpose(1, 2).double()).abs().max())
     counter.launches = saved
-    nops = 4 * b * hq * dh * s * (s + 1) // 2
+    pairs = sum(min(i + 1, window or s) for i in range(s))
+    nops = 4 * b * hq * dh * pairs
     nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
     t_ops = nops / H100["peak_bf16_flops"] * 1e3
     t_bytes = nbytes / H100["hbm_bytes_per_s"] * 1e3
-    log(f"  B6 vs scaled_dot_product_attention at dh {dh}: max abs diff "
+    log(f"  B6 vs scaled_dot_product_attention at {what}: max abs diff "
         f"{lib_err:.3g} (not held: another algorithm)")
     t.update({"bound_ms": max(t_ops, t_bytes),
               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-              "shape": f"B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}, causal, "
-                       f"bf16", "bytes": nbytes, "ops": nops})
+              "shape": f"B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}, causal"
+                       + (f", window {window}" if window else "")
+                       + ", bf16", "bytes": nbytes, "ops": nops})
     return t
 
 
@@ -1571,10 +1610,14 @@ def flash_attention_timing(err: float, device) -> dict:
     """Phase 5 for B6, right after its checks: the serving shape (B 8, Hq
     32, Hkv 4, dh 64, S 2,048) makes the kernel row; granite-8b's (Hkv 8,
     dh 128) rides in it as ``dh128``, deepseek-moe-16b's (Hq 16, Hkv 16,
-    group 1, dh 128) as ``deepseek``."""
+    group 1, dh 128) as ``deepseek``, hymba-1.5b's (Hq 25, Hkv 5, group 5,
+    dh 64) with its window of 1,024 as ``hymba_window`` and fully causal
+    (its global layers) as ``hymba_global``."""
     row = b6_time(8, 2048, 32, 4, 64, device)
     row["dh128"] = b6_time(8, 2048, 32, 8, 128, device)
     row["deepseek"] = b6_time(8, 2048, 16, 16, 128, device)
+    row["hymba_window"] = b6_time(8, 2048, 25, 5, 64, device, window=1024)
+    row["hymba_global"] = b6_time(8, 2048, 25, 5, 64, device)
     row.update({"name": "flash_attn", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attn_sm90.cu",
                 "replaces": "src/repro/kernels/flash_attn/kernel.py:86",
@@ -1586,14 +1629,17 @@ def token_runs(label: str, cfg, run, n_runs: int) -> tuple:
     """``n_runs`` token-serving runs of ``cfg`` at 8 requests of 2,048-token
     prompts and 32 tokens (``run()`` serves and returns the exit code),
     B6's count reset just before each run and read just after: each run
-    makes exactly one B6 launch a layer a prefill (warm-up and timed), its
-    tokens lie in the vocab, and every run gives the same tokens.  Returns
-    (B6's launches over the runs, the reports)."""
+    makes exactly one B6 launch an attention layer a prefill (warm-up and
+    timed; an SSM layer has none), its tokens lie in the vocab, and every
+    run gives the same tokens.  The report's peak device memory counts
+    what was alive before the run (``base_device_gib``, logged beside it).
+    Returns (B6's launches over the runs, the reports)."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
 
     counter = flash_attention_call
     reports, total = [], 0
     for _ in range(n_runs):
+        base = torch.cuda.memory_allocated() / 2**30
         counter.launches = 0
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1605,8 +1651,10 @@ def token_runs(label: str, cfg, run, n_runs: int) -> tuple:
         log("\n".join(out[:-1]))
         rep = json.loads(out[-1].split(" ", 1)[1])
         rep["layers"] = cfg.n_layers
+        rep["base_device_gib"] = base
         toks = torch.tensor(rep["tokens"])
-        want = 2 * cfg.n_layers  # warm-up + timed prefill, one launch a layer
+        # warm-up + timed prefill, one launch an attention layer
+        want = 0 if cfg.family == "ssm" else 2 * cfg.n_layers
         if launches != want or rep["flash_attn_launches"] != want:
             fail(f"token serving {label}: {launches} B6 launches (report "
                  f"{rep['flash_attn_launches']}), expected {want}")
@@ -1621,7 +1669,7 @@ def token_runs(label: str, cfg, run, n_runs: int) -> tuple:
     if any(r["tokens"] != reports[0]["tokens"] for r in reports):
         fail(f"token serving {label}: greedy tokens differ between runs")
     log(f"token serving {label}: {total} B6 launches in {n_runs} run(s) "
-        f"({cfg.n_layers} a prefill), greedy tokens identical across runs")
+        f"({want // 2} a prefill), greedy tokens identical across runs")
     return total, reports
 
 
@@ -1705,28 +1753,35 @@ def lm_breakdown(fns, params, device) -> dict:
     wall, wall on the host clock between synchronisations (kernels of one
     stream do not overlap).  Beside each, a lower bound from
     ``analysis.roofline``: the weight products' 2 x N_active FLOP a token
-    at the bf16 peak, against the bf16 weights read once over HBM — all of
-    them for the prefill (its 16,384 tokens reach every expert), one
-    token's active weights a decode step."""
+    at the bf16 peak plus an SSM's scan products (``ssd_flops``) at the f32
+    peak, against the bf16 weights read once over HBM — all of them for
+    the prefill (its 16,384 tokens reach every expert), one token's active
+    weights a decode step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.analysis.roofline import (model_flops_decode,
-                                               roofline_terms)
+    from repro_torch.analysis.roofline import (H100, model_flops_decode,
+                                               ssd_flops)
     from repro_torch.configs.base import active_param_count, param_count
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
     cfg = fns.cfg
     active = active_param_count(cfg)
-    bounds = {"prefill 8 x 2048": roofline_terms(
-                  flops_per_device=model_flops_decode(active, 8 * 2048),
-                  bytes_per_device=2 * param_count(cfg),
-                  collective_bytes_per_device=0, chips=1),
-              "decode, 8 steps": roofline_terms(
-                  flops_per_device=model_flops_decode(active, 8 * 8),
-                  bytes_per_device=8 * 2 * active,
-                  collective_bytes_per_device=0, chips=1)}
+
+    def bound(products, scan, nbytes) -> dict:
+        t_scan = scan / H100["peak_fp32_flops"]
+        t_ops = products / H100["peak_bf16_flops"] + t_scan
+        t_bytes = nbytes / H100["hbm_bytes_per_s"]
+        return {"t_bound_s": max(t_ops, t_bytes), "t_scan_s": t_scan,
+                "dominant": "compute" if t_ops >= t_bytes else "memory"}
+
+    bounds = {"prefill 8 x 2048": bound(
+                  model_flops_decode(active, 8 * 2048), ssd_flops(cfg, 8, 2048),
+                  2 * param_count(cfg)),
+              "decode, 8 steps": bound(
+                  model_flops_decode(active, 8 * 8), 8 * ssd_flops(cfg, 8, 1),
+                  8 * 2 * active)}
     counter = flash_attention_call
     saved = counter.launches
     gen = torch.Generator(device=device).manual_seed(3)
@@ -1785,9 +1840,12 @@ def lm_breakdown(fns, params, device) -> dict:
                          "by_class_ms": by_class,
                          "bound_ms": bound["t_bound_s"] * 1e3,
                          "bound_by": bound["dominant"]}
+            scan = (f", of it the SSD scan {bound['t_scan_s'] * 1e3:.3f} ms "
+                    f"at the f32 peak" if bound["t_scan_s"] else "")
             log(f"breakdown {cfg.name} {what}: wall {wall:.3f} ms, device busy "
                 f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}), bound "
-                f"{bound['t_bound_s'] * 1e3:.3f} ms ({bound['dominant']}); by "
+                f"{bound['t_bound_s'] * 1e3:.3f} ms ({bound['dominant']}"
+                f"{scan}); by "
                 f"class {json.dumps({k: round(v, 3) for k, v in by_class.items()})}"
                 f"; top {[(n[:60], round(v, 3)) for n, v in top]}")
     counter.launches = saved
@@ -2087,6 +2145,214 @@ def moe_vs_cpu(fns, params, device) -> list:
     return readings
 
 
+def ssm_phase() -> tuple:
+    """Phase 4g, serving: mamba2-1.3b (all 48 layers, no attention: 0 B6
+    launches) and hymba-1.5b (all 32 layers: 64 B6 launches a run) at full
+    width through the launcher, twice each.  Returns (B6's launches, the
+    reports)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+
+    total, reports = 0, []
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        n, reps = token_runs(arch, get_config(arch),
+                             lambda a=arch: launcher.main(launcher_argv(a)),
+                             2)
+        total += n
+        reports += reps
+        free_device()
+    return total, reports
+
+
+def ssm_vs_cpu(fns, params, device, layers: list, n_tokens: int) -> list:
+    """Phase 4g, the SSM and hybrid layers on the card against a CPU copy
+    of their bf16 params: one request of ``n_tokens`` at full width, each
+    of ``layers`` one step from the CPU chain's input, then 4 decode steps
+    of those layers (the same embedded tokens on both sides, each side
+    continuing its own cache).
+
+    * The block's output within ``LM_LAYER_ULPS`` bf16 ulps of its largest
+      magnitude, at prefill and at each decode step;
+    * the mixer's f32 state within ``SSM_STATE_RTOL`` of its largest
+      magnitude, and its bf16 conv tails within ``LM_LAYER_ULPS`` ulps,
+      after prefill and after each step;
+    * a hybrid layer's B6 on the layer's own q, k, v: ``hold_b6_bf16``,
+      and its ring-aligned K and V within ``LM_LAYER_ULPS`` ulps.
+    Returns each layer's readings."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+    from repro_torch.kernels.flash_attn.ops import kernel_layout
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+
+    cfg = fns.cfg
+    flags = lm.global_flags(cfg)
+    gen = torch.Generator(device=device).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n_tokens + 4),
+                           generator=gen, device=device, dtype=torch.int32)
+    counter = flash_attention_call
+    original, seen = attn_mod.flash_attention, []
+
+    def recording(q, k, v, **kw):
+        out = original(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+
+    def ulps(got, want) -> float:
+        return float((got.float().cpu() - want.float()).abs().max()) \
+            / bf16_ulp(want)
+
+    def hold_cache(what, got, want) -> dict:
+        mixer_g, mixer_c = (c if cfg.family == "ssm" else c["ssm"]
+                            for c in (got, want))
+        state = float((mixer_g.state.cpu() - mixer_c.state).abs().max()
+                      / mixer_c.state.abs().max())
+        r = {"state_rel": state, "tail_ulps": max(
+            ulps(getattr(mixer_g, f), getattr(mixer_c, f))
+            for f in ("conv_x", "conv_B", "conv_C"))}
+        if cfg.family == "hybrid":
+            r["kv_ulps"] = max(ulps(got[n], want[n]) for n in ("k", "v"))
+        if state > SSM_STATE_RTOL or max(
+                v for k, v in r.items() if k != "state_rel") > LM_LAYER_ULPS:
+            fail(f"{cfg.name} {what}, card vs CPU: {r} (limits: state "
+                 f"{SSM_STATE_RTOL}, {LM_LAYER_ULPS} ulps)")
+        return r
+
+    readings = []
+    with torch.no_grad():
+        h_c = lm._embed(params, tokens[:, :n_tokens]).cpu()
+        steps_in = lm._embed(params, tokens[:, n_tokens:]).cpu()  # (1, 4, d)
+        for i in layers:
+            lp_g = params["layers"][i]
+            lp_c = tree_map(lambda t: t.cpu(), lp_g)
+            g = flags[i]
+            seen.clear()
+            before = counter.launches
+            attn_mod.flash_attention = recording
+            try:
+                one, kv_g = lm._block(cfg, 1, h_c.to(device), lp_g,
+                                      return_kv=True, is_global=g)
+            finally:
+                attn_mod.flash_attention = original
+            torch.cuda.synchronize()
+            launches = counter.launches - before
+            nxt, kv_c = lm._block(cfg, 1, h_c, lp_c, return_kv=True,
+                                  is_global=g)
+            want_launches = 0 if cfg.family == "ssm" else 1
+            if launches != want_launches:
+                fail(f"{cfg.name} layer {i}: {launches} B6 launches, "
+                     f"expected {want_launches}")
+            r = {"layer": i, "global": g, "layer_ulps": ulps(one, nxt)}
+            if r["layer_ulps"] > LM_LAYER_ULPS:
+                fail(f"{cfg.name} layer {i}, card vs CPU: one step "
+                     f"{r['layer_ulps']:g} bf16 ulps off (limit "
+                     f"{LM_LAYER_ULPS})")
+            if seen:  # B6 on the layer's own q, k, v
+                q, k, v, akw, out = seen[0]
+                qf, kf, vf, lkw = kernel_layout(q, k, v, **akw)
+                saved = counter.launches
+                b6 = counter(qf, kf, vf, **lkw)
+                counter.launches = saved
+                if not torch.equal(out, b6.reshape(
+                        q.shape[0], q.shape[2], -1, q.shape[3]).transpose(
+                            1, 2)[:, :q.shape[1]]):
+                    fail(f"B6 in {cfg.name} layer {i}: the model's call and "
+                         f"a repeat differ")
+                r["b6"] = hold_b6_bf16(f"B6 in {cfg.name} layer {i} (window "
+                                       f"{akw.get('window')})", b6, qf, kf,
+                                       vf, lkw)
+            cache_g = lm.layer_cache(cfg, kv_g, g, n_tokens)
+            cache_c = lm.layer_cache(cfg, kv_c, g, n_tokens)
+            r["prefill"] = hold_cache(f"layer {i} after prefill", cache_g,
+                                      cache_c)
+            r["decode_ulps"], r["decode"] = [], []
+            for t in range(4):
+                h1 = steps_in[:, t]
+                y_g = lm._decode_block(cfg, 1, h1.to(device), lp_g, cache_g,
+                                       n_tokens + t)
+                y_c = lm._decode_block(cfg, 1, h1, lp_c, cache_c,
+                                       n_tokens + t)
+                r["decode_ulps"].append(ulps(y_g, y_c))
+                r["decode"].append(hold_cache(f"layer {i} decode step {t}",
+                                              cache_g, cache_c))
+            if max(r["decode_ulps"]) > LM_LAYER_ULPS:
+                fail(f"{cfg.name} layer {i}: decode outputs "
+                     f"{r['decode_ulps']} bf16 ulps off (limit "
+                     f"{LM_LAYER_ULPS})")
+            b6 = r.get("b6")
+            kind = ("global" if g else "window") if cfg.family == "hybrid" \
+                else "mixer"
+            log(f"{cfg.name} layer {i} ({kind}), 1 x "
+                f"{n_tokens} tokens, card vs CPU copy: one step within "
+                f"{r['layer_ulps']:g} bf16 ulps (limit {LM_LAYER_ULPS}); "
+                f"after prefill {json.dumps(r['prefill'])}; 4 decode steps "
+                f"within {max(r['decode_ulps']):g} ulps, last "
+                f"{json.dumps(r['decode'][-1])} (limits: state "
+                f"{SSM_STATE_RTOL}, {LM_LAYER_ULPS} ulps)"
+                + (f"; B6: scores within {b6['scores_vs_bound']:.3g} of the "
+                   f"f32 orders' bound, on them {b6['ulps']:g} ulps, "
+                   f"{b6['share']:.3g} of the elements differ" if b6 else ""))
+            readings.append(r)
+            h_c = nxt
+    return readings
+
+
+def ssd_time(fns, device) -> dict:
+    """The SSD scan alone (``ssm.ssd_chunked``) at the prefill shape, 8 x
+    2,048 tokens, on random f32 inputs of the model's head count, head dim
+    and state (dt about the init's 0.01): the wall time of one call between
+    CUDA events, a layer and times the layers, beside the scan's f32
+    products (``ssd_flops``) at the f32 peak."""
+    from repro_torch.analysis.roofline import H100, ssd_flops
+    from repro_torch.models import ssm
+
+    cfg = fns.cfg
+    h, p, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gen = torch.Generator(device=device).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x, bm, cm = randn(8, 2048, h, p), randn(8, 2048, n), randn(8, 2048, n)
+    dt = ssm.softplus(randn(8, 2048, h) - 4.6)
+    a = -torch.linspace(1.0, 16.0, h, device=device)
+    with torch.no_grad():
+        ms = event_ms(lambda: ssm.ssd_chunked(x, dt, a, bm, cm,
+                                              cfg.ssm_chunk), reps=5)
+    bound = ssd_flops(cfg, 8, 2048) / cfg.n_layers / H100["peak_fp32_flops"]
+    log(f"{cfg.name} SSD scan, 8 x 2048 tokens, one layer: {ms:.3f} ms "
+        f"between CUDA events, x {cfg.n_layers} layers = "
+        f"{ms * cfg.n_layers:.1f} ms; f32 products' bound "
+        f"{bound * 1e3:.3f} ms a layer")
+    return {"ms_per_layer": ms, "ms": ms * cfg.n_layers,
+            "bound_ms_per_layer": bound * 1e3}
+
+
+def serve_batch_example() -> dict:
+    """Phase 4g: ``examples/torch_serve_batch.py`` at its defaults (mamba2,
+    smoke config, 8 x 48-token prompts, 24 tokens) on the card: exit 0, a
+    ``token_report`` last, no B6 launch (no attention)."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+
+    saved = flash_attention_call.launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = example("torch_serve_batch").main([])
+    lines = buf.getvalue().splitlines()
+    launches = flash_attention_call.launches - saved
+    if rc != 0 or not lines or not lines[-1].startswith("token_report "):
+        log("\n".join(lines[-20:]))
+        fail(f"examples/torch_serve_batch.py exited {rc} without a report")
+    rep = report_of(lines, "token_report", "torch_serve_batch")
+    if launches or rep["flash_attn_launches"] or \
+            (rep["requests"], rep["prompt"], rep["gen"]) != (8, 48, 24):
+        fail(f"examples/torch_serve_batch.py: {launches} B6 launches, "
+             f"report {rep}")
+    log("examples/torch_serve_batch.py: token_report " + json.dumps(
+        {k: v for k, v in rep.items() if k != "tokens"}))
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2159,6 +2425,16 @@ def main() -> int:
     moe_vs_cpu(moe_fns, moe_params, device)
     moe_forms(moe_fns, moe_params, device)
     log(f"MoE phase (4f): {time.perf_counter() - t_moe:.1f} s")
+    t_ssm = time.perf_counter()
+    n_ssm, ssm_reports = ssm_phase()
+    launches["flash_attn"] += n_ssm
+    ssm_fns, ssm_params = lm_model(device, SSM_ARCH)
+    ssm_vs_cpu(ssm_fns, ssm_params, device, [0, 1], 600)
+    hyb_fns, hyb_params = lm_model(device, HYBRID_ARCH)
+    ssm_vs_cpu(hyb_fns, hyb_params, device, [0, 1], 1152)
+    scan = ssd_time(ssm_fns, device)
+    serve_batch_example()
+    log(f"SSM and hybrid phase (4g): {time.perf_counter() - t_ssm:.1f} s")
     for kname, n in launches.items():
         if n <= 0:
             fail(f"kernel {kname} was never launched on the main path")
@@ -2172,6 +2448,14 @@ def main() -> int:
     lm_breakdown(fns, lm_params, device)
     lm_breakdown(moe_fns, moe_params, device)
     del lm_params, moe_params
+    free_device()
+    busy = lm_breakdown(ssm_fns, ssm_params, device)["prefill 8 x 2048"][
+        "busy_ms"]
+    log(f"{SSM_ARCH} prefill 8 x 2048: the SSD scan ~{scan['ms']:.1f} ms "
+        f"(phase 4g, between CUDA events) of {busy:.1f} ms device busy "
+        f"(share ~{scan['ms'] / busy:.2f})")
+    lm_breakdown(hyb_fns, hyb_params, device)
+    del ssm_params, hyb_params
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "
@@ -2202,7 +2486,8 @@ def main() -> int:
                     f"{b['ms']:.6f} ms on the device, {b['cluster']} SMs' "
                     f"bound {b['bound_c_sms_ms']:.6f} ms" if "ms" in b
                     else f"not launched: {b['refused']}"))
-        for d in (r[k] for k in ("dh128", "deepseek") if k in r):
+        for d in (r[k] for k in ("dh128", "deepseek", "hymba_window",
+                                 "hymba_global") if k in r):
             log(f"time {r['name']} ({d['shape']}): {d['ms']:.6f} ms on the "
                 f"device, {d['wall_ms']:.6f} ms per call, plain "
                 f"{d['plain_ms']:.6f} ms, bound {d['bound_ms']:.6f} ms "
@@ -2210,7 +2495,7 @@ def main() -> int:
                 f"[{smi}]")
     for rep in reports:
         log(f"train_run {json.dumps(rep)}")
-    for rep in token_reports + moe_reports:
+    for rep in token_reports + moe_reports + ssm_reports:
         log("token_run " + json.dumps(
             {k: v for k, v in rep.items() if k != "tokens"}))
     log("chaos_run " + json.dumps(chaos))

@@ -69,3 +69,21 @@ def model_flops_train(n_params_active: int, n_tokens: int) -> float:
 def model_flops_decode(n_params_active: int, n_tokens: int) -> float:
     """Decode: 2 * N_active a token (the forward's products only)."""
     return 2.0 * n_params_active * n_tokens
+
+
+def ssd_flops(cfg, batch: int, seq: int) -> float:
+    """The f32 products of the SSD scan (``models.ssm.ssd_chunked``) over
+    every layer of an SSM or hybrid ``cfg``, for ``batch`` sequences of
+    ``seq`` tokens padded to chunks of ``min(ssm_chunk, seq)``: within a
+    chunk C B^T and its decay-weighted product with x on the causal
+    triangle (the pairs the scan needs), each chunk's end state
+    (B x_dt outer products) and the carried state's outputs (C . state).
+    ``seq`` 1 prices a decode step.  0 for the other families."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0.0
+    q = min(cfg.ssm_chunk, seq)
+    chunks = -(-seq // q)
+    h, p, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    pairs = q * (q + 1) // 2
+    per_chunk = 2 * pairs * n + 2 * pairs * h * p + 2 * 2 * q * h * p * n
+    return float(cfg.n_layers * batch * chunks * per_chunk)

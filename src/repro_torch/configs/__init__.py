@@ -1,14 +1,16 @@
-"""Architecture configs of the port: the two MRF nets, the dense LM family
-and the MoE family.  The other LM families (SSM, hybrid, encoder-decoder,
-VLM) arrive with later slices."""
-from repro_torch.configs import (deepseek_moe_16b, granite_8b, minitron_8b,
-                                 mrf_fpga, mrf_original, phi35_moe_42b,
-                                 qwen2_5_14b, tinyllama_1_1b)
+"""Architecture configs of the port: the two MRF nets and the dense, MoE,
+SSM (mamba2) and hybrid (hymba) LM families.  The encoder-decoder and VLM
+families arrive with later slices."""
+from repro_torch.configs import (deepseek_moe_16b, granite_8b, hymba_1_5b,
+                                 mamba2_1_3b, minitron_8b, mrf_fpga,
+                                 mrf_original, phi35_moe_42b, qwen2_5_14b,
+                                 tinyllama_1_1b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS = {m.CONFIG.name: m for m in (
     phi35_moe_42b, deepseek_moe_16b, tinyllama_1_1b, granite_8b,
-    qwen2_5_14b, minitron_8b, mrf_fpga, mrf_original)}
+    qwen2_5_14b, minitron_8b, mamba2_1_3b, hymba_1_5b, mrf_fpga,
+    mrf_original)}
 
 
 def _module(name: str):

@@ -1,10 +1,10 @@
 """Model configuration schema (counterpart of ``repro.configs.base``): the
-``ModelConfig`` fields that the ``mrf``, ``dense`` and ``moe`` families
-read.
+``ModelConfig`` fields that the ``mrf``, ``dense``, ``moe``, ``ssm``
+(mamba2) and ``hybrid`` (hymba) families read.
 
-The other LM families (``ssm``, ``hybrid``, ``encdec``, ``vlm``) are not
-ported yet: ``validate`` refuses them (ROADMAP.md §A).  Sharding is not
-ported either, so the tensor-parallel degree ``tp`` must be 1.
+The other LM families (``encdec``, ``vlm``) are not ported yet:
+``validate`` refuses them (ROADMAP.md §A).  Sharding is not ported either,
+so the tensor-parallel degree ``tp`` must be 1.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-PORTED_FAMILIES = ("mrf", "dense", "moe")
+PORTED_FAMILIES = ("mrf", "dense", "moe", "ssm", "hybrid")
 
 
 def _check_tp(tp: int) -> None:
@@ -27,11 +27,11 @@ class ModelConfig:
     name: str
     family: str
     n_layers: int
-    # --- LM zoo (family "dense" or "moe") ---
+    # --- LM zoo ---
     d_model: int = 0
-    n_heads: int = 0          # query heads
+    n_heads: int = 0          # query heads; 0 for attention-free (mamba2)
     n_kv_heads: int = 0
-    d_ff: int = 0             # per-expert FFN width for MoE
+    d_ff: int = 0             # per-expert FFN width for MoE; 0 for mamba2
     vocab_size: int = 0
     d_head: int = 0           # 0 -> d_model // n_heads
     swa_window: int = 0       # 0 = full attention
@@ -46,6 +46,12 @@ class ModelConfig:
     n_shared_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # --- SSM (families "ssm" and "hybrid") ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    global_layer_every: int = 0  # hybrid: every k-th layer attends globally
     # --- MRF reconstruction nets (family == "mrf") ---
     mrf_n_frames: int = 0     # fingerprint frames; input dim = 2 * frames
     mrf_hidden: tuple = ()    # hidden widths ((T1, T2) head appended)
@@ -55,6 +61,14 @@ class ModelConfig:
         if self.d_head:
             return self.d_head
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def d_inner(self) -> int:  # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     def padded_heads(self, tp: int = 1) -> tuple:
         """(query heads, kv heads); with tp=1 the exact architecture."""
@@ -75,13 +89,29 @@ class ModelConfig:
                 raise ValueError(f"{self.name}: mrf configs need frames and "
                                  f"hidden widths")
             return self
-        if min(self.n_layers, self.d_model, self.n_heads, self.n_kv_heads,
-               self.d_ff, self.vocab_size) <= 0:
+        if min(self.n_layers, self.d_model, self.vocab_size) <= 0:
             raise ValueError(f"{self.name}: LM configs need positive "
-                             f"layers, widths, heads and vocab")
+                             f"layers, width and vocab")
+        if self.family in ("ssm", "hybrid") and self.ssm_state <= 0:
+            raise ValueError(f"{self.name}: {self.family} configs need a "
+                             f"positive ssm_state")
+        if self.family != "ssm":
+            self._validate_attention()
         if self.family == "moe" and (self.n_experts <= 0 or self.top_k <= 0):
             raise ValueError(f"{self.name}: MoE configs need experts and a "
                              f"positive top_k")
+        if self.quant != "none":
+            raise NotImplementedError(
+                f"{self.name}: quant={self.quant!r} arrives with the "
+                f"LM-training slice (ROADMAP.md §A)")
+        return self
+
+    def _validate_attention(self) -> None:
+        """Heads and FFN of a family with attention layers (all but
+        ``ssm``, which has neither)."""
+        if min(self.n_heads, self.n_kv_heads, self.d_ff) <= 0:
+            raise ValueError(f"{self.name}: {self.family} configs need "
+                             f"positive heads and d_ff")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: {self.n_heads} query heads do not "
                              f"group over {self.n_kv_heads} kv heads")
@@ -89,15 +119,14 @@ class ModelConfig:
             raise ValueError(f"{self.name}: heads do not cover d_model")
         if self.head_dim % 2:
             raise ValueError(f"{self.name}: RoPE needs an even head dim")
-        if self.quant != "none":
-            raise NotImplementedError(
-                f"{self.name}: quant={self.quant!r} arrives with the "
-                f"LM-training slice (ROADMAP.md §A)")
-        return self
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Analytic parameter count (exact for the port's models, tp=1)."""
+    """Analytic parameter count, tp=1: the reference's ``param_count``.
+    Exact for the port's dense and MoE models.  For ``ssm`` and ``hybrid``
+    it leaves out the conv taps, ``CONV_TAPS * (d_inner + 2 * ssm_state)``
+    a layer, and for ``ssm`` it counts two RMSNorm gains a layer where the
+    layer holds one, as the reference does."""
     if cfg.family == "mrf":
         sizes = (2 * cfg.mrf_n_frames, *cfg.mrf_hidden, 2)
         return sum(i * o + o for i, o in zip(sizes[:-1], sizes[1:]))
@@ -107,12 +136,18 @@ def param_count(cfg: ModelConfig) -> int:
     if cfg.qkv_bias:
         attn += (hq + 2 * hkv) * dh
     ffn = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
-    per_layer = 2 * d + attn
-    if cfg.family == "moe":
-        per_layer += d * cfg.n_experts  # router
+    di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    # in projections x, z, B, C, dt; out projection; A, D, dt_bias; gate norm
+    ssm = d * (2 * di + 2 * ns + nh) + di * d + 3 * nh + di
+    if cfg.family == "ssm":
+        per_layer = 2 * d + ssm
+    elif cfg.family == "hybrid":
+        per_layer = 2 * d + attn + ssm + ffn
+    elif cfg.family == "moe":
+        per_layer = 2 * d + attn + d * cfg.n_experts  # router
         per_layer += (cfg.n_experts + cfg.n_shared_experts) * ffn
     else:
-        per_layer += ffn
+        per_layer = 2 * d + attn + ffn
     return cfg.vocab_size * d * 2 + cfg.n_layers * per_layer + d
 
 

@@ -1,5 +1,6 @@
 """Reduced same-family smoke variants of the LM configs: tiny widths, two
-layers, small vocab, few experts (counterpart of ``repro.configs.smoke``)."""
+layers, small vocab, few experts, a small SSM state and chunk, a window of
+8 (counterpart of ``repro.configs.smoke``, field for field)."""
 
 from __future__ import annotations
 
@@ -10,10 +11,16 @@ from repro_torch.configs.base import ModelConfig
 
 def smoke_of(cfg: ModelConfig) -> ModelConfig:
     kw = dict(name=cfg.name + "-smoke", n_layers=2, d_model=64, d_head=16,
-              d_ff=128, vocab_size=256, n_heads=4, n_kv_heads=2)
+              d_ff=0 if cfg.d_ff == 0 else 128, vocab_size=256)
+    if cfg.n_heads:
+        kw.update(n_heads=4, n_kv_heads=2)
     if cfg.family == "moe":
         kw.update(n_experts=4, top_k=min(cfg.top_k, 2),
                   n_shared_experts=min(cfg.n_shared_experts, 1))
+    if cfg.ssm_state:
+        kw.update(ssm_state=8, ssm_head_dim=16, ssm_chunk=8)
     if cfg.swa_window:
         kw.update(swa_window=8)
+    if cfg.global_layer_every:
+        kw.update(global_layer_every=2)
     return dataclasses.replace(cfg, **kw).validate()

@@ -12,6 +12,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models.attention import AttentionParams
 from repro_torch.models.mlp import MlpParams
 from repro_torch.models.moe import MoeParams
+from repro_torch.models.ssm import Mamba2Params
 from repro_torch.optim.optimizers import AdamState, SgdState
 from repro_torch.train.step import TrainState
 
@@ -86,9 +87,12 @@ def lm_params_from_numpy(params, device="cuda") -> dict:
     """The reference's LM params as numpy — ``{"embed", "layers": {"ln1",
     "attn": (wq, wk, wv, wo, bq, bk, bv), "ln2", "mlp": (w_gate, w_in,
     w_out) | "moe": (router (d, E), w_gate, w_in (E, d, ff), w_out (E, ff,
-    d), shared: (w_gate, w_in, w_out) | None)}, "final_norm", "head"}`` with
-    the layer leaves stacked on L — -> the port's params (``models.lm``):
-    fp32, same values, same ``(in, out)`` layout, one dict per layer."""
+    d), shared: (w_gate, w_in, w_out) | None), "ssm": (wx, wz, wB, wC, wdt,
+    dt_bias, A_log, D, conv_x, conv_B, conv_C, gate_norm, wo)},
+    "final_norm", "head"}`` with the layer leaves stacked on L (an SSM
+    layer has no ``attn``, ``ln2`` or ``mlp``) — -> the port's params
+    (``models.lm``): fp32, same values, same ``(in, out)`` layout, one dict
+    per layer."""
     dev = resolve_device(device)
 
     def t(arr):
@@ -106,16 +110,21 @@ def lm_params_from_numpy(params, device="cuda") -> dict:
             *(at(_part(mlp, f), i) for f in MlpParams._fields))
 
     def layer(i):
-        out = {"ln1": at(layers["ln1"], i), "ln2": at(layers["ln2"], i),
-               "attn": AttentionParams(*(at(_part(layers["attn"], f), i)
-                                         for f in AttentionParams._fields))}
+        out = {"ln1": at(layers["ln1"], i)}
+        if "attn" in layers:
+            out["ln2"] = at(layers["ln2"], i)
+            out["attn"] = AttentionParams(*(at(_part(layers["attn"], f), i)
+                                            for f in AttentionParams._fields))
         if "moe" in layers:
             moe = layers["moe"]
             out["moe"] = MoeParams(
                 *(at(_part(moe, f), i) for f in MoeParams._fields[:-1]),
                 shared=mlp_at(_part(moe, "shared"), i))
-        else:
+        elif "mlp" in layers:
             out["mlp"] = mlp_at(layers["mlp"], i)
+        if "ssm" in layers:
+            out["ssm"] = Mamba2Params(*(at(_part(layers["ssm"], f), i)
+                                        for f in Mamba2Params._fields))
         return out
 
     return {

@@ -1,5 +1,6 @@
 """Serving launcher of the port (counterpart of ``repro.launch.serve``): the
-dense and MoE LM families' token serving and the MRF reconstruction family.
+LM families' token serving (dense, MoE, SSM and hybrid) and the MRF
+reconstruction family.
 
 Token serving: ``python -m repro_torch.launch.serve --arch tinyllama-1.1b
 --requests 8 --prompt-len 2048 --gen-len 32`` initialises the model from a
@@ -13,7 +14,10 @@ MoE arch (``--arch deepseek-moe-16b``, ``phi3.5-moe-42b-a6.6b``) routes its
 tokens in groups of 256 (one group of the batch at decode); a batch whose
 ``requests x prompt-len`` (or ``requests``) is not a whole number of groups
 is refused before the weights are made, as the reference's assert refuses
-it: nothing is padded.
+it: nothing is padded.  ``--arch mamba2-1.3b`` (SSM: no attention, so no
+B6 launch) and ``--arch hymba-1.5b`` (hybrid: B6 and the mamba2 mixer side
+by side, windows of 1,024 on all but three layers) keep an SSM state and
+conv tails per layer; their prompts need at least 3 tokens.
 
 ``python -m repro_torch.launch.serve --arch mrf-fpga --backend int8`` QAT-
 trains a net through the port's engine (600 steps, 60 with ``--smoke``, or
@@ -141,11 +145,11 @@ def _sync(device) -> None:
 
 
 def serve_tokens(args, cfg) -> int:
-    """Batched prefill + lockstep greedy decode for the dense and MoE LM
-    families."""
+    """Batched prefill + lockstep greedy decode for the LM families."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
     from repro_torch.models import registry
     from repro_torch.models.common import COMPUTE
+    from repro_torch.models.ssm import check_prompt_len
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
     if min(args.requests, args.prompt_len, args.gen_len) < 1:
@@ -153,6 +157,8 @@ def serve_tokens(args, cfg) -> int:
     if cfg.family == "moe":  # prefill's and decode's tokens route in groups
         group_of(args.requests * args.prompt_len)
         group_of(args.requests)
+    if cfg.family in ("ssm", "hybrid"):  # decode extends the conv tails
+        check_prompt_len(args.prompt_len)
     device = resolve_device(args.device)
     if device.type == "cuda":
         disable_tf32()
@@ -462,7 +468,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True,
                     help="a dense LM (tinyllama-1.1b, granite-8b, "
                          "qwen2.5-14b, minitron-8b), an MoE LM "
-                         "(deepseek-moe-16b, phi3.5-moe-42b-a6.6b) or "
+                         "(deepseek-moe-16b, phi3.5-moe-42b-a6.6b), the SSM "
+                         "LM mamba2-1.3b, the hybrid LM hymba-1.5b or "
                          "mrf-fpga | mrf-original")
     ap.add_argument("--backend", default="int8",
                     help="int8 (full-integer CUDA kernels, the default) or "

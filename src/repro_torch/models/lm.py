@@ -1,24 +1,34 @@
-"""Decoder-only LM assembly for the dense and MoE families (counterpart of
-``repro.models.lm``): init, prefill and single-token decode, and
-:class:`ModelFns`, the bundle of model functions every family builds.
+"""Decoder-only LM assembly for the dense, MoE, SSM (mamba2) and hybrid
+(hymba) families (counterpart of ``repro.models.lm``): init, prefill and
+single-token decode, and :class:`ModelFns`, the bundle of model functions
+every family builds.
 
 The layer stack is a Python loop over per-layer params (the reference
-scans over params stacked on a leading L axis).  Params are
-``{"embed": (V, d), "layers": [{"ln1", "attn": AttentionParams, "ln2",
-"mlp": MlpParams | "moe": MoeParams}, ...], "final_norm": (d,), "head":
-(d, V)}`` in fp32, the ``(in, out)`` layout of the reference;
+scans over params stacked on a leading L axis, and unrolls the hybrid
+family).  Params are ``{"embed": (V, d), "layers": [{"ln1", "attn":
+AttentionParams, "ln2", "mlp": MlpParams | "moe": MoeParams, "ssm":
+Mamba2Params}, ...], "final_norm": (d,), "head": (d, V)}`` in fp32, the
+``(in, out)`` layout of the reference; an SSM layer holds ``ln1`` and
+``ssm`` only, a hybrid layer all but ``moe``.
 ``convert.lm_params_from_numpy`` carries the reference's stacked params
 across.  Activations are bf16 from the embedding on.  An MoE layer's FFN is
 ``models.moe.moe_block`` (attention stays on B6); its load-balance loss
-matters only to the LM training still to come and is dropped here.
+matters only to the LM training still to come and is dropped here.  A
+hybrid layer runs attention (B6) and the mamba2 mixer side by side on the
+same input, ``h + 0.5 * (attn + ssm)``, then its MLP; its layers 0, every
+``global_layer_every``-th and the last attend globally, the others within
+``swa_window``.
 
-Caches are bf16: ``{"k", "v"}`` of shape (L, B, S, Hkv, dh) — the stacked
-cache — or, with ``cfg.decode_unroll``, a tuple of per-layer ``{"k", "v"}``
-of shape (B, S, Hkv, dh).  Decode writes its token's K and V into the
-cache in place and returns the same cache object.
+Caches: dense and MoE ``{"k", "v"}`` bf16 of shape (L, B, S, Hkv, dh) —
+the stacked cache — or, with ``cfg.decode_unroll``, a tuple of per-layer
+``{"k", "v"}`` of shape (B, S, Hkv, dh).  SSM: a tuple of per-layer
+``ssm.Mamba2Cache``.  Hybrid: a tuple of per-layer ``{"k", "v", "ssm"}``,
+K and V a ring of capacity ``min(swa_window, S)`` on a window layer and S
+on a global one, prefill's token t at slot ``t mod capacity``.  Decode
+writes into the caches in place and returns the same cache object.
 
 LM training (``lm_loss`` / ``cross_entropy`` of the reference) and the
-SSM, hybrid, encoder-decoder and VLM families arrive with later slices.
+encoder-decoder and VLM families arrive with later slices.
 """
 
 from __future__ import annotations
@@ -32,10 +42,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.common import COMPUTE, normal_init, rms_norm
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.tree import tree_map
+
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,18 +73,32 @@ def _layer_init(cfg: ModelConfig, generator, tp: int, device) -> dict:
     d = cfg.d_model
     hq, hkv, dh = _heads(cfg, tp)
     ones = partial(torch.ones, (d,), dtype=torch.float32, device=device)
-    layer = {"ln1": ones(),
-             "attn": attn.init_attn(generator, d, hq, hkv, dh, cfg.qkv_bias,
-                                    device=device),
-             "ln2": ones()}
+    layer = {"ln1": ones()}
+    if cfg.family != "ssm":
+        layer["attn"] = attn.init_attn(generator, d, hq, hkv, dh,
+                                       cfg.qkv_bias, device=device)
+        layer["ln2"] = ones()
     if cfg.family == "moe":
         layer["moe"] = init_moe(generator, d, cfg.d_ff, cfg.n_experts,
                                 cfg.n_shared_experts, cfg.gated_mlp,
                                 device=device)
-    else:
+    elif cfg.family != "ssm":
         layer["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.gated_mlp,
                                 device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        layer["ssm"] = ssm.init_ssm(generator, d, cfg.d_inner, cfg.ssm_state,
+                                    cfg.n_ssm_heads, device=device)
     return layer
+
+
+def global_flags(cfg: ModelConfig) -> list:
+    """Hybrid: which layers attend globally (the others within
+    ``swa_window``): layer 0, every ``global_layer_every``-th and the last.
+    All False for the other families."""
+    if cfg.family != "hybrid" or not cfg.global_layer_every:
+        return [False] * cfg.n_layers
+    return [i % cfg.global_layer_every == 0 or i == cfg.n_layers - 1
+            for i in range(cfg.n_layers)]
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
@@ -83,8 +110,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     fp32 masters are alive at a time: qwen2.5-14b's bf16 params (30 GB) are
     made without its 59 GB of masters.  Every use of a param casts it to the
     bf16 activations first, so serving from the bf16 params gives the same
-    values as serving from the masters; the one param used in f32, an MoE
-    layer's router, keeps its masters' values."""
+    values as serving from the masters.  The params used in f32 keep their
+    masters' values: an MoE layer's router and an SSM mixer's
+    ``ssm.FP32_FIELDS``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, vp = cfg.d_model, cfg.padded_vocab(tp)
@@ -96,6 +124,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
         out = cast(layer)
         if "moe" in layer:
             out["moe"] = out["moe"]._replace(router=layer["moe"].router)
+        if "ssm" in layer:
+            out["ssm"] = out["ssm"]._replace(**{
+                f: getattr(layer["ssm"], f) for f in ssm.FP32_FIELDS})
         return out
 
     layers = [cast_layer(_layer_init(cfg, gen, tp, dev))
@@ -115,16 +146,39 @@ def _ffn(cfg: ModelConfig, lp, x):
     return mlp_block(lp["mlp"], x, quant=cfg.quant)
 
 
-def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool):
-    """One pre-norm residual block. h: (B, S, d)."""
+def _mixer(cfg: ModelConfig, lp, x, return_cache: bool):
+    """The layer's mamba2 mixer on x (B, S, d) [, its Mamba2Cache]."""
+    return ssm.ssm_block(lp["ssm"], x, n_heads=cfg.n_ssm_heads,
+                         head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state,
+                         chunk=cfg.ssm_chunk, quant=cfg.quant,
+                         return_cache=return_cache)
+
+
+def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool,
+           is_global: bool = False):
+    """One pre-norm residual block. h: (B, S, d).  Returns (h, kv): kv is
+    the attention's (k, v), the SSM layer's Mamba2Cache or the hybrid
+    layer's ((k, v), Mamba2Cache) with ``return_kv``, else None."""
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        out = _mixer(cfg, lp, x, return_kv)
+        return (h + out[0], out[1]) if return_kv else (h + out, None)
+    window = None if is_global else (cfg.swa_window or None)
     a_out = attn.attn_block(lp["attn"], x, cfg_heads=_heads(cfg, tp),
                             rope_theta=cfg.rope_theta, causal=True,
-                            window=cfg.swa_window or None, quant=cfg.quant,
+                            window=window, quant=cfg.quant,
                             return_kv=return_kv)
     kv = None
     if return_kv:
         a_out, kv = a_out
+    if cfg.family == "hybrid":
+        s_out = _mixer(cfg, lp, x, return_kv)
+        if return_kv:
+            s_out, skv = s_out
+            kv = (kv, skv)
+        h = h + 0.5 * (a_out + s_out)
+        return h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                             quant=cfg.quant), kv
     h = h + a_out
     return h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps)), kv
 
@@ -135,10 +189,12 @@ def _embed(params, tokens):
 
 def _stack_forward(cfg: ModelConfig, tp: int, params, h, *,
                    collect_kv: bool):
-    """Runs the layer stack. Returns (h, [(k, v) per layer] or None)."""
+    """Runs the layer stack. Returns (h, [each layer's kv (``_block``)] or
+    None)."""
     kvs = []
-    for lp in params["layers"]:
-        h, kv = _block(cfg, tp, h, lp, return_kv=collect_kv)
+    for lp, is_global in zip(params["layers"], global_flags(cfg)):
+        h, kv = _block(cfg, tp, h, lp, return_kv=collect_kv,
+                       is_global=is_global)
         kvs.append(kv)
     return h, (kvs if collect_kv else None)
 
@@ -149,26 +205,63 @@ def _logits(params, h):
 
 def init_cache(cfg: ModelConfig, tp: int, batch: int, seq: int, *,
                device="cuda"):
-    """Zeroed bf16 caches: stacked, or per layer with ``decode_unroll``."""
+    """Zeroed caches: stacked, or per layer with ``decode_unroll`` and for
+    the SSM and hybrid families (a hybrid window layer's K and V hold
+    ``min(swa_window, seq)`` slots)."""
     dev = resolve_device(device)
     _, hkv, dh = _heads(cfg, tp)
 
-    def zeros(*lead):
-        return torch.zeros((*lead, batch, seq, hkv, dh), dtype=COMPUTE,
+    def zeros(*lead, slots=seq):
+        return torch.zeros((*lead, batch, slots, hkv, dh), dtype=COMPUTE,
                            device=dev)
 
+    def mixer():
+        return ssm.init_cache(batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                              cfg.ssm_state, cfg.d_inner, device=dev)
+
+    if cfg.family == "ssm":
+        return tuple(mixer() for _ in range(cfg.n_layers))
+    if cfg.family == "hybrid":
+        caps = [_ring_slots(cfg, g, seq) for g in global_flags(cfg)]
+        return tuple({"k": zeros(slots=c), "v": zeros(slots=c),
+                      "ssm": mixer()} for c in caps)
     if cfg.decode_unroll:
         return tuple({"k": zeros(), "v": zeros()}
                      for _ in range(cfg.n_layers))
     return {"k": zeros(cfg.n_layers), "v": zeros(cfg.n_layers)}
 
 
+def _ring_slots(cfg: ModelConfig, is_global: bool, seq: int) -> int:
+    """A hybrid layer's K/V slots after a prompt of ``seq`` tokens."""
+    return seq if is_global else min(cfg.swa_window, seq)
+
+
+def layer_cache(cfg: ModelConfig, kv, is_global: bool, seq: int):
+    """An SSM or hybrid layer's decode cache from the kv its block returned
+    over a prompt of ``seq`` tokens: the Mamba2Cache, and for a hybrid
+    layer K and V in a ring of ``min(swa_window, seq)`` slots on a window
+    layer (``seq`` on a global one), token t at slot ``t mod capacity``."""
+    if cfg.family == "ssm":
+        return kv
+    (k, v), mixer = kv
+    cap = _ring_slots(cfg, is_global, seq)
+    return {"k": torch.roll(k[:, -cap:], seq % cap, 1).to(COMPUTE),
+            "v": torch.roll(v[:, -cap:], seq % cap, 1).to(COMPUTE),
+            "ssm": mixer}
+
+
 def prefill(cfg: ModelConfig, tp: int, params, batch):
     """Causal forward over the prompt ``batch["tokens"]`` (B, S); returns
-    (cache as long as the prompt, last-token logits (B, V))."""
+    (cache, last-token logits (B, V)).  K and V caches are as long as the
+    prompt, a hybrid window layer's ``min(swa_window, S)``; an SSM prompt
+    needs at least ``ssm.CONV_TAPS - 1`` tokens."""
     h = _embed(params, batch["tokens"])
+    seq = batch["tokens"].shape[1]
     h, kvs = _stack_forward(cfg, tp, params, h, collect_kv=True)
-    if cfg.decode_unroll:
+    if cfg.family in ("ssm", "hybrid"):
+        cache = tuple(layer_cache(cfg, kv, is_global, seq)
+                      for kv, is_global in zip(kvs, global_flags(cfg)))
+    elif cfg.decode_unroll:
         cache = tuple({"k": k.to(COMPUTE), "v": v.to(COMPUTE)}
                       for k, v in kvs)
     else:
@@ -178,13 +271,28 @@ def prefill(cfg: ModelConfig, tp: int, params, batch):
     return cache, _logits(params, h)
 
 
-def _decode_block(cfg: ModelConfig, tp: int, h1, lp, cache_k, cache_v,
-                  cache_len):
+def _mixer_step(cfg: ModelConfig, lp, cache, x):
+    y, _ = ssm.ssm_decode_step(lp["ssm"], cache, x, n_heads=cfg.n_ssm_heads,
+                               head_dim=cfg.ssm_head_dim,
+                               n_state=cfg.ssm_state, quant=cfg.quant)
+    return y
+
+
+def _decode_block(cfg: ModelConfig, tp: int, h1, lp, layer, cache_len):
+    """One token through one layer; ``layer`` is the layer's cache."""
     x = rms_norm(h1, lp["ln1"], cfg.norm_eps)
-    # the reference's dense decode passes no window (lm.py _decode_block)
+    if cfg.family == "ssm":
+        return h1 + _mixer_step(cfg, lp, layer, x)
+    # the reference's decode passes no window (lm.py _decode_block): a
+    # hybrid window layer is limited by its ring's capacity
     a_out, _, _ = attn.decode_attn_block(
-        lp["attn"], x, cache_k, cache_v, cache_len, cfg_heads=_heads(cfg, tp),
-        rope_theta=cfg.rope_theta, quant=cfg.quant)
+        lp["attn"], x, layer["k"], layer["v"], cache_len,
+        cfg_heads=_heads(cfg, tp), rope_theta=cfg.rope_theta, quant=cfg.quant)
+    if cfg.family == "hybrid":
+        h1 = h1 + 0.5 * (a_out + _mixer_step(cfg, lp, layer["ssm"], x))
+        return h1 + mlp_block(lp["mlp"],
+                              rms_norm(h1, lp["ln2"], cfg.norm_eps),
+                              quant=cfg.quant)
     h1 = h1 + a_out
     x2 = rms_norm(h1, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":  # the B tokens route as one group of (B, 1)
@@ -195,13 +303,14 @@ def _decode_block(cfg: ModelConfig, tp: int, h1, lp, cache_k, cache_v,
 def decode_token(cfg: ModelConfig, tp: int, params, cache, tokens1,
                  cache_len: int):
     """tokens1: (B,) the newly sampled tokens; ``cache_len`` the position
-    they take.  Writes their K and V into ``cache`` in place; returns
-    (logits (B, V), cache)."""
+    they take.  Writes their K and V (and SSM state and conv tails) into
+    ``cache`` in place; returns (logits (B, V), cache)."""
     h = _embed(params, tokens1)
+    per_layer = cfg.decode_unroll or cfg.family in ("ssm", "hybrid")
     for i, lp in enumerate(params["layers"]):
-        layer = cache[i] if cfg.decode_unroll else \
+        layer = cache[i] if per_layer else \
             {"k": cache["k"][i], "v": cache["v"][i]}
-        h = _decode_block(cfg, tp, h, lp, layer["k"], layer["v"], cache_len)
+        h = _decode_block(cfg, tp, h, lp, layer, cache_len)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h), cache
 
@@ -213,9 +322,9 @@ def _no_training(*_a, **_k):
 
 def build_lm(cfg: ModelConfig, tp: int = 1) -> ModelFns:
     cfg.validate()
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: only the dense and MoE LM "
-                                  f"families are ported (ROADMAP.md §A)")
+    if cfg.family not in LM_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: the port's LM families are "
+                                  f"{LM_FAMILIES} (ROADMAP.md §A)")
     cfg.padded_heads(tp)  # tp must be 1 until sharding is ported
     return ModelFns(
         cfg=cfg,

@@ -1,0 +1,246 @@
+"""Mamba-2 mixer (counterpart of ``repro.models.ssm``): the SSD (state-space
+duality) scan, chunked — quadratic within a chunk, recurrent across chunks
+(arXiv:2405.21060) — and the single-token decode step.
+
+Per head h with state size N and head dim P:
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * (B_t outer x_t)
+    y_t = C_t . h_t + D * x_t
+
+The reference computes the scan with XLA einsums and a ``lax.scan`` over
+chunks (no Pallas kernel), so the port's is plain PyTorch: batched matrix
+products in f32 and a Python loop over chunks that carries the state.
+Every elementwise step runs in the reference's order and dtype: the causal
+conv sums four bf16 products in Python order from 0, SiLU is
+``models.mlp.silu`` (the reference's lowering), softplus is
+``jax.nn.softplus``'s ``logaddexp(x, 0)``, the gate norm takes
+``rms_norm``'s default eps.  The products inside the scan sum in
+PyTorch's order, so the scan holds the reference within an f32 tolerance.
+
+The decode cache, :class:`Mamba2Cache`, holds the f32 state (B, H, P, N)
+and the last ``CONV_TAPS - 1`` bf16 projections of x, B and C; decode
+updates it in place.  A prompt shorter than that tail is refused: the
+reference's prefill would hand decode a tail too short to extend.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import COMPUTE, dense, normal_init, rms_norm
+from repro_torch.models.mlp import silu
+
+CONV_TAPS = 4  # the depthwise causal conv's width
+#: params the mixer reads in f32: a bf16 serving copy keeps their masters
+FP32_FIELDS = ("dt_bias", "A_log", "D")
+
+
+class Mamba2Params(NamedTuple):
+    wx: torch.Tensor         # (d, di)
+    wz: torch.Tensor         # (d, di)
+    wB: torch.Tensor         # (d, N)
+    wC: torch.Tensor         # (d, N)
+    wdt: torch.Tensor        # (d, H)
+    dt_bias: torch.Tensor    # (H,)
+    A_log: torch.Tensor      # (H,)
+    D: torch.Tensor          # (H,)
+    conv_x: torch.Tensor     # (CONV_TAPS, di) depthwise
+    conv_B: torch.Tensor     # (CONV_TAPS, N)
+    conv_C: torch.Tensor     # (CONV_TAPS, N)
+    gate_norm: torch.Tensor  # (di,)
+    wo: torch.Tensor         # (di, d)
+
+
+class Mamba2Cache(NamedTuple):
+    state: torch.Tensor      # (B, H, P, N) f32
+    conv_x: torch.Tensor     # (B, CONV_TAPS - 1, di) bf16
+    conv_B: torch.Tensor     # (B, CONV_TAPS - 1, N) bf16
+    conv_C: torch.Tensor     # (B, CONV_TAPS - 1, N) bf16
+
+
+def init_ssm(generator, d_model, d_inner, n_state, n_heads,
+             device=None) -> Mamba2Params:
+    """The reference's init: normal projections, ``dt_bias`` the inverse
+    softplus of 0.01, ``A_log`` spread over log 1..16, ``D`` and the gate
+    norm ones."""
+    def normal(shape, scale=0.02):
+        return normal_init(generator, shape, scale, device=device)
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.float32, device=device)
+
+    return Mamba2Params(
+        wx=normal((d_model, d_inner)), wz=normal((d_model, d_inner)),
+        wB=normal((d_model, n_state)), wC=normal((d_model, n_state)),
+        wdt=normal((d_model, n_heads)),
+        dt_bias=torch.log(torch.expm1(torch.full(
+            (n_heads,), 0.01, dtype=torch.float32, device=device))),
+        A_log=torch.log(torch.linspace(1.0, 16.0, n_heads,
+                                       dtype=torch.float32, device=device)),
+        D=ones(n_heads),
+        conv_x=normal((CONV_TAPS, d_inner), 0.1),
+        conv_B=normal((CONV_TAPS, n_state), 0.1),
+        conv_C=normal((CONV_TAPS, n_state), 0.1),
+        gate_norm=ones(d_inner), wo=normal((d_inner, d_model)))
+
+
+def init_cache(batch, n_heads, head_dim, n_state, d_inner, *,
+               device=None) -> Mamba2Cache:
+    """A zeroed decode cache."""
+    def tail(width):
+        return torch.zeros((batch, CONV_TAPS - 1, width), dtype=COMPUTE,
+                           device=device)
+
+    return Mamba2Cache(
+        state=torch.zeros((batch, n_heads, head_dim, n_state),
+                          dtype=torch.float32, device=device),
+        conv_x=tail(d_inner), conv_B=tail(n_state), conv_C=tail(n_state))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)`` as JAX computes it:
+    ``max(x, 0) + log1p(exp(-|x|))`` (``F.softplus`` returns x above 20)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def check_prompt_len(length: int) -> None:
+    """Refuse a prompt too short to leave decode its conv tail."""
+    if length < CONV_TAPS - 1:
+        raise ValueError(
+            f"an SSM prompt of {length} token(s) leaves a conv tail shorter "
+            f"than the {CONV_TAPS - 1} tokens decode extends; prompts need "
+            f"at least {CONV_TAPS - 1} tokens")
+
+
+def _causal_conv(x, w):
+    """Depthwise causal conv. x: (B, L, D); w: (W, D).  The W products are
+    summed in x's dtype in order, from 0, as the reference's ``sum``."""
+    taps, length = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, taps - 1, 0))
+    out = 0
+    for i in range(taps):
+        out = out + xp[:, i:i + length] * w[i]
+    return out
+
+
+def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int):
+    """Chunked SSD scan, f32.
+
+    x: (B, L, H, P); dt: (B, L, H) (after softplus); A: (H,) negative;
+    Bmat/Cmat: (B, L, N).  Returns (y (B, L, H, P), final state
+    (B, H, P, N)).  L must be a multiple of ``chunk`` or shorter than it."""
+    b, length, h, p = x.shape
+    n = Bmat.shape[-1]
+    nc = max(length // chunk, 1)
+    q = length // nc
+    if length % q:
+        raise ValueError(f"length {length} is not a multiple of the chunk "
+                         f"{chunk}")
+    xr = x.reshape(b, nc, q, h, p)
+    dtr = dt.reshape(b, nc, q, h)
+    br = Bmat.reshape(b, nc, q, n)
+    cr = Cmat.reshape(b, nc, q, n)
+    cum = torch.cumsum(dtr * A, dim=2)              # (B,nc,Q,H) log-decay
+
+    # within a chunk, per head (the dual quadratic form): (B,nc,H,Q,K)
+    cum_h = cum.transpose(2, 3)
+    cb = torch.matmul(cr, br.transpose(2, 3))       # (B,nc,Q,K)
+    m = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
+    m.mul_(cb[:, :, None]).mul_(dtr.transpose(2, 3)[:, :, :, None, :])
+    # above the diagonal the exponent is >= 0 and may overflow to inf:
+    # those entries are selected away (a 0/1 multiply would give NaN)
+    upper = torch.ones((q, q), dtype=torch.bool, device=x.device).triu(1)
+    m.masked_fill_(upper, 0.0)
+    y = torch.matmul(m, xr.transpose(2, 3)).transpose(2, 3)  # (B,nc,Q,H,P)
+
+    # each chunk's contribution to the state at its end: (B,nc,H,P,N)
+    w_end = torch.exp(cum[:, :, -1:, :] - cum) * dtr
+    s_chunk = torch.einsum("bcqhp,bcqn->bchpn", xr * w_end[..., None], br)
+
+    # across chunks: the state entering each chunk, then its outputs
+    decay = torch.exp(cum[:, :, -1])                # (B,nc,H)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = decay[:, c, :, None, None] * state + s_chunk[:, c]
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", cr, torch.stack(entering, 1))
+    y = y + y_inter * torch.exp(cum)[..., None]
+    return y.reshape(b, length, h, p), state
+
+
+def ssm_block(p: Mamba2Params, u, *, n_heads, head_dim, n_state, chunk,
+              quant="none", return_cache=False):
+    """The mamba2 mixer. u: (B, L, d) -> (B, L, d) [, Mamba2Cache]."""
+    b, length, _ = u.shape
+    if return_cache:
+        check_prompt_len(length)
+    x_raw = dense(u, p.wx, quant=quant)             # (B,L,di)
+    z = dense(u, p.wz, quant=quant)
+    bm_raw = dense(u, p.wB)
+    cm_raw = dense(u, p.wC)
+    dt_raw = dense(u, p.wdt)
+    x = silu(_causal_conv(x_raw, p.conv_x.to(x_raw.dtype)))
+    bm = silu(_causal_conv(bm_raw, p.conv_B.to(bm_raw.dtype)))
+    cm = silu(_causal_conv(cm_raw, p.conv_C.to(cm_raw.dtype)))
+    dt = softplus(dt_raw.float() + p.dt_bias)
+    a = -torch.exp(p.A_log.float())
+    # the sequence padded to a chunk multiple; dt = 0 on the padding gives
+    # decay 1 and no update, so the final state is the unpadded one
+    pad = (-length) % min(chunk, max(length, 1))
+    if pad:
+        x, bm, cm, dt = (F.pad(t, (0, 0, 0, pad)) for t in (x, bm, cm, dt))
+        dt = dt * (torch.arange(length + pad, device=u.device)
+                   < length)[None, :, None]
+    xh = x.reshape(b, length + pad, n_heads, head_dim).float()
+    y, state = ssd_chunked(xh, dt, a, bm.float(), cm.float(), chunk)
+    y = y + p.D[None, None, :, None] * xh
+    y = y.reshape(b, length + pad, -1)[:, :length].to(u.dtype)
+    y = rms_norm(y * silu(z), p.gate_norm)
+    out = dense(y, p.wo, quant=quant)
+    if not return_cache:
+        return out
+
+    def tail(t):  # from the unpadded projections
+        return t[:, length - (CONV_TAPS - 1):].to(COMPUTE, copy=True)
+
+    return out, Mamba2Cache(state=state, conv_x=tail(x_raw),
+                            conv_B=tail(bm_raw), conv_C=tail(cm_raw))
+
+
+def _conv_step(cache, new, w):
+    """cache: (B, W-1, D), shifted in place to end with ``new`` (B, D); w:
+    (W, D).  Returns the conv's output (B, D): the W products summed in f32
+    and rounded to ``new``'s dtype, as the reference's ``jnp.sum``."""
+    window = torch.cat([cache.to(new.dtype), new[:, None]], dim=1)
+    out = (window * w).sum(dim=1, dtype=torch.float32).to(new.dtype)
+    cache.copy_(window[:, 1:])
+    return out
+
+
+def ssm_decode_step(p: Mamba2Params, cache: Mamba2Cache, u1, *, n_heads,
+                    head_dim, n_state, quant="none"):
+    """u1: (B, d) one token.  Updates ``cache`` in place; returns (y1,
+    cache)."""
+    b = u1.shape[0]
+    x = dense(u1, p.wx, quant=quant)
+    z = dense(u1, p.wz, quant=quant)
+    bm = dense(u1, p.wB)
+    cm = dense(u1, p.wC)
+    dt_raw = dense(u1, p.wdt)
+    x = silu(_conv_step(cache.conv_x, x, p.conv_x.to(x.dtype)))
+    bm = silu(_conv_step(cache.conv_B, bm, p.conv_B.to(bm.dtype)))
+    cm = silu(_conv_step(cache.conv_C, cm, p.conv_C.to(cm.dtype)))
+    dt = softplus(dt_raw.float() + p.dt_bias)                    # (B,H)
+    a = -torch.exp(p.A_log.float())
+    xh = x.reshape(b, n_heads, head_dim).float()
+    decay = torch.exp(dt * a[None, :])
+    upd = (dt[:, :, None] * xh)[..., None] * bm.float()[:, None, None, :]
+    cache.state.mul_(decay[:, :, None, None]).add_(upd)
+    y = torch.einsum("bn,bhpn->bhp", cm.float(), cache.state)
+    y = y + p.D[None, :, None] * xh
+    y = y.reshape(b, -1).to(u1.dtype)
+    y = rms_norm(y * silu(z), p.gate_norm)
+    return dense(y, p.wo, quant=quant), cache

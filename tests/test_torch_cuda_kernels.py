@@ -360,6 +360,9 @@ def test_fused_train_refuses_a_net_beyond_shared_memory(cuda):
     (1, 256, 8, 2, 128, True, 0, 64),
     (2, 2048, 32, 8, 128, True, 0, 64),
     (1, 50, 6, 2, 16, True, 8, 16),
+    # hymba-1.5b's prefill: group 5, its window of 1,024 and a global layer
+    (8, 2048, 25, 5, 64, True, 1024, 64),
+    (8, 2048, 25, 5, 64, True, 0, 64),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_matches_plain(cuda, case, dtype):

@@ -7,6 +7,8 @@ and held.
   cost model and are printed under the algorithm's name.
 * ``torch_phantom_recon``: every slice ends ``done``; a poisoned slice
   makes the example exit 1.
+* ``torch_serve_batch``: both SSM archs serve 8 x 48-token prompts and 24
+  tokens, the launcher's ``token_report`` last, no B6 launch on the CPU.
 * Without a card each example refuses the default ``--device cuda``.
 """
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.core import fpga_cost_model as fcm
 from repro_torch.core import mrf_net
+from repro_torch.kernels.flash_attn.kernel import flash_attention_call
 from repro_torch.kernels.fused_train import kernel as train_kernel
 from repro_torch.kernels.fused_train import multistep
 from repro_torch.serve.faults import FaultInjector
@@ -127,8 +130,22 @@ def test_phantom_recon_exits_1_when_a_slice_fails(monkeypatch):
     assert rep["states"] == ["done", "failed", "done"]
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_serve_batch_serves_both_ssm_families(arch):
+    before = flash_attention_call.launches
+    rc, lines = _run("torch_serve_batch", ["--arch", arch, "--smoke",
+                                           "--device", "cpu"])
+    assert rc == 0
+    rep = _report(lines, "token_report")
+    assert (rep["arch"], rep["requests"], rep["prompt"], rep["gen"]) == \
+        (f"{arch}-smoke", 8, 48, 24)
+    assert len(rep["tokens"]) == 8 and {len(t) for t in rep["tokens"]} == {24}
+    assert rep["flash_attn_launches"] == 0
+    assert flash_attention_call.launches == before
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_mrf_fpga_train",
-                                  "torch_phantom_recon"])
+                                  "torch_phantom_recon", "torch_serve_batch"])
 def test_examples_refuse_cuda_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")

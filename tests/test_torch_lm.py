@@ -104,11 +104,11 @@ def test_config_refusals():
     with pytest.raises(NotImplementedError, match="sharding"):
         cfg.padded_heads(2)
     with pytest.raises(ValueError, match="ROADMAP"):
-        dataclasses.replace(cfg, family="ssm").validate()
+        dataclasses.replace(cfg, family="encdec").validate()
     with pytest.raises(NotImplementedError, match="LM-training slice"):
         dataclasses.replace(cfg, quant="qat-int8").validate()
     with pytest.raises(KeyError, match="later slice"):
-        pconfigs.get_config("mamba2-1.3b")
+        pconfigs.get_config("seamless-m4t-large-v2")
 
 
 def test_registry_builds_the_ported_families():
@@ -119,7 +119,7 @@ def test_registry_builds_the_ported_families():
         fns.loss(None, None)
     with pytest.raises(NotImplementedError, match="not ported"):
         pregistry.build(dataclasses.replace(
-            pconfigs.get_smoke("mrf-fpga"), family="ssm"))
+            pconfigs.get_smoke("mrf-fpga"), family="encdec"))
 
 
 # --------------------------------------------------------------------------

@@ -91,4 +91,4 @@ def test_configs_match_jax(arch):
 
 def test_lm_arch_names_the_later_slice():
     with pytest.raises(KeyError, match="later slice"):
-        pconfigs.get_config("mamba2-1.3b")
+        pconfigs.get_config("seamless-m4t-large-v2")

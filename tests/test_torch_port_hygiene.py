@@ -58,7 +58,7 @@ def _imported_roots(tree):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
-    assert len(files) > 20 and len(_examples()) == 3
+    assert len(files) > 20 and len(_examples()) == 4
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files
            for line, mod in _imported_roots(ast.parse(f.read_text()))
@@ -146,6 +146,8 @@ def test_cuda_without_a_card_raises(tmp_path):
     path = qat.save_int8_artifact(tmp_path / "net", ints)
     lm_fns = registry.build(get_smoke("tinyllama-1.1b"))
     moe_fns = registry.build(get_smoke("deepseek-moe-16b"))
+    ssm_fns = registry.build(get_smoke("mamba2-1.3b"))
+    hybrid_fns = registry.build(get_smoke("hymba-1.5b"))
     calls = [
         lambda: resolve_device("cuda"),
         lambda: qat.init_qat_state(3),
@@ -160,6 +162,11 @@ def test_cuda_without_a_card_raises(tmp_path):
         lambda: launcher.main(["--arch", "tinyllama-1.1b", "--smoke"]),
         lambda: moe_fns.init(0),
         lambda: launcher.main(["--arch", "deepseek-moe-16b", "--smoke"]),
+        lambda: ssm_fns.init(0),
+        lambda: ssm_fns.init_cache(1, 8),
+        lambda: hybrid_fns.init_cache(1, 8),
+        lambda: launcher.main(["--arch", "mamba2-1.3b", "--smoke"]),
+        lambda: launcher.main(["--arch", "hymba-1.5b", "--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -192,7 +199,8 @@ def _allowlisted_names():
 
 def test_port_identifiers_leave_the_dead_exports_gate_alone():
     allow = _allowlisted_names()
-    assert {"IntLayer", "QATConfig", "PaddedIntNet"} <= allow
+    assert {"IntLayer", "QATConfig", "PaddedIntNet", "CONV_WIDTH",
+            "SSMParams"} <= allow
     files = sorted(PORT.rglob("*.py")) + _examples() + sorted(
         (ROOT / "tests").glob("test_torch_*.py"))
     hits = []
