@@ -3,8 +3,9 @@
 holds each against its plain PyTorch version, trains and serves MRF nets end
 to end through ``repro_torch.launch.train`` / ``repro_torch.launch.serve``,
 runs the paper's experiment through the port's examples, serves tokens from
-tinyllama-1.1b, deepseek-moe-16b, phi3.5-moe, mamba2-1.3b and hymba-1.5b at
-full width through ``repro_torch.launch.serve`` and times the kernels.
+tinyllama-1.1b, deepseek-moe-16b, phi3.5-moe, mamba2-1.3b, hymba-1.5b,
+seamless-m4t-large-v2 and llava-next-34b at full width through
+``repro_torch.launch.serve`` and times the kernels.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -43,8 +44,12 @@ final result line):
    kernel at its tiles, at the launcher's serving shape, granite-8b's dh
    128, deepseek-moe-16b's (16 query heads over 16 kv heads: group 1, dh
    128), hymba-1.5b's (25 query heads over 5 kv heads: group 5, dh 64)
-   with its window of 1,024 and fully causal, and small masked cases
-   (``hold_b6_bf16``), f32 on the scalar kernel within atol 2e-5;
+   with its window of 1,024 and fully causal, seamless-m4t-large-v2's
+   encoder (unmasked, S 512) and cross-attention (2,048 queries unmasked
+   over 512 keys), a ragged cross case (200 queries over 50 keys, padded
+   keys masked by ``kv_len``), llava-next-34b's (56 query heads over 8:
+   group 7, dh 128, S 3,072), and small masked cases (``hold_b6_bf16``),
+   f32 on the scalar kernel within atol 2e-5;
 4. the serving path: a calibrated mrf-fpga int8 artifact (random He-uniform
    weights, QAT observer calibration on simulated fingerprints) served
    through the launcher — sync and pipelined via the fused kernel, sync via
@@ -107,20 +112,36 @@ final result line):
    width through the launcher, twice each (8 x 2,048-token prompts, 32
    tokens, the same tokens both times, peak device memory in the
    report); then their first two layers on the card against a CPU copy
-   (``ssm_vs_cpu``: mamba2 on 600 tokens, padded to 768 by the scan,
+   (``layers_vs_cpu``: mamba2 on 600 tokens, padded to 768 by the scan,
    hymba on 1,152, its layer 1's window biting and its ring rotated):
    block outputs, the mixer's state and conv tails, the ring-aligned K
    and V and B6 on the layer's own q, k, v, then 4 decode steps of those
    layers; the SSD scan alone at the prefill shape (``ssd_time``);
    ``examples/torch_serve_batch.py`` at its defaults;
+4h. the encoder-decoder and VLM families (``encdec_vlm_phase``), after
+   phase 5's breakdowns of the earlier models, with no other model's
+   params alive: seamless-m4t-large-v2 (24 encoder and 24 decoder layers)
+   at full width through the launcher twice (8 x 2,048-token prompts
+   beside 512 frames, 32 tokens: 144 B6 launches a run — encoder, decoder
+   self- and cross-attention —, the same tokens), its first two encoder
+   and decoder layers against a CPU copy (``encdec_vs_cpu``: block
+   outputs, the self and cross K/V, B6 on each attention's own q, k, v, 4
+   decode steps) and its breakdown; llava-next-34b (60 layers, 64.05 GiB
+   of bf16 weights) at full width through the launcher once (4 x 3,072
+   tokens, the first 2,880 positions its prefix embeddings, 32 tokens: 120
+   B6 launches), its first two layers against a CPU copy on 1 x 3,072
+   tokens (``layers_vs_cpu``, the prefix overwrite on the path) and its
+   breakdown;
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
    between CUDA events; B4 and B5 at M=1,024 and at a whole wave, beside
    the device time of a one-element ``fill_`` (the launch floor); B1-B3
    also at each cluster size 1, 2, 4, 8, 16; B6 at the five prefill
-   shapes beside SDPA (at hymba's window the band goes to SDPA as a
-   boolean mask); then the breakdowns of phase 4d for all four LMs.
+   shapes, seamless's cross-attention and llava's group 7 beside SDPA (at
+   hymba's window the band goes to SDPA as a boolean mask); then the
+   breakdowns of phase 4d for tinyllama, deepseek, mamba2 and hymba (those
+   of seamless and llava run in phase 4h).
 
 Before them, ``chaos_run {json}`` records the chaos phase: states, waves,
 retries, slow waves, the final depth and wave cap, voxels/s, p50/p99 and
@@ -162,6 +183,9 @@ MOE_WIDE = "phi3.5-moe-42b-a6.6b"
 MOE_WIDE_LAYERS = 16        # of 32: full width, depth cut to fit one card
 SSM_ARCH = "mamba2-1.3b"
 HYBRID_ARCH = "hymba-1.5b"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "llava-next-34b"
+VLM_PROMPT = 3072           # 2,880 prefix embeddings + 192 text tokens
 # card vs CPU, the mixer's f32 state: within this share of its largest
 # magnitude (it is linear in the mixer's bf16 inputs, whose GEMMs round
 # ~1 ulp apart on the two sides)
@@ -180,6 +204,9 @@ LM_LOGIT_ULPS = 8           # card vs CPU prefill logits after 22 layers
 # order reads ~5e-6; a planted fault 1.4e-2 or more: test_torch_flash_attn)
 B6_MAX_ULPS = 1
 B6_DIFFER_SHARE = 1e-3
+# the model shapes B6 is timed at beside the serving shape (phase 5)
+B6_SHAPES = ("dh128", "deepseek", "hymba_window", "hymba_global",
+             "seamless_cross", "llava")
 
 
 def log(msg: str) -> None:
@@ -1446,7 +1473,11 @@ def hold_b6_bf16(what: str, got, qf, kf, vf, kw) -> dict:
                                                    i // kw["group"] + 1)
         gap = (scores[sl] - ref.plain_scores(qf[sl], kf[kl],
                                              group=kw["group"])).abs()
-        ratio = gap / ref.scores_bound(qf[sl], kf[kl], group=kw["group"])
+        bound = ref.scores_bound(qf[sl], kf[kl], group=kw["group"])
+        # a padded row or key has a bound of 0, and its score must be
+        # exactly the plain version's (0/0 would read NaN, which max skips)
+        ratio = torch.where(bound > 0, gap / bound,
+                            torch.where(gap > 0, math.inf, 0.0))
         worst = max(worst, float(ratio[ran[sl]].max()))
     if not worst <= 1:
         fail(f"{what}: scores {worst:.3g}x the bound of two f32 summation "
@@ -1463,16 +1494,17 @@ def check_flash_attention(device) -> float:
     """Phase 3c: B6 against its plain version on the card, on the same
     padded inputs and blocks (``ops.kernel_layout``; bf16 at the Hopper
     kernel's tiles, f32 at the blocks named), the first case at the serving
-    path's shape (the launcher's batch of 8), the last bf16 one at
-    granite-8b's (dh 128, 8 kv heads): f32 within atol 2e-5, bf16 as
-    ``hold_b6_bf16`` says; each launch bit-equals its repeat.  Returns the
-    largest absolute error."""
+    path's shape (the launcher's batch of 8), then the models' own shapes
+    and small masked ones, cross-attention with its own kv length (Sk):
+    f32 within atol 2e-5, bf16 as ``hold_b6_bf16`` says; each launch
+    bit-equals its repeat.  Returns the largest absolute error."""
     from repro_torch.kernels.flash_attn import kernel, ref
     from repro_torch.kernels.flash_attn.ops import flash_attention, \
         kernel_layout
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # label, B, S, Hq, Hkv, dh, causal, window, dtype, block
+    cases = [  # label, B, S or (Sq, Sk), Hq, Hkv, dh, causal, window, dtype,
+        #   block
         ("prefill shape", 8, 2048, 32, 4, 64, True, 0, bf16, None),
         ("sliding window 24", 1, 320, 8, 2, 64, True, 24, bf16, None),
         ("sliding window 8", 1, 320, 8, 2, 64, True, 8, bf16, None),
@@ -1490,6 +1522,14 @@ def check_flash_attention(device) -> float:
          True, 1024, bf16, None),
         ("global causal, group 5, hymba-1.5b prefill shape", 8, 2048, 25, 5,
          64, True, 0, bf16, None),
+        ("non-causal, seamless-m4t-large-v2 encoder shape", 8, 512, 16, 16,
+         64, False, 0, bf16, None),
+        ("cross, seamless-m4t-large-v2 decoder over its encoder", 8,
+         (2048, 512), 16, 16, 64, False, 0, bf16, None),
+        ("ragged cross (kv_len padding)", 2, (200, 50), 8, 2, 64, False, 0,
+         bf16, None),
+        ("group 7 at dh 128, llava-next-34b prefill shape", 4, 3072, 56, 8,
+         128, True, 0, bf16, None),
         ("f32", 1, 256, 8, 2, 64, True, 0, f32, 64),
         ("f32 window 8, ragged 50, blocks 16", 1, 50, 6, 2, 16, True, 8, f32,
          16),
@@ -1498,9 +1538,10 @@ def check_flash_attention(device) -> float:
     counter = kernel.flash_attention_call
     worst = 0.0
     for label, b, s, hq, hkv, dh, causal, window, dtype, blk in cases:
-        q, k, v = (torch.randn((b, s, h, dh), generator=gen,
+        s, sk = s if isinstance(s, tuple) else (s, s)  # queries, keys
+        q, k, v = (torch.randn((b, n, h, dh), generator=gen,
                                device=device).to(dtype)
-                   for h in (hq, hkv, hkv))
+                   for n, h in ((s, hq), (sk, hkv), (sk, hkv)))
         qf, kf, vf, kw = kernel_layout(q, k, v, causal=causal, window=window,
                                        block_q=blk, block_k=blk)
         before = counter.launches
@@ -1510,8 +1551,9 @@ def check_flash_attention(device) -> float:
         through_ops = flash_attention(q, k, v, causal=causal, window=window,
                                       block_q=blk, block_k=blk)
         torch.cuda.synchronize()
-        what = f"B6 {label} (B {b}, S {s}, Hq {hq}, Hkv {hkv}, dh {dh}, " \
-               f"causal {causal}, window {window}, {dtype})"
+        keys = f", Sk {sk}" if sk != s else ""
+        what = f"B6 {label} (B {b}, S {s}{keys}, Hq {hq}, Hkv {hkv}, dh " \
+               f"{dh}, causal {causal}, window {window}, {dtype})"
         if counter.launches != before + 3:
             fail(f"{what}: launch counter did not advance per launch")
         if got.dtype != dtype or not torch.isfinite(got).all():
@@ -1543,29 +1585,31 @@ def check_flash_attention(device) -> float:
 
 
 def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device,
-            window: int = 0) -> dict:
-    """B6 (bf16, causal, within ``window`` if not 0) at one shape: the
-    profiler's device time, the wall time of one wrapper call (tensor maps
-    encoded on the host included), the plain version's and SDPA's device
-    time, and the bound: the products of the pairs the masks keep,
-    4*B*Hq*dh*sum_q min(q+1, W) FLOP (S(S+1)/2 pairs without a window) at
-    the bf16 tensor-core peak, against q, k, v read once and the output
-    written once at 3.35 TB/s.  SDPA:
-    ``scaled_dot_product_attention(enable_gqa=True)`` on the same inputs in
-    its (B, H, S, dh) layout, ``is_causal=True``, or with a window the band
-    as a boolean ``attn_mask`` (which takes SDPA off its flash path): a
-    yardstick the port never calls."""
+            window: int = 0, *, sk: int | None = None,
+            causal: bool = True) -> dict:
+    """B6 (bf16; causal, within ``window`` if not 0, or unmasked over
+    ``sk`` keys) at one shape: the profiler's device time, the wall time of
+    one wrapper call (tensor maps encoded on the host included), the plain
+    version's and SDPA's device time, and the bound: the products of the
+    pairs the masks keep, 4*B*Hq*dh*pairs FLOP — sum_q min(q+1, W) pairs
+    causal (S(S+1)/2 without a window), S*Sk unmasked — at the bf16
+    tensor-core peak, against q, k, v read once and the output written
+    once at 3.35 TB/s.  SDPA: ``scaled_dot_product_attention(enable_gqa=
+    True)`` on the same inputs in its (B, H, S, dh) layout, ``is_causal``
+    as B6's, or with a window the band as a boolean ``attn_mask`` (which
+    takes SDPA off its flash path): a yardstick the port never calls."""
     import torch.nn.functional as F
 
     from repro_torch.analysis.roofline import H100
     from repro_torch.kernels.flash_attn import kernel, ref
     from repro_torch.kernels.flash_attn.ops import kernel_layout
 
+    sk = s if sk is None else sk
     gen = torch.Generator(device=device).manual_seed(17)
-    q, k, v = (torch.randn((b, s, h, dh), generator=gen,
+    q, k, v = (torch.randn((b, n, h, dh), generator=gen,
                            device=device).to(torch.bfloat16)
-               for h in (hq, hkv, hkv))
-    qf, kf, vf, kw = kernel_layout(q, k, v, causal=True, window=window)
+               for n, h in ((s, hq), (sk, hkv), (sk, hkv)))
+    qf, kf, vf, kw = kernel_layout(q, k, v, causal=causal, window=window)
     ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     counter = kernel.flash_attention_call
     saved = counter.launches
@@ -1578,9 +1622,10 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device,
             ql, kl, vl, attn_mask=band, enable_gqa=True)
     else:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            ql, kl, vl, is_causal=True, enable_gqa=True)
+            ql, kl, vl, is_causal=causal, enable_gqa=True)
     what = f"dh {dh}, group {hq // hkv}" + \
-        (f", window {window}" if window else "")
+        (f", window {window}" if window else "") + \
+        ("" if causal else f", Sq {s} over Sk {sk} unmasked")
     t = {"ms": device_ms(call, "flash_attn_kernel", reps=20, warmup=2,
                          label=f"flash_attn {what}"),
          "wall_ms": event_ms(call, reps=20),
@@ -1591,18 +1636,20 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device,
     lib_err = float((lib().transpose(1, 2).double() - call().reshape(
         b, hq, s, dh).transpose(1, 2).double()).abs().max())
     counter.launches = saved
-    pairs = sum(min(i + 1, window or s) for i in range(s))
+    pairs = sum(min(i + 1, window or s) for i in range(s)) if causal \
+        else s * sk
     nops = 4 * b * hq * dh * pairs
-    nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
+    nbytes = 2 * (2 * b * s * hq * dh + 2 * b * sk * hkv * dh)
     t_ops = nops / H100["peak_bf16_flops"] * 1e3
     t_bytes = nbytes / H100["hbm_bytes_per_s"] * 1e3
     log(f"  B6 vs scaled_dot_product_attention at {what}: max abs diff "
         f"{lib_err:.3g} (not held: another algorithm)")
+    masks = (", causal" + (f", window {window}" if window else "")
+             if causal else f", Sk {sk}, unmasked")
     t.update({"bound_ms": max(t_ops, t_bytes),
               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-              "shape": f"B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}, causal"
-                       + (f", window {window}" if window else "")
-                       + ", bf16", "bytes": nbytes, "ops": nops})
+              "shape": f"B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}{masks}, "
+                       f"bf16", "bytes": nbytes, "ops": nops})
     return t
 
 
@@ -1612,12 +1659,18 @@ def flash_attention_timing(err: float, device) -> dict:
     dh 128) rides in it as ``dh128``, deepseek-moe-16b's (Hq 16, Hkv 16,
     group 1, dh 128) as ``deepseek``, hymba-1.5b's (Hq 25, Hkv 5, group 5,
     dh 64) with its window of 1,024 as ``hymba_window`` and fully causal
-    (its global layers) as ``hymba_global``."""
+    (its global layers) as ``hymba_global``, seamless-m4t-large-v2's
+    cross-attention (Hq 16, Hkv 16, dh 64, 2,048 decoder queries unmasked
+    over 512 encoder keys) as ``seamless_cross`` and llava-next-34b's (B 4,
+    Hq 56, Hkv 8: group 7, dh 128, S 3,072) as ``llava``."""
     row = b6_time(8, 2048, 32, 4, 64, device)
     row["dh128"] = b6_time(8, 2048, 32, 8, 128, device)
     row["deepseek"] = b6_time(8, 2048, 16, 16, 128, device)
     row["hymba_window"] = b6_time(8, 2048, 25, 5, 64, device, window=1024)
     row["hymba_global"] = b6_time(8, 2048, 25, 5, 64, device)
+    row["seamless_cross"] = b6_time(8, 2048, 16, 16, 64, device, sk=512,
+                                    causal=False)
+    row["llava"] = b6_time(4, 3072, 56, 8, 128, device)
     row.update({"name": "flash_attn", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attn_sm90.cu",
                 "replaces": "src/repro/kernels/flash_attn/kernel.py:86",
@@ -1625,15 +1678,26 @@ def flash_attention_timing(err: float, device) -> dict:
     return row
 
 
-def token_runs(label: str, cfg, run, n_runs: int) -> tuple:
-    """``n_runs`` token-serving runs of ``cfg`` at 8 requests of 2,048-token
-    prompts and 32 tokens (``run()`` serves and returns the exit code),
-    B6's count reset just before each run and read just after: each run
-    makes exactly one B6 launch an attention layer a prefill (warm-up and
-    timed; an SSM layer has none), its tokens lie in the vocab, and every
-    run gives the same tokens.  The report's peak device memory counts
-    what was alive before the run (``base_device_gib``, logged beside it).
-    Returns (B6's launches over the runs, the reports)."""
+def b6_per_prefill(cfg) -> int:
+    """B6's launches in one prefill: one an attention (an SSM layer has
+    none; an encoder-decoder's decoder layer two, self and cross)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def token_runs(label: str, cfg, run, n_runs: int,
+               requests: int = 8) -> tuple:
+    """``n_runs`` token-serving runs of ``cfg`` at ``requests`` prompts and
+    32 tokens (``run()`` serves and returns the exit code), B6's count
+    reset just before each run and read just after: each run makes exactly
+    ``b6_per_prefill`` B6 launches a prefill (warm-up and timed), its
+    tokens lie in the vocab, and every run gives the same tokens.  The
+    report's peak device memory counts what was alive before the run
+    (``base_device_gib``, logged beside it).  Returns (B6's launches over
+    the runs, the reports)."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
 
     counter = flash_attention_call
@@ -1653,12 +1717,11 @@ def token_runs(label: str, cfg, run, n_runs: int) -> tuple:
         rep["layers"] = cfg.n_layers
         rep["base_device_gib"] = base
         toks = torch.tensor(rep["tokens"])
-        # warm-up + timed prefill, one launch an attention layer
-        want = 0 if cfg.family == "ssm" else 2 * cfg.n_layers
+        want = 2 * b6_per_prefill(cfg)  # warm-up + timed prefill
         if launches != want or rep["flash_attn_launches"] != want:
             fail(f"token serving {label}: {launches} B6 launches (report "
                  f"{rep['flash_attn_launches']}), expected {want}")
-        if toks.shape != (8, 32) or not (0 <= int(toks.min())
+        if toks.shape != (requests, 32) or not (0 <= int(toks.min())
                                          and int(toks.max()) < cfg.vocab_size):
             fail(f"token serving {label}: tokens {tuple(toks.shape)} outside "
                  f"the vocab")
@@ -1673,9 +1736,10 @@ def token_runs(label: str, cfg, run, n_runs: int) -> tuple:
     return total, reports
 
 
-def launcher_argv(arch: str) -> list:
-    return ["--arch", arch, "--device", "cuda", "--requests", "8",
-            "--prompt-len", "2048", "--gen-len", "32"]
+def launcher_argv(arch: str, requests: int = 8,
+                  prompt_len: int = 2048) -> list:
+    return ["--arch", arch, "--device", "cuda", "--requests", str(requests),
+            "--prompt-len", str(prompt_len), "--gen-len", "32"]
 
 
 def token_phase() -> tuple:
@@ -1744,30 +1808,92 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def lm_breakdown(fns, params, device) -> dict:
-    """Where the device time of token serving goes at the serving shape:
-    one prefill of 8 x 2,048 tokens, then 8 decode steps, each under the
-    profiler after a warm-up and a run in which any host synchronisation
-    raises.  Device time is summed by kernel class (B6,
+def serving_work(cfg, b: int, s: int) -> dict:
+    """The least work of serving b requests of s tokens, for the bounds:
+    bf16 product FLOP and bytes of a prefill and of one decode step.
+
+    * Products: 2 x the params a token passes through, less the embedding
+      (a gather), with the head on one token a request; an
+      encoder-decoder's encoder layers and cross K/V projections over its
+      ``enc_len_for(s)`` frames; and 4 x Hq x dh FLOP a (query, key) pair
+      each attention keeps (causal, within a hybrid's window, unmasked over
+      the frames; a decode token over the cache's slots).
+    * Bytes: the bf16 weights a step uses (a prefill all of them, a decode
+      step all but the encoder and the embedding), the K/V cache written
+      (prefill) or read (decode), an SSM's f32 state read and written a
+      decode step.
+    An SSM's scan products are ``analysis.roofline.ssd_flops`` (f32)."""
+    import dataclasses
+
+    from repro_torch.configs.base import active_param_count, param_count
+    from repro_torch.models.encdec import enc_len_for
+    from repro_torch.models.lm import global_flags
+
+    d, vp, n_layers = cfg.d_model, cfg.padded_vocab(1), cfg.n_layers
+    hq, hkv = cfg.padded_heads(1)
+    dh = cfg.head_dim
+    body = active_param_count(cfg) - 2 * d * vp  # less embedding and head
+    se = enc_len_for(s) if cfg.family == "encdec" else 0
+    frames = 0  # params that run over the frames
+    if se:
+        frames = param_count(cfg) - param_count(dataclasses.replace(
+            cfg, n_enc_layers=0)) + n_layers * 2 * d * hkv * dh
+
+    def causal(n, w):  # pairs q >= k > q - w, w = 0 for no window
+        w = min(w or n, n)
+        return w * (w + 1) // 2 + (n - w) * w
+
+    window = cfg.swa_window
+    flags = global_flags(cfg)
+    if cfg.family == "ssm":
+        pre_pairs = dec_pairs = kv_layers = 0
+    elif cfg.family == "encdec":
+        pre_pairs = cfg.n_enc_layers * se * se + n_layers * (
+            causal(s, 0) + s * se)
+        dec_pairs = n_layers * (s + se)
+        kv_layers = n_layers * (s + se)  # slots of self and cross K/V
+    else:
+        wins = [0 if g else window for g in flags]
+        pre_pairs = sum(causal(s, w) for w in wins)
+        dec_pairs = sum(min(w or s, s) for w in wins)
+        kv_layers = dec_pairs
+    pair = 4 * hq * dh
+    kv_bytes = 2 * 2 * b * kv_layers * hkv * dh  # K and V, bf16
+    state = 0
+    if cfg.family in ("ssm", "hybrid"):
+        state = 2 * 4 * n_layers * b * cfg.n_ssm_heads * cfg.ssm_head_dim \
+            * cfg.ssm_state
+    return {
+        "prefill_ops": 2 * (frames * b * se + (body - frames) * b * s)
+        + 2 * d * vp * b + pair * b * pre_pairs,
+        "prefill_bytes": 2 * param_count(cfg) + kv_bytes,
+        "decode_ops": 2 * (body - frames + d * vp) * b + pair * b * dec_pairs,
+        "decode_bytes": 2 * (body - frames + d * vp) + kv_bytes + state}
+
+
+def lm_breakdown(fns, params, device, b: int = 8, s: int = 2048) -> dict:
+    """Where the device time of token serving goes at a serving shape: one
+    prefill of b x s tokens (the launcher's batch: with an encoder-decoder's
+    frames or a VLM's prefix embeddings), then 8 decode steps, each under
+    the profiler after a warm-up and a run in which any host
+    synchronisation raises.  Device time is summed by kernel class (B6,
     the matrix products, everything else); the idle share is 1 - busy /
     wall, wall on the host clock between synchronisations (kernels of one
     stream do not overlap).  Beside each, a lower bound from
-    ``analysis.roofline``: the weight products' 2 x N_active FLOP a token
-    at the bf16 peak plus an SSM's scan products (``ssd_flops``) at the f32
-    peak, against the bf16 weights read once over HBM — all of them for
-    the prefill (its 16,384 tokens reach every expert), one token's active
-    weights a decode step."""
+    ``analysis.roofline``'s peaks: the products of ``serving_work`` at the
+    bf16 peak plus an SSM's scan products (``ssd_flops``) at the f32 peak,
+    against its bytes over HBM (a prefill reads every weight: an MoE
+    prefill's 16,384 tokens reach every expert; a decode step one token's
+    active weights)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.analysis.roofline import (H100, model_flops_decode,
-                                               ssd_flops)
-    from repro_torch.configs.base import active_param_count, param_count
+    from repro_torch.analysis.roofline import H100, ssd_flops
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+    from repro_torch.launch.serve import token_batch
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
     cfg = fns.cfg
-    active = active_param_count(cfg)
 
     def bound(products, scan, nbytes) -> dict:
         t_scan = scan / H100["peak_fp32_flops"]
@@ -1776,28 +1902,28 @@ def lm_breakdown(fns, params, device) -> dict:
         return {"t_bound_s": max(t_ops, t_bytes), "t_scan_s": t_scan,
                 "dominant": "compute" if t_ops >= t_bytes else "memory"}
 
-    bounds = {"prefill 8 x 2048": bound(
-                  model_flops_decode(active, 8 * 2048), ssd_flops(cfg, 8, 2048),
-                  2 * param_count(cfg)),
-              "decode, 8 steps": bound(
-                  model_flops_decode(active, 8 * 8), 8 * ssd_flops(cfg, 8, 1),
-                  8 * 2 * active)}
+    pre = f"prefill {b} x {s}"
+    work = serving_work(cfg, b, s)
+    bounds = {pre: bound(work["prefill_ops"], ssd_flops(cfg, b, s),
+                         work["prefill_bytes"]),
+              "decode, 8 steps": bound(8 * work["decode_ops"],
+                                       8 * ssd_flops(cfg, b, 1),
+                                       8 * work["decode_bytes"])}
     counter = flash_attention_call
     saved = counter.launches
     gen = torch.Generator(device=device).manual_seed(3)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 2048),
-                                     generator=gen, device=device,
-                                     dtype=torch.int32)}
+    batch = token_batch(cfg, b, s, gen, device)
     prefill, serve = make_prefill_step(fns), make_serve_step(fns)
     state = {}
 
     def run_prefill():
+        state.clear()  # the last cache goes before the next is made
         state["cache"], state["tok"], _ = prefill(params, batch)
 
     def run_decode():
         tok, cache = state["tok"], state["cache"]
         for i in range(8):
-            tok, cache = serve(params, cache, tok, 2048 + i)
+            tok, cache = serve(params, cache, tok, s + i)
 
     out = {}
     with torch.no_grad():
@@ -1814,7 +1940,7 @@ def lm_breakdown(fns, params, device) -> dict:
             torch.cuda.set_sync_debug_mode("default")
         log(f"{cfg.name} prefill and 8 decode steps: no host "
             f"synchronisation (sync debug mode 'error')")
-        for what, fn in (("prefill 8 x 2048", run_prefill),
+        for what, fn in ((pre, run_prefill),
                          ("decode, 8 steps", run_decode)):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1852,6 +1978,52 @@ def lm_breakdown(fns, params, device) -> dict:
     return out
 
 
+def ulps(got, want) -> float:
+    """``|got - want|`` at worst (got on any device, want on the CPU), in
+    bf16 ulps of ``want``'s largest magnitude."""
+    return float((got.float().cpu() - want.float()).abs().max()) \
+        / bf16_ulp(want)
+
+
+@contextlib.contextmanager
+def recording_b6():
+    """Record every call a model makes to B6 through ``models.attention``
+    while the block runs: a list of (q, k, v, kwargs, output)."""
+    from repro_torch.models import attention as attn_mod
+
+    original, seen = attn_mod.flash_attention, []
+
+    def recording(q, k, v, **kw):
+        out = original(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+
+    attn_mod.flash_attention = recording
+    try:
+        yield seen
+    finally:
+        attn_mod.flash_attention = original
+
+
+def hold_recorded_b6(call, what: str) -> dict:
+    """B6 on a model's own q, k, v (one ``recording_b6`` call): a launch on
+    the same inputs, not counted, must repeat the model's output bit for
+    bit, and is held against the plain version (``hold_b6_bf16``)."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+    from repro_torch.kernels.flash_attn.ops import kernel_layout
+
+    q, k, v, kw, out = call
+    qf, kf, vf, lkw = kernel_layout(q, k, v, **kw)
+    saved = flash_attention_call.launches
+    got = flash_attention_call(qf, kf, vf, **lkw)
+    flash_attention_call.launches = saved
+    b, sq, hq, dh = q.shape
+    if not torch.equal(out, got.reshape(b, hq, -1, dh).transpose(
+            1, 2)[:, :sq]):
+        fail(f"{what}: the model's call and a repeat differ")
+    return hold_b6_bf16(what, got, qf, kf, vf, lkw)
+
+
 def model_vs_cpu(fns, params, device) -> dict:
     """Phase 4d, the kernel inside the model: one request's 256-token prompt
     at full width on the card (B6) and on a CPU copy of the same bf16
@@ -1873,8 +2045,6 @@ def model_vs_cpu(fns, params, device) -> dict:
     * Greedy tokens of the chained forwards equal at every position whose
       top-2 margin on the CPU exceeds twice the logit limit."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
-    from repro_torch.kernels.flash_attn.ops import kernel_layout
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm
     from repro_torch.models.common import rms_norm
     from repro_torch.tree import tree_map
@@ -1885,17 +2055,7 @@ def model_vs_cpu(fns, params, device) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
                            device=device, dtype=torch.int32)
     counter = flash_attention_call
-    original, seen = attn_mod.flash_attention, []
-
-    def recording(q, k, v, **kw):
-        out = original(q, k, v, **kw)
-        seen.append((q, k, v, kw, out))
-        return out
-
-    def ulps(got, want) -> float:
-        return float((got.float().cpu() - want.float()).abs().max()) \
-            / bf16_ulp(want)
-
+    seen = []
     with torch.no_grad():
         before = counter.launches
         _, logits = fns.prefill(params, {"tokens": tokens})
@@ -1907,12 +2067,10 @@ def model_vs_cpu(fns, params, device) -> dict:
         h_g = lm._embed(params, tokens)
         layer_ulps = []
         for lp_g, lp_c in zip(params["layers"], cpu_params["layers"]):
-            attn_mod.flash_attention = recording
-            try:
+            with recording_b6() as calls:
                 one, _ = lm._block(cfg, 1, h_c.to(device), lp_g,
                                    return_kv=False)
-            finally:
-                attn_mod.flash_attention = original
+            seen += calls
             h_c, _ = lm._block(cfg, 1, h_c, lp_c, return_kv=False)
             h_g, _ = lm._block(cfg, 1, h_g, lp_g, return_kv=False)
             layer_ulps.append(ulps(one, h_c))
@@ -1921,18 +2079,8 @@ def model_vs_cpu(fns, params, device) -> dict:
         all_c = lm._logits(cpu_params, rms_norm(
             h_c, cpu_params["final_norm"], cfg.norm_eps))[0].float()
         t_cpu = time.perf_counter() - t0
-        attn_held = []
-        for i, (q, k, v, kw, out) in enumerate(seen):
-            qf, kf, vf, lkw = kernel_layout(q, k, v, **kw)
-            saved = counter.launches
-            got = counter(qf, kf, vf, **lkw)
-            counter.launches = saved
-            if not torch.equal(out, got.reshape(
-                    q.shape[0], q.shape[2], -1, q.shape[3]).transpose(
-                        1, 2)[:, :q.shape[1]]):
-                fail(f"B6 in layer {i}: the model's call and a repeat differ")
-            attn_held.append(hold_b6_bf16(f"B6 in layer {i}", got, qf, kf,
-                                          vf, lkw))
+        attn_held = [hold_recorded_b6(call, f"B6 in layer {i}")
+                     for i, call in enumerate(seen)]
     if launches != cfg.n_layers or len(seen) != cfg.n_layers:
         fail(f"card prefill: {launches} B6 launches, {len(seen)} attention "
              f"calls layer by layer, expected {cfg.n_layers}")
@@ -2024,8 +2172,6 @@ def moe_vs_cpu(fns, params, device) -> list:
       same dispatched slots exactly, outputs within ``MOE_INDEX_ULPS``.
     Returns each layer's readings."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
-    from repro_torch.kernels.flash_attn.ops import kernel_layout
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm, moe
     from repro_torch.tree import tree_map
 
@@ -2035,13 +2181,8 @@ def moe_vs_cpu(fns, params, device) -> list:
     tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
                            device=device, dtype=torch.int32)
     counter = flash_attention_call
-    original_attn, original_moe = attn_mod.flash_attention, lm.moe_block
+    original_moe = lm.moe_block
     seen = {"attn": [], "moe": []}
-
-    def recording_attn(q, k, v, **kw):
-        out = original_attn(q, k, v, **kw)
-        seen["attn"].append((q, k, v, kw, out))
-        return out
 
     def recording_moe(p, x, **kw):
         y, aux = original_moe(p, x, **kw)
@@ -2049,12 +2190,13 @@ def moe_vs_cpu(fns, params, device) -> list:
         return y, aux
 
     def step(h, lp):
-        attn_mod.flash_attention, lm.moe_block = recording_attn, recording_moe
+        lm.moe_block = recording_moe
         try:
-            out, _ = lm._block(cfg, 1, h, lp, return_kv=False)
+            with recording_b6() as calls:
+                out, _ = lm._block(cfg, 1, h, lp, return_kv=False)
         finally:
-            attn_mod.flash_attention, lm.moe_block = original_attn, \
-                original_moe
+            lm.moe_block = original_moe
+        seen["attn"] += calls
         return out
 
     def routing(p, x, kw):
@@ -2096,18 +2238,8 @@ def moe_vs_cpu(fns, params, device) -> list:
                 fail(f"{MOE_ARCH} layer {i}: one step {layer_ulps:g} bf16 "
                      f"ulps off at the alike tokens (limit {LM_LAYER_ULPS})")
             # B6 on the layer's own q, k, v
-            q, k, v, akw, out = seen["attn"][0]
-            qf, kf, vf, lkw = kernel_layout(q, k, v, **akw)
-            saved = counter.launches
-            b6 = counter(qf, kf, vf, **lkw)
-            counter.launches = saved
-            if not torch.equal(out, b6.reshape(
-                    q.shape[0], q.shape[2], -1, q.shape[3]).transpose(
-                        1, 2)[:, :q.shape[1]]):
-                fail(f"B6 in {MOE_ARCH} layer {i}: the model's call and a "
-                     f"repeat differ")
-            held = hold_b6_bf16(f"B6 in {MOE_ARCH} layer {i}", b6, qf, kf,
-                                vf, lkw)
+            held = hold_recorded_b6(seen["attn"][0],
+                                    f"B6 in {MOE_ARCH} layer {i}")
             # the index dispatch against the dense one-hot, on the card
             dense = moe.dense_combine(r_g, n_exp) > 0
             cap = r_g.capacity
@@ -2164,55 +2296,52 @@ def ssm_phase() -> tuple:
     return total, reports
 
 
-def ssm_vs_cpu(fns, params, device, layers: list, n_tokens: int) -> list:
-    """Phase 4g, the SSM and hybrid layers on the card against a CPU copy
-    of their bf16 params: one request of ``n_tokens`` at full width, each
-    of ``layers`` one step from the CPU chain's input, then 4 decode steps
-    of those layers (the same embedded tokens on both sides, each side
-    continuing its own cache).
+def layers_vs_cpu(fns, params, device, layers: list, n_tokens: int) -> list:
+    """Phases 4g and 4h, a decoder-only LM's layers on the card against a
+    CPU copy of their bf16 params (the SSM, hybrid and VLM families): one
+    request of ``n_tokens`` at full width, each of ``layers`` one step from
+    the CPU chain's input, then 4 decode steps of those layers (the same
+    embedded tokens on both sides, each side continuing its own cache).  A
+    VLM's input is the launcher's prefix embeddings over the prompt's
+    first positions, checked bit for bit on the card.
 
     * The block's output within ``LM_LAYER_ULPS`` bf16 ulps of its largest
       magnitude, at prefill and at each decode step;
     * the mixer's f32 state within ``SSM_STATE_RTOL`` of its largest
       magnitude, and its bf16 conv tails within ``LM_LAYER_ULPS`` ulps,
       after prefill and after each step;
-    * a hybrid layer's B6 on the layer's own q, k, v: ``hold_b6_bf16``,
-      and its ring-aligned K and V within ``LM_LAYER_ULPS`` ulps.
+    * an attention layer's B6 on the layer's own q, k, v
+      (``hold_recorded_b6``), and its K and V (a hybrid's ring-aligned)
+      within ``LM_LAYER_ULPS`` ulps.
     Returns each layer's readings."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
-    from repro_torch.kernels.flash_attn.ops import kernel_layout
-    from repro_torch.models import attention as attn_mod
+    from repro_torch.launch.serve import token_batch
     from repro_torch.models import lm
+    from repro_torch.models.common import COMPUTE
     from repro_torch.tree import tree_map
 
     cfg = fns.cfg
     flags = lm.global_flags(cfg)
+    mixer = cfg.family in ("ssm", "hybrid")
     gen = torch.Generator(device=device).manual_seed(4)
-    tokens = torch.randint(0, cfg.vocab_size, (1, n_tokens + 4),
-                           generator=gen, device=device, dtype=torch.int32)
+    batch = token_batch(cfg, 1, n_tokens + 4, gen, device)
+    tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
     counter = flash_attention_call
-    original, seen = attn_mod.flash_attention, []
-
-    def recording(q, k, v, **kw):
-        out = original(q, k, v, **kw)
-        seen.append((q, k, v, kw, out))
-        return out
-
-    def ulps(got, want) -> float:
-        return float((got.float().cpu() - want.float()).abs().max()) \
-            / bf16_ulp(want)
 
     def hold_cache(what, got, want) -> dict:
-        mixer_g, mixer_c = (c if cfg.family == "ssm" else c["ssm"]
-                            for c in (got, want))
-        state = float((mixer_g.state.cpu() - mixer_c.state).abs().max()
-                      / mixer_c.state.abs().max())
-        r = {"state_rel": state, "tail_ulps": max(
-            ulps(getattr(mixer_g, f), getattr(mixer_c, f))
-            for f in ("conv_x", "conv_B", "conv_C"))}
-        if cfg.family == "hybrid":
+        r = {}
+        if mixer:
+            mixer_g, mixer_c = (c if cfg.family == "ssm" else c["ssm"]
+                                for c in (got, want))
+            r["state_rel"] = float(
+                (mixer_g.state.cpu() - mixer_c.state).abs().max()
+                / mixer_c.state.abs().max())
+            r["tail_ulps"] = max(ulps(getattr(mixer_g, f),
+                                      getattr(mixer_c, f))
+                                 for f in ("conv_x", "conv_B", "conv_C"))
+        if cfg.family != "ssm":
             r["kv_ulps"] = max(ulps(got[n], want[n]) for n in ("k", "v"))
-        if state > SSM_STATE_RTOL or max(
+        if r.get("state_rel", 0.0) > SSM_STATE_RTOL or max(
                 v for k, v in r.items() if k != "state_rel") > LM_LAYER_ULPS:
             fail(f"{cfg.name} {what}, card vs CPU: {r} (limits: state "
                  f"{SSM_STATE_RTOL}, {LM_LAYER_ULPS} ulps)")
@@ -2220,26 +2349,31 @@ def ssm_vs_cpu(fns, params, device, layers: list, n_tokens: int) -> list:
 
     readings = []
     with torch.no_grad():
-        h_c = lm._embed(params, tokens[:, :n_tokens]).cpu()
+        h_g = lm._embed(params, tokens[:, :n_tokens], prefix)
+        if prefix is not None:  # the prefix in place of the first tokens
+            n_pre = prefix.shape[1]
+            if not (torch.equal(h_g[:, :n_pre], prefix.to(COMPUTE))
+                    and torch.equal(h_g[:, n_pre:], lm._embed(
+                        params, tokens[:, n_pre:n_tokens]))):
+                fail(f"{cfg.name}: the prefix embeddings did not overwrite "
+                     f"the first {n_pre} positions")
+        h_c = h_g.cpu()
+        del h_g
         steps_in = lm._embed(params, tokens[:, n_tokens:]).cpu()  # (1, 4, d)
         for i in layers:
             lp_g = params["layers"][i]
             lp_c = tree_map(lambda t: t.cpu(), lp_g)
             g = flags[i]
-            seen.clear()
             before = counter.launches
-            attn_mod.flash_attention = recording
-            try:
+            with recording_b6() as calls:
                 one, kv_g = lm._block(cfg, 1, h_c.to(device), lp_g,
                                       return_kv=True, is_global=g)
-            finally:
-                attn_mod.flash_attention = original
             torch.cuda.synchronize()
             launches = counter.launches - before
             nxt, kv_c = lm._block(cfg, 1, h_c, lp_c, return_kv=True,
                                   is_global=g)
             want_launches = 0 if cfg.family == "ssm" else 1
-            if launches != want_launches:
+            if launches != want_launches or len(calls) != want_launches:
                 fail(f"{cfg.name} layer {i}: {launches} B6 launches, "
                      f"expected {want_launches}")
             r = {"layer": i, "global": g, "layer_ulps": ulps(one, nxt)}
@@ -2247,20 +2381,11 @@ def ssm_vs_cpu(fns, params, device, layers: list, n_tokens: int) -> list:
                 fail(f"{cfg.name} layer {i}, card vs CPU: one step "
                      f"{r['layer_ulps']:g} bf16 ulps off (limit "
                      f"{LM_LAYER_ULPS})")
-            if seen:  # B6 on the layer's own q, k, v
-                q, k, v, akw, out = seen[0]
-                qf, kf, vf, lkw = kernel_layout(q, k, v, **akw)
-                saved = counter.launches
-                b6 = counter(qf, kf, vf, **lkw)
-                counter.launches = saved
-                if not torch.equal(out, b6.reshape(
-                        q.shape[0], q.shape[2], -1, q.shape[3]).transpose(
-                            1, 2)[:, :q.shape[1]]):
-                    fail(f"B6 in {cfg.name} layer {i}: the model's call and "
-                         f"a repeat differ")
-                r["b6"] = hold_b6_bf16(f"B6 in {cfg.name} layer {i} (window "
-                                       f"{akw.get('window')})", b6, qf, kf,
-                                       vf, lkw)
+            if calls:  # B6 on the layer's own q, k, v
+                r["b6"] = hold_recorded_b6(
+                    calls[0], f"B6 in {cfg.name} layer {i} (window "
+                    f"{calls[0][3].get('window')})")
+            del calls
             cache_g = lm.layer_cache(cfg, kv_g, g, n_tokens)
             cache_c = lm.layer_cache(cfg, kv_c, g, n_tokens)
             r["prefill"] = hold_cache(f"layer {i} after prefill", cache_g,
@@ -2280,8 +2405,8 @@ def ssm_vs_cpu(fns, params, device, layers: list, n_tokens: int) -> list:
                      f"{r['decode_ulps']} bf16 ulps off (limit "
                      f"{LM_LAYER_ULPS})")
             b6 = r.get("b6")
-            kind = ("global" if g else "window") if cfg.family == "hybrid" \
-                else "mixer"
+            kind = {"hybrid": "global" if g else "window", "ssm": "mixer"}.get(
+                cfg.family, "attention")
             log(f"{cfg.name} layer {i} ({kind}), 1 x "
                 f"{n_tokens} tokens, card vs CPU copy: one step within "
                 f"{r['layer_ulps']:g} bf16 ulps (limit {LM_LAYER_ULPS}); "
@@ -2351,6 +2476,148 @@ def serve_batch_example() -> dict:
     log("examples/torch_serve_batch.py: token_report " + json.dumps(
         {k: v for k, v in rep.items() if k != "tokens"}))
     return rep
+
+
+def encdec_vs_cpu(fns, params, device) -> list:
+    """Phase 4h, seamless-m4t-large-v2's first two encoder and decoder layers
+    on the card against a CPU copy of their bf16 params, on one request of
+    the serving shape (2,048 decoder tokens beside 512 frames), each layer
+    one step from the CPU chain's input.
+
+    * Encoder layers: the block's output within ``LM_LAYER_ULPS`` bf16 ulps
+      of its largest magnitude, and B6 (unmasked, S 512) on the layer's own
+      q, k, v (``hold_recorded_b6``).
+    * Decoder layers, both sides over the card's encoder output (all 24
+      layers and the final norm): the block's output, its self-attention
+      K/V and its cross K/V (projected from the encoder output) within
+      ``LM_LAYER_ULPS`` ulps; B6 on the self-attention's (causal, S 2,048)
+      and the cross-attention's (2,048 queries unmasked over 512 keys) own
+      q, k, v.
+    * 4 decode steps of those decoder layers (the same embedded tokens on
+      both sides, each continuing its own cache): outputs and self K/V
+      within ``LM_LAYER_ULPS`` ulps, the cross K/V untouched.
+    Returns each layer's readings."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+    from repro_torch.launch.serve import token_batch
+    from repro_torch.models import encdec
+    from repro_torch.models.common import COMPUTE
+    from repro_torch.tree import tree_map
+
+    cfg, n = fns.cfg, 2048
+    gen = torch.Generator(device=device).manual_seed(4)
+    batch = token_batch(cfg, 1, n, gen, device)
+    steps = torch.randint(0, cfg.vocab_size, (1, 4), generator=gen,
+                          device=device, dtype=torch.int32)
+    counter = flash_attention_call
+    readings = []
+
+    def step(what, block, lp_g, h_c, *extra):
+        """One layer on the card (B6 recorded) and on the CPU copy."""
+        lp_c = tree_map(lambda t: t.cpu(), lp_g)
+        before = counter.launches
+        with recording_b6() as calls:
+            one = block(h_c.to(device), lp_g, *(e[0] for e in extra))
+        torch.cuda.synchronize()
+        launches = counter.launches - before
+        nxt = block(h_c, lp_c, *(e[1] for e in extra))
+        held = [hold_recorded_b6(c, f"B6 in {cfg.name} {what} ({kind})")
+                for c, kind in zip(calls, ("self", "cross"))]
+        if launches != len(calls):
+            fail(f"{cfg.name} {what}: {launches} B6 launches for "
+                 f"{len(calls)} attention calls")
+        return one, nxt, lp_c, held, launches
+
+    with torch.no_grad():
+        h_c = batch["frames"].to(COMPUTE).cpu()
+        for i in (0, 1):
+            one, nxt, _, held, launches = step(
+                f"encoder layer {i}", lambda h, lp: encdec._enc_block(
+                    cfg, 1, h, lp), params["enc"]["layers"][i], h_c)
+            r = {"layer": f"enc {i}", "layer_ulps": ulps(one, nxt),
+                 "b6": held}
+            if launches != 1 or r["layer_ulps"] > LM_LAYER_ULPS:
+                fail(f"{cfg.name} encoder layer {i}, card vs CPU: {r} "
+                     f"({launches} B6 launches; limit {LM_LAYER_ULPS} ulps)")
+            readings.append(r)
+            h_c = nxt
+        enc_g = encdec.encode(cfg, 1, params, batch["frames"])
+        enc = (enc_g, enc_g.cpu())
+        h_c = encdec._embed(params, batch["tokens"]).cpu()
+        steps_in = encdec._embed(params, steps).cpu()  # (1, 4, d)
+        for i in (0, 1):
+            lp_g = params["dec"]["layers"][i]
+            (one, kv_g), (nxt, kv_c), lp_c, held, launches = step(
+                f"decoder layer {i}", lambda h, lp, e: encdec._dec_block(
+                    cfg, 1, h, lp, e, return_kv=True), lp_g, h_c, enc)
+            layer_g, layer_c = ({"k": k.to(COMPUTE), "v": v.to(COMPUTE),
+                                 "cross_k": ck.to(COMPUTE),
+                                 "cross_v": cv.to(COMPUTE)}
+                                for (k, v), (ck, cv) in (kv_g, kv_c))
+            cross = {name: layer_g[name].clone()
+                     for name in ("cross_k", "cross_v")}
+            r = {"layer": f"dec {i}", "layer_ulps": ulps(one, nxt),
+                 "cache_ulps": {name: ulps(layer_g[name], layer_c[name])
+                                for name in layer_g},
+                 "b6": held, "decode_ulps": [], "decode_kv_ulps": []}
+            for t in range(4):
+                h1 = steps_in[:, t]
+                y_g = encdec._decode_block(cfg, 1, h1.to(device), lp_g,
+                                           layer_g, n + t)
+                y_c = encdec._decode_block(cfg, 1, h1, lp_c, layer_c, n + t)
+                r["decode_ulps"].append(ulps(y_g, y_c))
+                r["decode_kv_ulps"].append(max(
+                    ulps(layer_g[name], layer_c[name]) for name in ("k", "v")))
+            worst = max(r["layer_ulps"], *r["cache_ulps"].values(),
+                        *r["decode_ulps"], *r["decode_kv_ulps"])
+            if launches != 2 or worst > LM_LAYER_ULPS or not all(
+                    torch.equal(layer_g[name], t)
+                    for name, t in cross.items()):
+                fail(f"{cfg.name} decoder layer {i}, card vs CPU: "
+                     f"{launches} B6 launches (expected 2), worst {worst} "
+                     f"bf16 ulps (limit {LM_LAYER_ULPS}), cross cache "
+                     f"untouched by decode: readings {r}")
+            readings.append(r)
+            h_c = nxt
+    for r in readings:
+        log(f"{cfg.name} {r['layer']}, 1 x {n} tokens beside "
+            f"{batch['frames'].shape[1]} frames, card vs CPU copy: "
+            + json.dumps({k: v for k, v in r.items() if k != "layer"}))
+    return readings
+
+
+def encdec_vlm_phase(device) -> tuple:
+    """Phase 4h: seamless-m4t-large-v2 (24 encoder and 24 decoder layers)
+    at full width through the launcher, twice (8 requests of 2,048-token
+    prompts beside 512 frames, 32 tokens: 144 B6 launches a run), its first
+    layers against a CPU copy (``encdec_vs_cpu``) and its breakdown; then
+    llava-next-34b at full width (all 60 layers, 64.05 GiB of bf16
+    weights: nothing else may be alive on the card) through the launcher
+    once (4 requests of 3,072 tokens, the first 2,880 positions its prefix
+    embeddings: 120 B6 launches), its first two layers against a CPU copy
+    on 1 x 3,072 tokens (``layers_vs_cpu``) and its breakdown.  Returns
+    (B6's launches, the reports)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+
+    n_ed, reports = token_runs(
+        ENCDEC_ARCH, get_config(ENCDEC_ARCH),
+        lambda: launcher.main(launcher_argv(ENCDEC_ARCH)), 2)
+    fns, params = lm_model(device, ENCDEC_ARCH)
+    encdec_vs_cpu(fns, params, device)
+    lm_breakdown(fns, params, device)
+    del params
+    free_device()
+    n_vlm, vlm_reports = token_runs(
+        VLM_ARCH, get_config(VLM_ARCH),
+        lambda: launcher.main(launcher_argv(VLM_ARCH, 4, VLM_PROMPT)), 1,
+        requests=4)
+    free_device()
+    fns, params = lm_model(device, VLM_ARCH)
+    layers_vs_cpu(fns, params, device, [0, 1], VLM_PROMPT)
+    lm_breakdown(fns, params, device, 4, VLM_PROMPT)
+    del params
+    free_device()
+    return n_ed + n_vlm, reports + vlm_reports
 
 
 def main() -> int:
@@ -2429,9 +2696,9 @@ def main() -> int:
     n_ssm, ssm_reports = ssm_phase()
     launches["flash_attn"] += n_ssm
     ssm_fns, ssm_params = lm_model(device, SSM_ARCH)
-    ssm_vs_cpu(ssm_fns, ssm_params, device, [0, 1], 600)
+    layers_vs_cpu(ssm_fns, ssm_params, device, [0, 1], 600)
     hyb_fns, hyb_params = lm_model(device, HYBRID_ARCH)
-    ssm_vs_cpu(hyb_fns, hyb_params, device, [0, 1], 1152)
+    layers_vs_cpu(hyb_fns, hyb_params, device, [0, 1], 1152)
     scan = ssd_time(ssm_fns, device)
     serve_batch_example()
     log(f"SSM and hybrid phase (4g): {time.perf_counter() - t_ssm:.1f} s")
@@ -2456,6 +2723,12 @@ def main() -> int:
         f"(share ~{scan['ms'] / busy:.2f})")
     lm_breakdown(hyb_fns, hyb_params, device)
     del ssm_params, hyb_params
+    free_device()
+    t_4h = time.perf_counter()
+    n_4h, encdec_vlm_reports = encdec_vlm_phase(device)
+    flash_row["launches"] += n_4h
+    log(f"encoder-decoder and VLM phase (4h): "
+        f"{time.perf_counter() - t_4h:.1f} s")
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "
@@ -2486,8 +2759,7 @@ def main() -> int:
                     f"{b['ms']:.6f} ms on the device, {b['cluster']} SMs' "
                     f"bound {b['bound_c_sms_ms']:.6f} ms" if "ms" in b
                     else f"not launched: {b['refused']}"))
-        for d in (r[k] for k in ("dh128", "deepseek", "hymba_window",
-                                 "hymba_global") if k in r):
+        for d in (r[k] for k in B6_SHAPES if k in r):
             log(f"time {r['name']} ({d['shape']}): {d['ms']:.6f} ms on the "
                 f"device, {d['wall_ms']:.6f} ms per call, plain "
                 f"{d['plain_ms']:.6f} ms, bound {d['bound_ms']:.6f} ms "
@@ -2495,7 +2767,8 @@ def main() -> int:
                 f"[{smi}]")
     for rep in reports:
         log(f"train_run {json.dumps(rep)}")
-    for rep in token_reports + moe_reports + ssm_reports:
+    for rep in token_reports + moe_reports + ssm_reports + \
+            encdec_vlm_reports:
         log("token_run " + json.dumps(
             {k: v for k, v in rep.items() if k != "tokens"}))
     log("chaos_run " + json.dumps(chaos))

@@ -1,23 +1,22 @@
 """Architecture configs of the port: the two MRF nets and the dense, MoE,
-SSM (mamba2) and hybrid (hymba) LM families.  The encoder-decoder and VLM
-families arrive with later slices."""
+SSM (mamba2), hybrid (hymba), encoder-decoder (seamless) and VLM (llava)
+LM families — every arch of the reference."""
 from repro_torch.configs import (deepseek_moe_16b, granite_8b, hymba_1_5b,
-                                 mamba2_1_3b, minitron_8b, mrf_fpga,
-                                 mrf_original, phi35_moe_42b, qwen2_5_14b,
+                                 llava_next_34b, mamba2_1_3b, minitron_8b,
+                                 mrf_fpga, mrf_original, phi35_moe_42b,
+                                 qwen2_5_14b, seamless_m4t_large_v2,
                                  tinyllama_1_1b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS = {m.CONFIG.name: m for m in (
     phi35_moe_42b, deepseek_moe_16b, tinyllama_1_1b, granite_8b,
-    qwen2_5_14b, minitron_8b, mamba2_1_3b, hymba_1_5b, mrf_fpga,
-    mrf_original)}
+    qwen2_5_14b, minitron_8b, mamba2_1_3b, hymba_1_5b,
+    seamless_m4t_large_v2, llava_next_34b, mrf_fpga, mrf_original)}
 
 
 def _module(name: str):
     if name not in ARCHS:
-        raise KeyError(f"arch {name!r} is not in the port yet (its family "
-                       f"arrives with a later slice, ROADMAP.md §A); known: "
-                       f"{sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
 
 

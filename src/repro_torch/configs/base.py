@@ -1,10 +1,9 @@
 """Model configuration schema (counterpart of ``repro.configs.base``): the
 ``ModelConfig`` fields that the ``mrf``, ``dense``, ``moe``, ``ssm``
-(mamba2) and ``hybrid`` (hymba) families read.
+(mamba2), ``hybrid`` (hymba), ``encdec`` (seamless) and ``vlm`` (llava)
+families read.
 
-The other LM families (``encdec``, ``vlm``) are not ported yet:
-``validate`` refuses them (ROADMAP.md §A).  Sharding is not ported either,
-so the tensor-parallel degree ``tp`` must be 1.
+Sharding is not ported, so the tensor-parallel degree ``tp`` must be 1.
 """
 
 from __future__ import annotations
@@ -12,7 +11,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
-PORTED_FAMILIES = ("mrf", "dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("mrf", "dense", "moe", "ssm", "hybrid", "encdec",
+                   "vlm")
 
 
 def _check_tp(tp: int) -> None:
@@ -52,6 +52,10 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_chunk: int = 256
     global_layer_every: int = 0  # hybrid: every k-th layer attends globally
+    # --- encoder-decoder (family == "encdec") ---
+    n_enc_layers: int = 0     # bidirectional encoder layers over the frames
+    # --- multimodal stub frontend (family == "vlm") ---
+    n_prefix_embeds: int = 0  # precomputed patch embeddings before the text
     # --- MRF reconstruction nets (family == "mrf") ---
     mrf_n_frames: int = 0     # fingerprint frames; input dim = 2 * frames
     mrf_hidden: tuple = ()    # hidden widths ((T1, T2) head appended)
@@ -81,9 +85,8 @@ class ModelConfig:
 
     def validate(self):
         if self.family not in PORTED_FAMILIES:
-            raise ValueError(
-                f"{self.name}: family {self.family!r} is not ported yet; "
-                f"the port has {PORTED_FAMILIES} (see ROADMAP.md §A)")
+            raise ValueError(f"{self.name}: unknown family {self.family!r}; "
+                             f"the port has {PORTED_FAMILIES}")
         if self.family == "mrf":
             if self.mrf_n_frames <= 0 or not self.mrf_hidden:
                 raise ValueError(f"{self.name}: mrf configs need frames and "
@@ -123,10 +126,12 @@ class ModelConfig:
 
 def param_count(cfg: ModelConfig) -> int:
     """Analytic parameter count, tp=1: the reference's ``param_count``.
-    Exact for the port's dense and MoE models.  For ``ssm`` and ``hybrid``
-    it leaves out the conv taps, ``CONV_TAPS * (d_inner + 2 * ssm_state)``
-    a layer, and for ``ssm`` it counts two RMSNorm gains a layer where the
-    layer holds one, as the reference does."""
+    Exact for the port's dense, MoE, VLM and encoder-decoder models (a
+    decoder layer holds three RMSNorm gains, an encoder layer two).  For
+    ``ssm`` and ``hybrid`` it leaves out the conv taps, ``CONV_TAPS *
+    (d_inner + 2 * ssm_state)`` a layer, and for ``ssm`` it counts two
+    RMSNorm gains a layer where the layer holds one, as the reference
+    does."""
     if cfg.family == "mrf":
         sizes = (2 * cfg.mrf_n_frames, *cfg.mrf_hidden, 2)
         return sum(i * o + o for i, o in zip(sizes[:-1], sizes[1:]))
@@ -139,6 +144,11 @@ def param_count(cfg: ModelConfig) -> int:
     di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     # in projections x, z, B, C, dt; out projection; A, D, dt_bias; gate norm
     ssm = d * (2 * di + 2 * ns + nh) + di * d + 3 * nh + di
+    if cfg.family == "encdec":
+        dec = 2 * attn + ffn + 3 * d  # self- and cross-attention
+        enc = attn + ffn + 2 * d
+        return (cfg.vocab_size * d * 2 + cfg.n_layers * dec
+                + cfg.n_enc_layers * enc + 2 * d)
     if cfg.family == "ssm":
         per_layer = 2 * d + ssm
     elif cfg.family == "hybrid":

@@ -1,6 +1,7 @@
 """Reduced same-family smoke variants of the LM configs: tiny widths, two
 layers, small vocab, few experts, a small SSM state and chunk, a window of
-8 (counterpart of ``repro.configs.smoke``, field for field)."""
+8, two encoder layers, 8 prefix embeddings (counterpart of
+``repro.configs.smoke``, field for field)."""
 
 from __future__ import annotations
 
@@ -23,4 +24,8 @@ def smoke_of(cfg: ModelConfig) -> ModelConfig:
         kw.update(swa_window=8)
     if cfg.global_layer_every:
         kw.update(global_layer_every=2)
+    if cfg.n_enc_layers:
+        kw.update(n_enc_layers=2)
+    if cfg.n_prefix_embeds:
+        kw.update(n_prefix_embeds=8)
     return dataclasses.replace(cfg, **kw).validate()

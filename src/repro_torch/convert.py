@@ -90,16 +90,37 @@ def lm_params_from_numpy(params, device="cuda") -> dict:
     d), shared: (w_gate, w_in, w_out) | None), "ssm": (wx, wz, wB, wC, wdt,
     dt_bias, A_log, D, conv_x, conv_B, conv_C, gate_norm, wo)},
     "final_norm", "head"}`` with the layer leaves stacked on L (an SSM
-    layer has no ``attn``, ``ln2`` or ``mlp``) — -> the port's params
-    (``models.lm``): fp32, same values, same ``(in, out)`` layout, one dict
-    per layer."""
+    layer has no ``attn``, ``ln2`` or ``mlp``; a VLM's are dense), or the
+    encoder-decoder's ``{"enc": {"layers", "norm"}, "dec": {"embed",
+    "layers", "norm"}, "head"}`` (a decoder layer adds ``ln_cross`` and
+    ``cross``, attention params as ``attn``) — -> the port's params
+    (``models.lm``, ``models.encdec``): fp32, same values, same ``(in,
+    out)`` layout, one dict per layer."""
     dev = resolve_device(device)
 
     def t(arr):
         return None if arr is None else torch.from_numpy(
             np.array(arr, np.float32)).to(dev)
 
-    layers = params["layers"]
+    if "enc" in params:
+        enc, dec = params["enc"], params["dec"]
+        return {"enc": {"layers": _layers_from_numpy(enc["layers"], t),
+                        "norm": t(enc["norm"])},
+                "dec": {"embed": t(dec["embed"]),
+                        "layers": _layers_from_numpy(dec["layers"], t),
+                        "norm": t(dec["norm"])},
+                "head": t(params["head"])}
+    return {
+        "embed": t(params["embed"]),
+        "layers": _layers_from_numpy(params["layers"], t),
+        "final_norm": t(params["final_norm"]),
+        "head": t(params["head"]),
+    }
+
+
+def _layers_from_numpy(layers, t) -> list:
+    """Layer leaves stacked on L (numpy) -> one dict of tensors (``t``) per
+    layer."""
     n_layers = np.asarray(layers["ln1"]).shape[0]
 
     def at(arr, i):
@@ -109,12 +130,18 @@ def lm_params_from_numpy(params, device="cuda") -> dict:
         return None if mlp is None else MlpParams(
             *(at(_part(mlp, f), i) for f in MlpParams._fields))
 
+    def attn_at(name, i):
+        return AttentionParams(*(at(_part(layers[name], f), i)
+                                 for f in AttentionParams._fields))
+
     def layer(i):
         out = {"ln1": at(layers["ln1"], i)}
         if "attn" in layers:
             out["ln2"] = at(layers["ln2"], i)
-            out["attn"] = AttentionParams(*(at(_part(layers["attn"], f), i)
-                                            for f in AttentionParams._fields))
+            out["attn"] = attn_at("attn", i)
+        if "cross" in layers:
+            out["ln_cross"] = at(layers["ln_cross"], i)
+            out["cross"] = attn_at("cross", i)
         if "moe" in layers:
             moe = layers["moe"]
             out["moe"] = MoeParams(
@@ -127,9 +154,4 @@ def lm_params_from_numpy(params, device="cuda") -> dict:
                                         for f in Mamba2Params._fields))
         return out
 
-    return {
-        "embed": t(params["embed"]),
-        "layers": [layer(i) for i in range(n_layers)],
-        "final_norm": t(params["final_norm"]),
-        "head": t(params["head"]),
-    }
+    return [layer(i) for i in range(n_layers)]

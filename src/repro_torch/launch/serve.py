@@ -1,6 +1,6 @@
 """Serving launcher of the port (counterpart of ``repro.launch.serve``): the
-LM families' token serving (dense, MoE, SSM and hybrid) and the MRF
-reconstruction family.
+LM families' token serving (dense, MoE, SSM, hybrid, encoder-decoder and
+VLM) and the MRF reconstruction family.
 
 Token serving: ``python -m repro_torch.launch.serve --arch tinyllama-1.1b
 --requests 8 --prompt-len 2048 --gen-len 32`` initialises the model from a
@@ -18,6 +18,14 @@ it: nothing is padded.  ``--arch mamba2-1.3b`` (SSM: no attention, so no
 B6 launch) and ``--arch hymba-1.5b`` (hybrid: B6 and the mamba2 mixer side
 by side, windows of 1,024 on all but three layers) keep an SSM state and
 conv tails per layer; their prompts need at least 3 tokens.
+``--arch seamless-m4t-large-v2`` (encoder-decoder) takes a request's
+``enc_len_for(prompt-len)`` frames beside its prompt, and
+``--arch llava-next-34b`` (VLM) its ``n_prefix_embeds`` patch embeddings
+in place of the prompt's first tokens (a shorter prompt is refused before
+the weights are made); both are ``0.02 * N(0, 1)`` in bf16 from the
+launcher's seeded generator, as the reference's launcher makes them (the
+speech and vision frontends are stubs there too).  B6 runs the encoder's
+attention, the decoder's self- and cross-attention and llava's.
 
 ``python -m repro_torch.launch.serve --arch mrf-fpga --backend int8`` QAT-
 trains a net through the port's engine (600 steps, 60 with ``--smoke``, or
@@ -144,11 +152,33 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def token_batch(cfg, b: int, s: int, generator, device) -> dict:
+    """A prefill batch of ``b`` random prompts of ``s`` tokens from
+    ``generator``, with an encoder-decoder's frames (B, enc_len_for(s), d)
+    or a VLM's prefix embeddings (B, n_prefix_embeds, d): ``0.02 * N(0,
+    1)`` in bf16, as the reference's launcher makes them."""
+    from repro_torch.models.common import COMPUTE
+    from repro_torch.models.encdec import enc_len_for
+
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=generator, device=device,
+                                     dtype=torch.int32)}
+    extra = {"encdec": ("frames", enc_len_for(s)),
+             "vlm": ("prefix_embeds", cfg.n_prefix_embeds)}.get(cfg.family)
+    if extra:
+        name, n = extra
+        batch[name] = 0.02 * torch.randn((b, n, cfg.d_model),
+                                         generator=generator, device=device,
+                                         dtype=COMPUTE)
+    return batch
+
+
 def serve_tokens(args, cfg) -> int:
     """Batched prefill + lockstep greedy decode for the LM families."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
     from repro_torch.models import registry
     from repro_torch.models.common import COMPUTE
+    from repro_torch.models.lm import check_prefix_len
     from repro_torch.models.ssm import check_prompt_len
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
@@ -159,6 +189,8 @@ def serve_tokens(args, cfg) -> int:
         group_of(args.requests)
     if cfg.family in ("ssm", "hybrid"):  # decode extends the conv tails
         check_prompt_len(args.prompt_len)
+    if cfg.family == "vlm":  # the prefix overwrites the first positions
+        check_prefix_len(cfg.n_prefix_embeds, args.prompt_len)
     device = resolve_device(args.device)
     if device.type == "cuda":
         disable_tf32()
@@ -171,8 +203,7 @@ def serve_tokens(args, cfg) -> int:
 
     b, s = args.requests, args.prompt_len
     gen = torch.Generator(device=device).manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                                     device=device, dtype=torch.int32)}
+    batch = token_batch(cfg, b, s, gen, device)
     with torch.no_grad():
         # warm-up: first launches (and kernel builds) outside the timed part
         w_cache, w_tok, _ = prefill(params, batch)
@@ -469,8 +500,9 @@ def main(argv=None) -> int:
                     help="a dense LM (tinyllama-1.1b, granite-8b, "
                          "qwen2.5-14b, minitron-8b), an MoE LM "
                          "(deepseek-moe-16b, phi3.5-moe-42b-a6.6b), the SSM "
-                         "LM mamba2-1.3b, the hybrid LM hymba-1.5b or "
-                         "mrf-fpga | mrf-original")
+                         "LM mamba2-1.3b, the hybrid LM hymba-1.5b, the "
+                         "encoder-decoder seamless-m4t-large-v2, the VLM "
+                         "llava-next-34b or mrf-fpga | mrf-original")
     ap.add_argument("--backend", default="int8",
                     help="int8 (full-integer CUDA kernels, the default) or "
                          "float (a float net through the executor)")

@@ -6,7 +6,9 @@ Prefill: :func:`attention` computes what the reference's chunked full
 softmax computes — causal, sliding-window or unmasked GQA attention — on
 B6 (``kernels/flash_attn``): the CUDA kernel on a CUDA tensor, its plain
 version on a CPU tensor.  The reference's banded sliding-window path is not
-needed: B6 skips the kv blocks outside the band.
+needed: B6 skips the kv blocks outside the band.  Cross-attention (the
+encoder-decoder family, ``attn_block(kv_source=...)``) is B6 unmasked over
+the encoder's length, q and k without RoPE.
 
 Decode: :func:`decode_attention` is plain PyTorch, as the reference's is
 XLA einsum and softmax (no Pallas kernel).  The cache is a ring buffer:
@@ -65,19 +67,23 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None):
 
 
 def attn_block(p: AttentionParams, x, *, cfg_heads, rope_theta, causal=True,
-               window=None, positions=None, quant="none", return_kv=False):
-    """x: (B, S, d); cfg_heads = (hq, hkv, dh).  Self-attention only (the
-    cross-attention of the encoder-decoder family is not ported)."""
+               window=None, positions=None, quant="none", return_kv=False,
+               kv_source=None):
+    """x: (B, S, d); cfg_heads = (hq, hkv, dh).  ``kv_source`` (B, Sk, d):
+    the encoder states K and V are projected from, for cross-attention
+    (default x); neither side is rotated then."""
     hq, hkv, dh = cfg_heads
     b, s, _ = x.shape
+    src = x if kv_source is None else kv_source
+    sk = src.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q = dense(x, p.wq, p.bq, quant=quant).reshape(b, s, hq, dh)
-    k = dense(x, p.wk, p.bk, quant=quant).reshape(b, s, hkv, dh)
-    v = dense(x, p.wv, p.bv, quant=quant).reshape(b, s, hkv, dh)
-    if rope_theta:
+    k = dense(src, p.wk, p.bk, quant=quant).reshape(b, sk, hkv, dh)
+    v = dense(src, p.wv, p.bv, quant=quant).reshape(b, sk, hkv, dh)
+    if kv_source is None and rope_theta:
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, torch.arange(s, device=x.device)[None, :],
+        k = apply_rope(k, torch.arange(sk, device=x.device)[None, :],
                        rope_theta)
     out = attention(q, k, v, causal=causal, window=window)
     y = dense(out.reshape(b, s, hq * dh), p.wo, quant=quant)
@@ -116,13 +122,20 @@ def write_cache_slot(cache, new, index: int) -> None:
 
 def decode_attn_block(p: AttentionParams, x1, cache_k, cache_v,
                       cache_len: int, *, cfg_heads, rope_theta, window=0,
-                      quant="none"):
+                      quant="none", cross_kv=None):
     """x1: (B, d) single-token residual at position ``cache_len``; caches
     (B, S, Hkv, dh), written in place at slot ``cache_len mod S``.  Returns
-    (y1, cache_k, cache_v)."""
+    (y1, cache_k, cache_v).  ``cross_kv``: the (k, v) of the encoder
+    states, (B, Se, Hkv, dh) each: cross-attention over all Se of them, q
+    not rotated, the caches returned untouched."""
     hq, hkv, dh = cfg_heads
     b, _ = x1.shape
     q = dense(x1, p.wq, p.bq, quant=quant).reshape(b, hq, dh)
+    if cross_kv is not None:
+        k_cross, v_cross = cross_kv
+        out = decode_attention(q, k_cross, v_cross, k_cross.shape[1])
+        y = dense(out.reshape(b, hq * dh), p.wo, quant=quant)
+        return y, cache_k, cache_v
     k = dense(x1, p.wk, p.bk, quant=quant).reshape(b, hkv, dh)
     v = dense(x1, p.wv, p.bv, quant=quant).reshape(b, hkv, dh)
     if rope_theta:

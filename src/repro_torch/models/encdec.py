@@ -1,0 +1,222 @@
+"""Encoder-decoder backbone (counterpart of ``repro.models.encdec``, the
+seamless-m4t family): a bidirectional encoder over precomputed frame
+embeddings (the speech frontend is a stub, as in the reference), a causal
+decoder with cross-attention to the encoder's output, prefill (the encoder
+pass, each decoder layer's cross K/V built once, the last token's logits)
+and single-token decode against the self-attention cache and the static
+cross cache.
+
+Every prefill attention runs on B6 (``models.attention``): the encoder's
+unmasked self-attention with RoPE, the decoder's causal self-attention with
+RoPE, and its cross-attention, unmasked over the encoder's
+:func:`enc_len_for` frames with neither side rotated.  Decode attention is
+plain PyTorch, as the reference's is XLA.
+
+Params: ``{"enc": {"layers": [{"ln1", "attn", "ln2", "mlp"}, ...], "norm"},
+"dec": {"embed", "layers": [{"ln1", "attn", "ln_cross", "cross", "ln2",
+"mlp"}, ...], "norm"}, "head"}``, fp32 masters or their bf16 copy, the
+reference's ``(in, out)`` layout, one dict per layer
+(``convert.lm_params_from_numpy`` carries the reference's stacked params
+across).  Cache, bf16: ``{"k", "v"}`` (L, B, S, Hkv, dh), the decoder's
+self-attention, as long as the prompt, decode's token t written at slot
+``t mod S`` (the reference's ring, ROADMAP.md §C); ``{"cross_k",
+"cross_v"}`` (L, B, Se, Hkv, dh), the encoder's K/V, never written after
+prefill.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.common import COMPUTE, normal_init, rms_norm
+from repro_torch.models.lm import ModelFns, _heads, _logits, _no_training
+from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.tree import tree_map
+
+TOKENS_PER_FRAME = 4  # the encoder sees a quarter as many frames as tokens
+
+
+def enc_len_for(seq_len: int) -> int:
+    """Encoder frames beside a decoder prompt of ``seq_len`` tokens: a
+    quarter of them, at least 8 (the reference's convention)."""
+    return max(seq_len // TOKENS_PER_FRAME, 8)
+
+
+def _layer_init(cfg: ModelConfig, generator, tp: int, device, *,
+                cross: bool) -> dict:
+    d = cfg.d_model
+    hq, hkv, dh = _heads(cfg, tp)
+    ones = partial(torch.ones, (d,), dtype=torch.float32, device=device)
+
+    def attention():
+        return attn.init_attn(generator, d, hq, hkv, dh, cfg.qkv_bias,
+                              device=device)
+
+    layer = {"ln1": ones(), "attn": attention()}
+    if cross:
+        layer.update(ln_cross=ones(), cross=attention())
+    layer.update(ln2=ones(), mlp=init_mlp(generator, d, cfg.d_ff,
+                                          cfg.gated_mlp, device=device))
+    return layer
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+                tp: int = 1, dtype=torch.float32) -> dict:
+    """Params from a ``torch.Generator`` seeded with ``seed`` on ``device``
+    (raises for CUDA without a card): fp32 masters, or with ``dtype`` their
+    values cast to it layer by layer as they are drawn (``lm.init_params``
+    says why)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, vp = cfg.d_model, cfg.padded_vocab(tp)
+
+    def cast(tree):
+        return tree_map(lambda t: t.to(dtype), tree)
+
+    def stack(n, cross):
+        return [cast(_layer_init(cfg, gen, tp, dev, cross=cross))
+                for _ in range(n)]
+
+    def norm():
+        return torch.ones((d,), dtype=dtype, device=dev)
+
+    enc = stack(cfg.n_enc_layers, False)
+    dec = stack(cfg.n_layers, True)
+    return {"enc": {"layers": enc, "norm": norm()},
+            "dec": {"embed": cast(normal_init(gen, (vp, d), device=dev)),
+                    "layers": dec, "norm": norm()},
+            "head": cast(normal_init(gen, (d, vp), device=dev))}
+
+
+def _enc_block(cfg: ModelConfig, tp: int, h, lp):
+    """One encoder layer over h (B, Se, d): unmasked self-attention with
+    RoPE, then the MLP."""
+    x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    h = h + attn.attn_block(lp["attn"], x, cfg_heads=_heads(cfg, tp),
+                            rope_theta=cfg.rope_theta, causal=False,
+                            quant=cfg.quant)
+    return h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                         quant=cfg.quant)
+
+
+def encode(cfg: ModelConfig, tp: int, params, frames):
+    """The encoder over the frames (B, Se, d), cast to bf16, ending in its
+    RMSNorm: the states every decoder layer's cross K/V are projected
+    from."""
+    h = frames.to(COMPUTE)
+    for lp in params["enc"]["layers"]:
+        h = _enc_block(cfg, tp, h, lp)
+    return rms_norm(h, params["enc"]["norm"], cfg.norm_eps)
+
+
+def _dec_block(cfg: ModelConfig, tp: int, h, lp, enc_out, *,
+               return_kv: bool):
+    """One decoder layer over h (B, S, d): causal self-attention, then
+    cross-attention to ``enc_out`` (B, Se, d), then the MLP.  Returns (h,
+    ((k, v), (cross_k, cross_v)) with ``return_kv``, else None)."""
+    heads = _heads(cfg, tp)
+    x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    a = attn.attn_block(lp["attn"], x, cfg_heads=heads,
+                        rope_theta=cfg.rope_theta, causal=True,
+                        quant=cfg.quant, return_kv=return_kv)
+    a, kv = a if return_kv else (a, None)
+    h = h + a
+    xc = rms_norm(h, lp["ln_cross"], cfg.norm_eps)
+    c = attn.attn_block(lp["cross"], xc, cfg_heads=heads,
+                        rope_theta=cfg.rope_theta, causal=False,
+                        quant=cfg.quant, return_kv=return_kv,
+                        kv_source=enc_out)
+    c, ckv = c if return_kv else (c, None)
+    h = h + c
+    h = h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                      quant=cfg.quant)
+    return h, ((kv, ckv) if return_kv else None)
+
+
+def _embed(params, tokens):
+    return params["dec"]["embed"][tokens].to(COMPUTE)
+
+
+def prefill(cfg: ModelConfig, tp: int, params, batch):
+    """The encoder over ``batch["frames"]`` (B, Se, d), then the decoder over
+    the prompt ``batch["tokens"]`` (B, S); returns (cache, last-token
+    logits (B, V))."""
+    enc_out = encode(cfg, tp, params, batch["frames"])
+    h = _embed(params, batch["tokens"])
+    kvs = []
+    for lp in params["dec"]["layers"]:
+        h, kv = _dec_block(cfg, tp, h, lp, enc_out, return_kv=True)
+        kvs.append(kv)
+    cache = {name: torch.stack([kv[side][j] for kv in kvs]).to(COMPUTE)
+             for name, side, j in (("k", 0, 0), ("v", 0, 1),
+                                   ("cross_k", 1, 0), ("cross_v", 1, 1))}
+    h = rms_norm(h[:, -1, :], params["dec"]["norm"], cfg.norm_eps)
+    return cache, _logits(params, h)
+
+
+def _decode_block(cfg: ModelConfig, tp: int, h1, lp, layer, cache_len: int):
+    """One token (B, d) through one decoder layer; ``layer`` is the layer's
+    ``{"k", "v", "cross_k", "cross_v"}``, its self-attention K/V written in
+    place."""
+    heads = _heads(cfg, tp)
+    x = rms_norm(h1, lp["ln1"], cfg.norm_eps)
+    a, _, _ = attn.decode_attn_block(
+        lp["attn"], x, layer["k"], layer["v"], cache_len, cfg_heads=heads,
+        rope_theta=cfg.rope_theta, quant=cfg.quant)
+    h1 = h1 + a
+    xc = rms_norm(h1, lp["ln_cross"], cfg.norm_eps)
+    c, _, _ = attn.decode_attn_block(
+        lp["cross"], xc, layer["k"], layer["v"], cache_len, cfg_heads=heads,
+        rope_theta=cfg.rope_theta, quant=cfg.quant,
+        cross_kv=(layer["cross_k"], layer["cross_v"]))
+    h1 = h1 + c
+    return h1 + mlp_block(lp["mlp"], rms_norm(h1, lp["ln2"], cfg.norm_eps),
+                          quant=cfg.quant)
+
+
+def decode_token(cfg: ModelConfig, tp: int, params, cache, tokens1,
+                 cache_len: int):
+    """tokens1: (B,) the newly sampled tokens; ``cache_len`` the position
+    they take.  Writes their self-attention K and V into ``cache`` in
+    place; returns (logits (B, V), cache)."""
+    h = _embed(params, tokens1)
+    for i, lp in enumerate(params["dec"]["layers"]):
+        layer = {name: t[i] for name, t in cache.items()}
+        h = _decode_block(cfg, tp, h, lp, layer, cache_len)
+    h = rms_norm(h, params["dec"]["norm"], cfg.norm_eps)
+    return _logits(params, h), cache
+
+
+def init_cache(cfg: ModelConfig, tp: int, batch: int, seq: int, *,
+               device="cuda"):
+    """Zeroed caches for a prompt of ``seq`` tokens: self-attention K/V of
+    ``seq`` slots, cross K/V of ``enc_len_for(seq)``."""
+    dev = resolve_device(device)
+    _, hkv, dh = _heads(cfg, tp)
+
+    def zeros(slots):
+        return torch.zeros((cfg.n_layers, batch, slots, hkv, dh),
+                           dtype=COMPUTE, device=dev)
+
+    se = enc_len_for(seq)
+    return {"k": zeros(seq), "v": zeros(seq), "cross_k": zeros(se),
+            "cross_v": zeros(se)}
+
+
+def build_encdec(cfg: ModelConfig, tp: int = 1) -> ModelFns:
+    cfg.validate()
+    if cfg.family != "encdec":
+        raise ValueError(f"{cfg.name}: family {cfg.family!r}, not encdec")
+    cfg.padded_heads(tp)  # tp must be 1 until sharding is ported
+    return ModelFns(
+        cfg=cfg,
+        init=partial(init_params, cfg, tp=tp),
+        loss=_no_training,
+        prefill=partial(prefill, cfg, tp),
+        decode=partial(decode_token, cfg, tp),
+        init_cache=partial(init_cache, cfg, tp))

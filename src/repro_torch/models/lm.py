@@ -1,7 +1,8 @@
-"""Decoder-only LM assembly for the dense, MoE, SSM (mamba2) and hybrid
-(hymba) families (counterpart of ``repro.models.lm``): init, prefill and
-single-token decode, and :class:`ModelFns`, the bundle of model functions
-every family builds.
+"""Decoder-only LM assembly for the dense, MoE, SSM (mamba2), hybrid
+(hymba) and VLM (llava) families (counterpart of ``repro.models.lm``):
+init, prefill and single-token decode, and :class:`ModelFns`, the bundle of
+model functions every family builds (the encoder-decoder family's are in
+``models.encdec``).
 
 The layer stack is a Python loop over per-layer params (the reference
 scans over params stacked on a leading L axis, and unrolls the hybrid
@@ -17,9 +18,13 @@ matters only to the LM training still to come and is dropped here.  A
 hybrid layer runs attention (B6) and the mamba2 mixer side by side on the
 same input, ``h + 0.5 * (attn + ssm)``, then its MLP; its layers 0, every
 ``global_layer_every``-th and the last attend globally, the others within
-``swa_window``.
+``swa_window``.  A VLM layer is a dense layer; the VLM's prefill takes
+``batch["prefix_embeds"]`` (B, n_prefix_embeds, d), the vision tower's
+patch embeddings (a stub, as in the reference), which overwrite the
+prompt's first positions, so a prompt holds at least ``n_prefix_embeds``
+tokens.  Decode takes no prefix.
 
-Caches: dense and MoE ``{"k", "v"}`` bf16 of shape (L, B, S, Hkv, dh) —
+Caches: dense, MoE and VLM ``{"k", "v"}`` bf16 of shape (L, B, S, Hkv, dh) —
 the stacked cache — or, with ``cfg.decode_unroll``, a tuple of per-layer
 ``{"k", "v"}`` of shape (B, S, Hkv, dh).  SSM: a tuple of per-layer
 ``ssm.Mamba2Cache``.  Hybrid: a tuple of per-layer ``{"k", "v", "ssm"}``,
@@ -27,8 +32,8 @@ K and V a ring of capacity ``min(swa_window, S)`` on a window layer and S
 on a global one, prefill's token t at slot ``t mod capacity``.  Decode
 writes into the caches in place and returns the same cache object.
 
-LM training (``lm_loss`` / ``cross_entropy`` of the reference) and the
-encoder-decoder and VLM families arrive with later slices.
+LM training (``lm_loss`` / ``cross_entropy`` of the reference) arrives
+with a later slice.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.tree import tree_map
 
-LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,8 +188,25 @@ def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool,
     return h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps)), kv
 
 
-def _embed(params, tokens):
-    return params["embed"][tokens].to(COMPUTE)
+def check_prefix_len(n_prefix: int, seq: int) -> None:
+    """Refuse a prompt shorter than the prefix embeddings that overwrite its
+    first positions (the reference's ``dynamic_update_slice`` cannot take
+    one either)."""
+    if n_prefix > seq:
+        raise ValueError(
+            f"a VLM prompt of {seq} token(s) is shorter than its {n_prefix} "
+            f"prefix embeddings, which overwrite its first positions; prompts "
+            f"need at least {n_prefix} tokens")
+
+
+def _embed(params, tokens, prefix_embeds=None):
+    """The tokens' embeddings in bf16; ``prefix_embeds`` (B, P, d), when
+    given, in place of the first P."""
+    h = params["embed"][tokens].to(COMPUTE)
+    if prefix_embeds is not None:
+        check_prefix_len(prefix_embeds.shape[1], tokens.shape[1])
+        h[:, :prefix_embeds.shape[1]] = prefix_embeds.to(COMPUTE)
+    return h
 
 
 def _stack_forward(cfg: ModelConfig, tp: int, params, h, *,
@@ -237,12 +259,16 @@ def _ring_slots(cfg: ModelConfig, is_global: bool, seq: int) -> int:
 
 
 def layer_cache(cfg: ModelConfig, kv, is_global: bool, seq: int):
-    """An SSM or hybrid layer's decode cache from the kv its block returned
-    over a prompt of ``seq`` tokens: the Mamba2Cache, and for a hybrid
-    layer K and V in a ring of ``min(swa_window, seq)`` slots on a window
-    layer (``seq`` on a global one), token t at slot ``t mod capacity``."""
+    """A layer's decode cache from the kv its block returned over a prompt
+    of ``seq`` tokens: K and V in bf16 (as long as the prompt); an SSM
+    layer's Mamba2Cache; for a hybrid layer K and V in a ring of
+    ``min(swa_window, seq)`` slots on a window layer (``seq`` on a global
+    one), token t at slot ``t mod capacity``, beside its Mamba2Cache."""
     if cfg.family == "ssm":
         return kv
+    if cfg.family != "hybrid":
+        k, v = kv
+        return {"k": k.to(COMPUTE), "v": v.to(COMPUTE)}
     (k, v), mixer = kv
     cap = _ring_slots(cfg, is_global, seq)
     return {"k": torch.roll(k[:, -cap:], seq % cap, 1).to(COMPUTE),
@@ -254,16 +280,15 @@ def prefill(cfg: ModelConfig, tp: int, params, batch):
     """Causal forward over the prompt ``batch["tokens"]`` (B, S); returns
     (cache, last-token logits (B, V)).  K and V caches are as long as the
     prompt, a hybrid window layer's ``min(swa_window, S)``; an SSM prompt
-    needs at least ``ssm.CONV_TAPS - 1`` tokens."""
-    h = _embed(params, batch["tokens"])
+    needs at least ``ssm.CONV_TAPS - 1`` tokens.  ``batch["prefix_embeds"]``
+    (B, P, d), when given, overwrites the first P positions' embeddings
+    (the VLM family; P <= S)."""
+    h = _embed(params, batch["tokens"], batch.get("prefix_embeds"))
     seq = batch["tokens"].shape[1]
     h, kvs = _stack_forward(cfg, tp, params, h, collect_kv=True)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.decode_unroll or cfg.family in ("ssm", "hybrid"):
         cache = tuple(layer_cache(cfg, kv, is_global, seq)
                       for kv, is_global in zip(kvs, global_flags(cfg)))
-    elif cfg.decode_unroll:
-        cache = tuple({"k": k.to(COMPUTE), "v": v.to(COMPUTE)}
-                      for k, v in kvs)
     else:
         cache = {"k": torch.stack([k for k, _ in kvs]).to(COMPUTE),
                  "v": torch.stack([v for _, v in kvs]).to(COMPUTE)}

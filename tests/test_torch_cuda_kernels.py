@@ -350,7 +350,7 @@ def test_fused_train_refuses_a_net_beyond_shared_memory(cuda):
 # 1e-3 of the elements not bit-equal, against the plain version run on
 # those scores (``chip_smoke.hold_b6_bf16`` says why)
 @pytest.mark.parametrize("case", [
-    # B, S, Hq, Hkv, dh, causal, window, f32 block
+    # B, S or (Sq, Sk), Hq, Hkv, dh, causal, window, f32 block
     (2, 512, 32, 4, 64, True, 0, 64),
     (1, 320, 8, 2, 64, True, 24, 64),
     (1, 320, 8, 2, 64, True, 8, 64),
@@ -363,14 +363,22 @@ def test_fused_train_refuses_a_net_beyond_shared_memory(cuda):
     # hymba-1.5b's prefill: group 5, its window of 1,024 and a global layer
     (8, 2048, 25, 5, 64, True, 1024, 64),
     (8, 2048, 25, 5, 64, True, 0, 64),
+    # seamless-m4t-large-v2: its encoder, its cross-attention (decoder
+    # queries over encoder keys, unmasked), a ragged cross case (kv_len
+    # masks the padded keys); llava-next-34b: group 7 at dh 128
+    (8, 512, 16, 16, 64, False, 0, 64),
+    (8, (2048, 512), 16, 16, 64, False, 0, 64),
+    (2, (200, 50), 8, 2, 64, False, 0, 64),
+    (4, 3072, 56, 8, 128, True, 0, 64),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_matches_plain(cuda, case, dtype):
     b, s, hq, hkv, dh, causal, window, blk = case
+    s, sk = s if isinstance(s, tuple) else (s, s)
     blk = blk if dtype == torch.float32 else None
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn((b, s, h, dh), generator=g, device=cuda).to(dtype)
-               for h in (hq, hkv, hkv))
+    q, k, v = (torch.randn((b, n, h, dh), generator=g, device=cuda).to(dtype)
+               for n, h in ((s, hq), (sk, hkv), (sk, hkv)))
     qf, kf, vf, kw = kernel_layout(q, k, v, causal=causal, window=window,
                                    block_q=blk, block_k=blk)
     if dtype == torch.bfloat16:

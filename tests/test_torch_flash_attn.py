@@ -37,14 +37,16 @@ F32 = dict(rtol=2e-4, atol=2e-5)
 DIFFER_SHARE = 1e-3
 
 
-def _case(b, s, hq, hkv, dh, seed=0, dtype="float32", grid_qk=False):
+def _case(b, s, hq, hkv, dh, seed=0, dtype="float32", grid_qk=False,
+          sk=None):
     """The same (B, S, H, dh) q, k, v for both packages (rounded to bf16
-    once, for both, when ``dtype`` is bf16).  ``grid_qk`` puts q and k on
-    multiples of 1/8: then q k^T is exact in f32 in any order of
-    summation."""
+    once, for both, when ``dtype`` is bf16); k and v of ``sk`` rows when
+    given (cross-attention).  ``grid_qk`` puts q and k on multiples of 1/8:
+    then q k^T is exact in f32 in any order of summation."""
     rng = np.random.default_rng(seed)
-    arrs = [rng.normal(size=(b, s, h, dh)).astype(np.float32)
-            for h in (hq, hkv, hkv)]
+    sk = s if sk is None else sk
+    arrs = [rng.normal(size=(b, n, h, dh)).astype(np.float32)
+            for n, h in ((s, hq), (sk, hkv), (sk, hkv))]
     if grid_qk:
         arrs[:2] = [np.round(a * 8) / 8 for a in arrs[:2]]
     jx = [jnp.asarray(a).astype(dtype) for a in arrs]
@@ -93,6 +95,17 @@ def test_sliding_window(window):
     jx, px = _case(1, 96, 4, 2, 8, seed=1)
     got = _check(jx, px, causal=True, window=window, block_q=16, block_k=16)
     assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("sq,sk", [(40, 12), (24, 50)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_has_its_own_kv_length(sq, sk, dtype):
+    """Cross-attention (the encoder-decoder family): queries unmasked over
+    fewer or more keys than themselves, both padded to blocks, the padded
+    keys masked by ``kv_len``."""
+    jx, px = _case(2, sq, 4, 2, 16, seed=4, dtype=dtype, sk=sk)
+    got = _check(jx, px, causal=False, block_q=16, block_k=16)
+    assert got.shape == (2, sq, 4, 16)
 
 
 def test_ragged_seq_padding():

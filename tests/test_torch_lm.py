@@ -99,16 +99,25 @@ def test_dense_configs_match_jax(arch):
 
 
 def test_config_refusals():
+    """Every family of the reference validates; what the port still lacks
+    (sharding, LM quantization) and an unknown family or arch are
+    refused."""
     cfg = pconfigs.get_config("tinyllama-1.1b")
     assert cfg.head_dim == 64 and pbase.param_count(cfg) == 1_100_048_384
     with pytest.raises(NotImplementedError, match="sharding"):
         cfg.padded_heads(2)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        dataclasses.replace(cfg, family="encdec").validate()
+    for family in ("encdec", "vlm"):
+        assert dataclasses.replace(cfg, family=family).validate().family \
+            == family
+    assert {c.family for c in map(pconfigs.get_config, pconfigs.ARCHS)} == \
+        set(pbase.PORTED_FAMILIES)
+    with pytest.raises(ValueError, match="unknown family"):
+        dataclasses.replace(cfg, family="rnn").validate()
     with pytest.raises(NotImplementedError, match="LM-training slice"):
         dataclasses.replace(cfg, quant="qat-int8").validate()
-    with pytest.raises(KeyError, match="later slice"):
-        pconfigs.get_config("seamless-m4t-large-v2")
+    with pytest.raises(KeyError, match="unknown arch"):
+        pconfigs.get_config("gpt-17")
+    assert pconfigs.get_config("seamless-m4t-large-v2").family == "encdec"
 
 
 def test_registry_builds_the_ported_families():
@@ -117,9 +126,13 @@ def test_registry_builds_the_ported_families():
     assert fns.prefill is not None and fns.decode is not None
     with pytest.raises(NotImplementedError, match="later slice"):
         fns.loss(None, None)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pregistry.build(dataclasses.replace(
-            pconfigs.get_smoke("mrf-fpga"), family="encdec"))
+    for arch in ("seamless-m4t-large-v2", "llava-next-34b"):
+        built = pregistry.build(pconfigs.get_smoke(arch))
+        assert built.prefill is not None and built.decode is not None
+        with pytest.raises(NotImplementedError, match="later slice"):
+            built.loss(None, None)
+    with pytest.raises(NotImplementedError, match="sharding"):
+        pregistry.build(pconfigs.get_smoke("seamless-m4t-large-v2"), tp=2)
 
 
 # --------------------------------------------------------------------------

@@ -148,6 +148,8 @@ def test_cuda_without_a_card_raises(tmp_path):
     moe_fns = registry.build(get_smoke("deepseek-moe-16b"))
     ssm_fns = registry.build(get_smoke("mamba2-1.3b"))
     hybrid_fns = registry.build(get_smoke("hymba-1.5b"))
+    encdec_fns = registry.build(get_smoke("seamless-m4t-large-v2"))
+    vlm_fns = registry.build(get_smoke("llava-next-34b"))
     calls = [
         lambda: resolve_device("cuda"),
         lambda: qat.init_qat_state(3),
@@ -167,6 +169,13 @@ def test_cuda_without_a_card_raises(tmp_path):
         lambda: hybrid_fns.init_cache(1, 8),
         lambda: launcher.main(["--arch", "mamba2-1.3b", "--smoke"]),
         lambda: launcher.main(["--arch", "hymba-1.5b", "--smoke"]),
+        lambda: encdec_fns.init(0),
+        lambda: encdec_fns.init_cache(1, 8),
+        lambda: vlm_fns.init(0),
+        lambda: launcher.main(["--arch", "seamless-m4t-large-v2",
+                               "--smoke"]),
+        lambda: launcher.main(["--arch", "llava-next-34b", "--smoke",
+                               "--prompt-len", "16"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -200,7 +209,8 @@ def _allowlisted_names():
 def test_port_identifiers_leave_the_dead_exports_gate_alone():
     allow = _allowlisted_names()
     assert {"IntLayer", "QATConfig", "PaddedIntNet", "CONV_WIDTH",
-            "SSMParams"} <= allow
+            "SSMParams", "AttnParams", "ENC_FRACTION", "init_encdec",
+            "encdec_prefill", "encdec_decode", "init_encdec_cache"} <= allow
     files = sorted(PORT.rglob("*.py")) + _examples() + sorted(
         (ROOT / "tests").glob("test_torch_*.py"))
     hits = []
