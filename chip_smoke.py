@@ -5,7 +5,8 @@ to end through ``repro_torch.launch.train`` / ``repro_torch.launch.serve``,
 runs the paper's experiment through the port's examples, serves tokens from
 tinyllama-1.1b, deepseek-moe-16b, phi3.5-moe, mamba2-1.3b, hymba-1.5b,
 seamless-m4t-large-v2 and llava-next-34b at full width through
-``repro_torch.launch.serve`` and times the kernels.
+``repro_torch.launch.serve``, trains tinyllama-1.1b whole through
+``repro_torch.launch.train`` and times the kernels.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -132,6 +133,27 @@ final result line):
    B6 launches), its first two layers against a CPU copy on 1 x 3,072
    tokens (``layers_vs_cpu``, the prefix overwrite on the path) and its
    breakdown;
+4i. LM training (``lm_train_phase``), last, with nothing else on the
+   card: B6 with its per-row log-sum-exp (the output bit-equal to the
+   launch without it, the lse within ``LSE_ATOL`` of the plain version's)
+   and B6-bwd (``csrc/flash_attn_bwd.cu``) against its plain backward
+   within ``ref.bwd_bounds`` at 8 cases (``bwd_cases``: tinyllama's
+   training shape, group 1 and group 7 at dh 128, window 1,024 at group
+   5, 2,048 queries unmasked over 512 keys, ragged 200 over 50, a length
+   of 300, dh 16), a launch equal to its repeat, the plain backward within
+   ``PLAIN_BWD_RTOL`` of autograd through the plain forward, the bounds
+   breaking on two planted faults (the causal mask dropped, dK not summed
+   over the group), a float32 CUDA input under grad refused
+   (``check_flash_attention_bwd``); tinyllama's first two layers at full
+   width on 1 x 512 tokens, loss and every gradient leaf against a CPU
+   copy (``lm_train_vs_cpu``); then tinyllama-1.1b whole through the
+   launcher at 8 x 2,048 tokens a step, ``TRAIN_STEPS`` steps, twice —
+   uninterrupted, and with a crash at step 3 restarted from the step-0
+   checkpoint: the loss falls, 44 B6 and 22 B6-bwd launches a step, the
+   steps before the crash repeat the first run's losses bit for bit and
+   the restarted run ends on its losses and params bit for bit; ms a step,
+   tokens/s, peak memory and the step's bound (``lm_step_work``) in an
+   ``lm_train_run {json}`` line;
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
@@ -141,13 +163,14 @@ final result line):
    shapes, seamless's cross-attention and llava's group 7 beside SDPA (at
    hymba's window the band goes to SDPA as a boolean mask); then the
    breakdowns of phase 4d for tinyllama, deepseek, mamba2 and hymba (those
-   of seamless and llava run in phase 4h).
+   of seamless and llava run in phase 4h); B6-bwd at tinyllama's training
+   shape beside SDPA's backward, after phase 4i.
 
 Before them, ``chaos_run {json}`` records the chaos phase: states, waves,
 retries, slow waves, the final depth and wave cap, voxels/s, p50/p99 and
 both kernels' launches; ``eq3_run {json}`` the paper's Eq. 3 comparison
-(``eq3_summary``).  The last two lines are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.  Bounds use the card's published peaks
+(``eq3_summary``); ``lm_train_run {json}`` phase 4i.  The last two lines
+are ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  Bounds use the card's published peaks
 (``repro_torch.analysis.roofline.H100``; training's through
 ``repro_torch.core.fpga_cost_model``).
 """
@@ -158,14 +181,21 @@ import contextlib
 import io
 import json
 import math
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
-import torch
+# before CUDA starts: phase 4i trains with cuBLAS's deterministic workspace
+# setting (``repro_torch.launch.train.CUBLAS_DETERMINISTIC``; on an H100 it
+# is also cuBLAS's default size, so the other phases run as without it)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -204,6 +234,25 @@ LM_LOGIT_ULPS = 8           # card vs CPU prefill logits after 22 layers
 # order reads ~5e-6; a planted fault 1.4e-2 or more: test_torch_flash_attn)
 B6_MAX_ULPS = 1
 B6_DIFFER_SHARE = 1e-3
+# B6's log-sum-exp against its plain version's: the row's scores and its
+# exp sums in other f32 orders move it by a few f32 ulps of ~10 (the
+# largest |lse| at these lengths); a dropped kv tile moves it by log(1 +
+# the tile's share of the row's sum)
+LSE_ATOL = 1e-4
+# B6-bwd's plain version against autograd through B6's plain forward, both
+# float32: the same gradient, sums over up to ~14,000 rows in other orders
+PLAIN_BWD_RTOL = 1e-4
+# phase 4i, training through launch.train: steps of tinyllama-1.1b whole
+TRAIN_STEPS = 5
+# card vs CPU, tinyllama's first two layers at full width on 512 tokens:
+# the loss (an f32 mean over 512 tokens of bf16 logits that differ by ~1
+# ulp a layer; read 5.1e-5) and each gradient leaf within this many bf16
+# ulps of its largest magnitude (each passes through the whole bf16
+# backward, cuBLAS's and B6-bwd's sums in other orders than the CPU's;
+# read 1.25; the CPU tests hold the port against JAX at 8,
+# tests/test_torch_lm_train.py)
+TRAIN_LOSS_RTOL = 5e-4
+TRAIN_GRAD_ULPS = 4
 # the model shapes B6 is timed at beside the serving shape (phase 5)
 B6_SHAPES = ("dh128", "deepseek", "hymba_window", "hymba_global",
              "seamless_cross", "llava")
@@ -2068,11 +2117,11 @@ def model_vs_cpu(fns, params, device) -> dict:
         layer_ulps = []
         for lp_g, lp_c in zip(params["layers"], cpu_params["layers"]):
             with recording_b6() as calls:
-                one, _ = lm._block(cfg, 1, h_c.to(device), lp_g,
+                one, _, _ = lm._block(cfg, 1, h_c.to(device), lp_g,
                                    return_kv=False)
             seen += calls
-            h_c, _ = lm._block(cfg, 1, h_c, lp_c, return_kv=False)
-            h_g, _ = lm._block(cfg, 1, h_g, lp_g, return_kv=False)
+            h_c, _, _ = lm._block(cfg, 1, h_c, lp_c, return_kv=False)
+            h_g, _, _ = lm._block(cfg, 1, h_g, lp_g, return_kv=False)
             layer_ulps.append(ulps(one, h_c))
         all_g = lm._logits(params, rms_norm(h_g, params["final_norm"],
                                             cfg.norm_eps))[0].float().cpu()
@@ -2193,7 +2242,7 @@ def moe_vs_cpu(fns, params, device) -> list:
         lm.moe_block = recording_moe
         try:
             with recording_b6() as calls:
-                out, _ = lm._block(cfg, 1, h, lp, return_kv=False)
+                out, _, _ = lm._block(cfg, 1, h, lp, return_kv=False)
         finally:
             lm.moe_block = original_moe
         seen["attn"] += calls
@@ -2366,11 +2415,11 @@ def layers_vs_cpu(fns, params, device, layers: list, n_tokens: int) -> list:
             g = flags[i]
             before = counter.launches
             with recording_b6() as calls:
-                one, kv_g = lm._block(cfg, 1, h_c.to(device), lp_g,
+                one, kv_g, _ = lm._block(cfg, 1, h_c.to(device), lp_g,
                                       return_kv=True, is_global=g)
             torch.cuda.synchronize()
             launches = counter.launches - before
-            nxt, kv_c = lm._block(cfg, 1, h_c, lp_c, return_kv=True,
+            nxt, kv_c, _ = lm._block(cfg, 1, h_c, lp_c, return_kv=True,
                                   is_global=g)
             want_launches = 0 if cfg.family == "ssm" else 1
             if launches != want_launches or len(calls) != want_launches:
@@ -2620,6 +2669,478 @@ def encdec_vlm_phase(device) -> tuple:
     return n_ed + n_vlm, reports + vlm_reports
 
 
+def bwd_cases() -> list:
+    """Phase 4i's B6-bwd cases: label, B, S or (Sq, Sk), Hq, Hkv, dh,
+    causal, window."""
+    return [
+        ("tinyllama-1.1b training shape", 8, 2048, 32, 4, 64, True, 0),
+        ("group 1 at dh 128", 2, 2048, 16, 16, 128, True, 0),
+        ("group 7 at dh 128 (llava-next-34b's heads)", 1, 2048, 56, 8, 128,
+         True, 0),
+        ("window 1,024, group 5 (hymba-1.5b's heads)", 2, 2048, 25, 5, 64,
+         True, 1024),
+        ("unmasked, 2,048 queries over 512 keys", 2, (2048, 512), 16, 16, 64,
+         False, 0),
+        ("ragged unmasked, 200 queries over 50 keys", 2, (200, 50), 8, 2, 64,
+         False, 0),
+        ("causal, a length not a multiple of the tile (300)", 2, 300, 8, 2,
+         32, True, 0),
+        ("dh 16, window 24, ragged 100", 1, 100, 4, 2, 16, True, 24),
+    ]
+
+
+def bwd_inputs(case, device, seed: int = 23) -> tuple:
+    """A case's bf16 q, k, v (B, S, H, dh), its kernel layout and the
+    forward's upstream gradient in that layout (zero on the padded rows, as
+    autograd hands it to the backward)."""
+    from repro_torch.kernels.flash_attn.ops import kernel_layout
+
+    _, b, s, hq, hkv, dh, causal, window = case
+    s, sk = s if isinstance(s, tuple) else (s, s)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn((b, n, h, dh), generator=gen,
+                               device=device).to(torch.bfloat16)
+                   for n, h in ((s, hq), (sk, hkv), (sk, hkv), (s, hq)))
+    qf, kf, vf, kw = kernel_layout(q, k, v, causal=causal, window=window)
+    dof = kernel_layout(do, k, v, causal=causal, window=window)[0]
+    return qf, kf, vf, dof, kw
+
+
+def per_kv_head(fn, qf, kf, vf, of, dof, lse, kw, chunk: int = 4):
+    """``fn`` (a plain backward or its bounds) run ``chunk`` kv heads at a
+    time, the results concatenated: the plain versions' (rows, Sk) f32
+    intermediates at the training shape would take ~20 GB at once."""
+    g = kw["group"]
+    a = {x: kw[x] for x in ("causal", "window", "group", "kv_len")}
+    parts = []
+    for i in range(0, kf.shape[0], chunk):
+        ql, kl = slice(i * g, (i + chunk) * g), slice(i, i + chunk)
+        parts.append(fn(qf[ql], kf[kl], vf[kl], of[ql], dof[ql], lse[ql],
+                        **a))
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
+
+
+def hold_bwd(what: str, got, want, bounds) -> float:
+    """(dq, dk, dv) against the plain version's within ``ref.bwd_bounds``
+    element by element (``ref.bwd_ratio`` at most 1).  Returns the worst
+    ratio."""
+    from repro_torch.kernels.flash_attn import ref
+
+    worst = 0.0
+    for name, g, w, b in zip(("dq", "dk", "dv"), got, want, bounds):
+        r = float(ref.bwd_ratio(g, w, b).max())
+        if not torch.isfinite(g).all() or not r <= 1:
+            fail(f"{what}: {name} {r:.3g}x its bound from the plain "
+                 f"version's (finite: {bool(torch.isfinite(g).all())})")
+        worst = max(worst, r)
+    return worst
+
+
+def check_flash_attention_bwd(device) -> dict:
+    """Phase 4i, kernels: B6 with its log-sum-exp (``return_lse``) and
+    B6-bwd on the card, at every case of :func:`bwd_cases`:
+
+    * B6's output with ``lse`` requested is bit-equal to the launch without
+      it, and ``lse`` lies within ``LSE_ATOL`` of the plain version's;
+    * B6-bwd's (dq, dk, dv), launched twice (bit for bit), lie within
+      ``ref.bwd_bounds`` of ``ref.flash_attention_bwd_plain`` on the same
+      inputs (the kernel's own out and lse), element by element;
+    * the plain backward, in float32 on one kv head, lies within
+      ``PLAIN_BWD_RTOL`` of the largest magnitude from autograd through
+      the plain forward (in bf16 the forward's own roundings, acc / l with
+      p rounded, differ from P = exp(s - lse), and autograd rounds dP to
+      bf16 through the cast);
+    * the bounds catch two planted faults, each run through the plain
+      backward in the kernel's place: the causal mask dropped (or, on an
+      unmasked case, one added), and dK not summed over the group (dK of
+      each group's first query head alone).
+
+    Returns the readings, the largest absolute error among them."""
+    from repro_torch.kernels.flash_attn import kernel, ref
+
+    fwd, bwd = kernel.flash_attention_call, kernel.flash_attention_bwd_call
+    saved = fwd.launches, bwd.launches
+    out_rows, worst_err, worst_ratio = [], 0.0, 0.0
+    for case in bwd_cases():
+        label, b, s, hq, hkv, dh, causal, window = case
+        qf, kf, vf, dof, kw = bwd_inputs(case, device)
+        a = {x: kw[x] for x in ("causal", "window", "group", "kv_len")}
+        s_txt = f"S {s}" if not isinstance(s, tuple) else \
+            f"Sq {s[0]}, Sk {s[1]}"
+        what = (f"B6-bwd {label} (B {b}, {s_txt}, Hq {hq}, Hkv {hkv}, dh "
+                f"{dh}, causal {causal}, window {window})")
+        plain_out = fwd(qf, kf, vf, **kw)
+        out, lse = fwd(qf, kf, vf, **kw, return_lse=True)
+        if not torch.equal(out, plain_out):
+            fail(f"{what}: B6's output with lse differs from without it")
+        _, lse_want = ref.flash_attention_plain(qf, kf, vf, **kw,
+                                                return_lse=True)
+        lse_err = float((lse - lse_want).abs().max())
+        if not lse_err <= LSE_ATOL:
+            fail(f"{what}: lse {lse_err:.3g} from the plain version's "
+                 f"(limit {LSE_ATOL})")
+        got = bwd(qf, kf, vf, out, dof, lse, **a)
+        again = bwd(qf, kf, vf, out, dof, lse, **a)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"{what}: a launch and its repeat differ")
+        want = per_kv_head(ref.flash_attention_bwd_plain, qf, kf, vf, out,
+                           dof, lse, kw)
+        bounds = per_kv_head(ref.bwd_bounds, qf, kf, vf, out, dof, lse, kw)
+        ratio = hold_bwd(what, got, want, bounds)
+        err = max(float((x.double() - y.double()).abs().max())
+                  for x, y in zip(got, want))
+        share = max(float((x != y).float().mean()) for x, y in zip(got, want))
+        # the plain backward against autograd through the plain forward, in
+        # float32 on the first kv head (its query heads)
+        g = kw["group"]
+        q1, k1, v1 = (x.float().requires_grad_(True)
+                      for x in (qf[:g], kf[:1], vf[:1]))
+        o1, l1 = ref.flash_attention_plain(q1, k1, v1, **kw, return_lse=True)
+        auto = torch.autograd.grad(o1, (q1, k1, v1), dof[:g].float())
+        mine = ref.flash_attention_bwd_plain(
+            q1.detach(), k1.detach(), v1.detach(), o1.detach(),
+            dof[:g].float(), l1.detach(), **a)
+        auto_ratio = max(float((x - y).abs().max() / y.abs().max())
+                         for x, y in zip(mine, auto))
+        if not auto_ratio <= PLAIN_BWD_RTOL:
+            fail(f"{what}: the plain backward {auto_ratio:.3g} of the "
+                 f"largest magnitude from autograd through the plain forward "
+                 f"(float32; limit {PLAIN_BWD_RTOL})")
+        # planted faults, through the plain backward on the first two kv
+        # heads: each must break the bounds
+        n2 = min(2, kf.shape[0])
+        sl, kl = slice(0, n2 * g), slice(0, n2)
+        planted = {"causal mask dropped" if causal else "causal mask added":
+                   ref.flash_attention_bwd_plain(
+                       qf[sl], kf[kl], vf[kl], out[sl], dof[sl], lse[sl],
+                       **{**a, "causal": not causal})[1:]}
+        if g > 1:
+            one = ref.flash_attention_bwd_plain(
+                qf[sl][::g].contiguous(), kf[kl], vf[kl],
+                out[sl][::g].contiguous(), dof[sl][::g].contiguous(),
+                lse[sl][::g].contiguous(), **{**a, "group": 1})
+            planted["dK of one query head a group"] = one[1:2]
+        caught = {}
+        for fault, parts in planted.items():
+            r = max(float(ref.bwd_ratio(x, w[kl], bb[kl]).max())
+                    for x, w, bb in zip(parts, want[1:], bounds[1:]))
+            if not r > 1:
+                fail(f"{what}: the bounds miss a planted fault ({fault}: "
+                     f"{r:.3g}x)")
+            caught[fault] = r
+        worst_err = max(worst_err, err, lse_err)
+        worst_ratio = max(worst_ratio, ratio)
+        row = {"case": label, "ratio": ratio, "max_abs_err": err,
+               "share_not_bit_equal": share, "lse_err": lse_err,
+               "plain_vs_autograd_f32": auto_ratio, "faults": caught}
+        out_rows.append(row)
+        log(f"{what}: within {ratio:.3g} of the bounds (max abs err "
+            f"{err:.3g}, {share:.3g} of the elements not bit-equal), lse "
+            f"{lse_err:.3g}, out with lse bit-equal, repeat bit-identical; "
+            f"plain vs autograd (f32) {auto_ratio:.3g} of the largest; "
+            f"planted faults " + ", ".join(f"{f} {r:.3g}x"
+                                           for f, r in caught.items()))
+        del qf, kf, vf, dof, out, lse, got, again, want, bounds
+        free_device()
+    # a float32 CUDA input under grad has no backward: it raises
+    x = torch.zeros((1, 8, 2, 16), device=device, requires_grad=True)
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    try:
+        flash_attention(x, x, x)
+    except RuntimeError as e:
+        log(f"B6 float32 under grad refused: {str(e)[:80]}...")
+    else:
+        fail("B6 float32 under grad on the card did not raise")
+    fwd.launches, bwd.launches = saved
+    return {"cases": out_rows, "max_abs_err": worst_err,
+            "worst_ratio": worst_ratio}
+
+
+def b6_bwd_time(err: float, device) -> dict:
+    """Phase 5 for B6-bwd at tinyllama-1.1b's training shape (B 8, Hq 32,
+    Hkv 4, dh 64, S 2,048, causal): the kernels' device time (both, summed
+    by the profiler), the wall time of one wrapper call, the plain
+    backward's device time (and ``forward_lse``: B6 at the same shape
+    with and without its log-sum-exp, and the plain forward with it), and
+    SDPA's backward on the same inputs in its
+    (B, H, S, dh) layout (``torch.autograd.grad`` of
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``; a
+    yardstick the port never calls).  Bound: 10*B*Hq*dh*pairs FLOP (S, dP,
+    dV, dK, dQ; pairs S(S+1)/2) at the bf16 tensor-core peak, against q, k,
+    v, out, dout and lse read once and dq, dk, dv written once."""
+    import torch.nn.functional as F
+
+    from repro_torch.analysis.roofline import H100
+    from repro_torch.kernels.flash_attn import kernel, ref
+
+    case = bwd_cases()[0]
+    _, b, s, hq, hkv, dh, causal, _ = case
+    qf, kf, vf, dof, kw = bwd_inputs(case, device, seed=29)
+    a = {x: kw[x] for x in ("causal", "window", "group", "kv_len")}
+    bwd, fwd = kernel.flash_attention_bwd_call, kernel.flash_attention_call
+    saved = bwd.launches, fwd.launches
+    out, lse = fwd(qf, kf, vf, **kw, return_lse=True)
+    # B6 itself with and without the log-sum-exp (this late in the process
+    # the profiler drops a session's first records: the sum after a
+    # marker, as for SDPA; a call launches B6 and nothing else)
+    fwd_lse = {
+        "ms_without_lse": device_ms(lambda: fwd(qf, kf, vf, **kw), None,
+                                    reps=20, lead=20,
+                                    label="flash_attn without lse"),
+        "ms": device_ms(lambda: fwd(qf, kf, vf, **kw, return_lse=True),
+                        None, reps=20, lead=20, label="flash_attn with lse"),
+        "plain_ms": device_ms(lambda: ref.flash_attention_plain(
+            qf, kf, vf, **kw, return_lse=True), None, reps=2, warmup=1)}
+    call = lambda: bwd(qf, kf, vf, out, dof, lse, **a)  # noqa: E731
+    ql, kl, vl = (x.reshape(b, -1, s, dh).detach().requires_grad_(True)
+                  for x in (qf, kf, vf))
+    dol = dof.reshape(b, hq, s, dh)
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                           enable_gqa=True)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        o_lib, (ql, kl, vl), dol, retain_graph=True)
+    t = {"ms": device_ms(call, None, reps=10, lead=5,
+                         label="flash_attn_bwd"),
+         "wall_ms": event_ms(call, reps=10),
+         "plain_ms": device_ms(lambda: per_kv_head(
+             ref.flash_attention_bwd_plain, qf, kf, vf, out, dof, lse, kw),
+             None, reps=2, warmup=1),
+         "library_ms": device_ms(lib, None, reps=10, lead=10,
+                                 label="SDPA backward")}
+    got = call()
+    lib_err = max(float((x.reshape(y.shape).double() - y.double()).abs()
+                        .max()) for x, y in zip(lib(), got))
+    bwd.launches, fwd.launches = saved
+    pairs = s * (s + 1) // 2
+    nops = 10 * b * hq * dh * pairs
+    # q, out, dout and k, v read, lse read (f32), dq and dk, dv written
+    nbytes = 2 * (3 * b * s * hq * dh + 2 * b * s * hkv * dh) \
+        + 4 * b * hq * s + 2 * (b * s * hq * dh + 2 * b * s * hkv * dh)
+    t_ops = nops / H100["peak_bf16_flops"] * 1e3
+    t_bytes = nbytes / H100["hbm_bytes_per_s"] * 1e3
+    log(f"  B6-bwd vs SDPA's backward: max abs diff {lib_err:.3g} (not held: "
+        f"another algorithm)")
+    t.update({"name": "flash_attn_bwd", "route": "cuda",
+              "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+              "replaces": "none: src/repro/models/attention.py:88 (XLA's "
+                          "VJP of the reference's attention; the TPU kernel "
+                          "B6 has no backward)",
+              "launches": None, "max_abs_err": err,
+              "bound_ms": max(t_ops, t_bytes),
+              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+              "shape": f"B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}, causal, "
+                       f"bf16", "bytes": nbytes, "ops": nops,
+              "forward_lse": fwd_lse})
+    del qf, kf, vf, dof, out, lse, ql, kl, vl, o_lib
+    free_device()
+    return t
+
+
+def lm_train_vs_cpu(device, n_layers: int = 2, seq: int = 512) -> dict:
+    """Phase 4i: tinyllama-1.1b at full width, its first ``n_layers``
+    layers, one batch of 1 x ``seq`` tokens from ``TextPipeline``: the loss
+    and every gradient leaf on the card (B6, B6-bwd, cuBLAS) against a CPU
+    copy of the same f32 masters (the plain versions), both under
+    deterministic algorithms.  The loss within ``TRAIN_LOSS_RTOL``, each
+    leaf within ``TRAIN_GRAD_ULPS`` bf16 ulps of its largest magnitude on
+    the CPU.  Returns the readings."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_text import TextPipeline
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.launch.train import deterministic, lm_batches
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves, rebuild, tree_map
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers)
+    fns = registry.build(cfg)
+    pipe = TextPipeline(seq_len=seq, batch_size=1, vocab_size=256)
+
+    def loss_and_grads(params, dev):
+        batch = lm_batches(cfg, pipe, dev)(0)
+        live = [p.detach().requires_grad_(True) for p in leaves(params)]
+        loss = fns.loss(rebuild(params, live), batch)
+        return loss.detach(), torch.autograd.grad(loss, live)
+
+    fwd, bwd = kernel.flash_attention_call, kernel.flash_attention_bwd_call
+    saved = fwd.launches, bwd.launches
+    t0 = time.perf_counter()
+    with deterministic():
+        params = fns.init(0, device=device)
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        fwd.launches = bwd.launches = 0
+        loss_g, grads_g = loss_and_grads(params, device)
+        torch.cuda.synchronize()
+        counts = fwd.launches, bwd.launches
+        loss_c, grads_c = loss_and_grads(cpu_params, "cpu")
+    fwd.launches, bwd.launches = saved
+    if counts != (2 * n_layers, n_layers):
+        fail(f"card vs CPU training: B6 / B6-bwd launches {counts}, not "
+             f"{(2 * n_layers, n_layers)} (forward and remat recompute, "
+             f"backward, a layer)")
+    loss_gap = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(grads_g, grads_c)):
+        c = c.float()
+        top = float(c.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+        err = float((g.float().cpu() - c).abs().max())
+        if not torch.isfinite(g).all() or not err <= TRAIN_GRAD_ULPS * ulp:
+            fail(f"card vs CPU training: gradient leaf {i} "
+                 f"{tuple(g.shape)} {err:.3g} off, {TRAIN_GRAD_ULPS} bf16 "
+                 f"ulps of its largest magnitude are "
+                 f"{TRAIN_GRAD_ULPS * ulp:.3g}")
+        worst = max(worst, err / ulp if ulp else 0.0)
+    if not loss_gap <= TRAIN_LOSS_RTOL:
+        fail(f"card vs CPU training: loss {float(loss_g)} vs "
+             f"{float(loss_c)} ({loss_gap:.3g} > {TRAIN_LOSS_RTOL})")
+    out = {"layers": n_layers, "tokens": seq, "loss_card": float(loss_g),
+           "loss_cpu": float(loss_c), "loss_rel_gap": loss_gap,
+           "worst_grad_ulps": worst, "leaves": len(grads_g),
+           "seconds": time.perf_counter() - t0}
+    log(f"{LM_ARCH} training, first {n_layers} layers at full width, 1 x "
+        f"{seq} tokens: loss card {out['loss_card']:.6f} vs CPU "
+        f"{out['loss_cpu']:.6f} (rel {loss_gap:.3g}, limit "
+        f"{TRAIN_LOSS_RTOL}); {len(grads_g)} gradient leaves within "
+        f"{worst:.3g} bf16 ulps of their largest (limit {TRAIN_GRAD_ULPS}); "
+        f"B6 {counts[0]}, B6-bwd {counts[1]} launches")
+    del params, cpu_params, grads_g, grads_c
+    free_device()
+    return out
+
+
+def lm_train(argv) -> tuple:
+    """One LM run of the training launcher, B6's and B6-bwd's counts set to
+    0 just before it and read just after.  Returns (report, counts)."""
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.launch import train as launcher
+
+    fwd, bwd = kernel.flash_attention_call, kernel.flash_attention_bwd_call
+    fwd.launches = bwd.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launcher.main(argv)
+    counts = {"flash_attn": fwd.launches, "flash_attn_bwd": bwd.launches}
+    lines = buf.getvalue().splitlines()
+    log("\n".join(lines[:1] + [ln for ln in lines if ln.startswith("step")]
+                  + lines[-2:-1]))
+    if rc != 0:
+        fail(f"train launcher {' '.join(argv)} returned {rc}")
+    return report_of(lines, "train_report", " ".join(argv)), counts
+
+
+def lm_step_work(cfg, b: int, s: int) -> dict:
+    """A remat training step's FLOPs: 6 x (the products' params) x tokens
+    for the forward and backward, 2 x that again for the forward the
+    backward recomputes, plus attention's per layer: 4 B Hq dh pairs
+    forward, again in the recompute, 10 B Hq dh pairs in B6-bwd (S, dP,
+    dV, dK, dQ); pairs S(S+1)/2 causal.  The embedding gather is no
+    product.  Bytes: Adam's update reads params, grads and both moments
+    and writes params and moments, f32 (16 + 12 bytes a param)."""
+    from repro_torch.configs.base import param_count
+
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    per_layer = d * hq * dh + 2 * d * hkv * dh + hq * dh * d + \
+        d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    mm = cfg.n_layers * per_layer + d * cfg.vocab_size
+    tokens = b * s
+    pairs = s * (s + 1) // 2
+    attn = cfg.n_layers * 18 * b * hq * dh * pairs
+    flops = 8 * mm * tokens + attn
+    nbytes = 28 * param_count(cfg)
+    from repro_torch.analysis.roofline import H100
+    t_ops = flops / H100["peak_bf16_flops"] * 1e3
+    t_bytes = nbytes / H100["hbm_bytes_per_s"] * 1e3
+    return {"flops": flops, "matmul_params": mm, "attention_flops": attn,
+            "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
+    """Phase 4i, training: B6 with its lse and B6-bwd held
+    (``check_flash_attention_bwd``), the card against the CPU
+    (``lm_train_vs_cpu``), then tinyllama-1.1b whole (22 layers, random
+    weights from seed 0) through ``repro_torch.launch.train`` at 8 x 2,048
+    tokens a step, twice from fresh checkpoint directories:
+
+    * run A, ``TRAIN_STEPS`` steps uninterrupted: the loss falls; B6 and
+      B6-bwd counted from 0 just before the run, 44 and 22 launches a step;
+    * run B, the same with a crash injected at step 3: its steps before the
+      crash repeat A's losses bit for bit (a rerun), and after the restart
+      from the step-0 checkpoint (12 bytes a parameter: params and Adam's
+      moments) its losses and params digest equal A's (crash + restart ==
+      uninterrupted, at full depth).
+
+    Returns (B6-bwd's kernel readings, the phase's record, the main path's
+    launch counts of run A)."""
+    held = check_flash_attention_bwd(device)
+    vs_cpu = lm_train_vs_cpu(device)
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    steps = TRAIN_STEPS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        base = ["--arch", LM_ARCH, "--steps", str(steps), "--batch", str(b),
+                "--seq", str(s), "--ckpt-every", "1000", "--device",
+                device.type]
+        rep_a, counts = lm_train(base + ["--ckpt-dir", f"{tmp}/a"])
+        shutil.rmtree(f"{tmp}/a")
+        rep_b, counts_b = lm_train(base + ["--ckpt-dir", f"{tmp}/b",
+                                           "--inject-fault-at", "3"])
+    per_step = (2 * cfg.n_layers, cfg.n_layers)
+    if (counts["flash_attn"], counts["flash_attn_bwd"]) != \
+            (per_step[0] * steps, per_step[1] * steps) or \
+            rep_a["train_step_calls"] != steps:
+        fail(f"{LM_ARCH} training: launches {counts} over "
+             f"{rep_a['train_step_calls']} steps, not {per_step} a step")
+    calls_b = rep_b["train_step_calls"]
+    if (counts_b["flash_attn"], counts_b["flash_attn_bwd"]) != \
+            (per_step[0] * calls_b, per_step[1] * calls_b) or \
+            calls_b != steps + 3:
+        fail(f"{LM_ARCH} training with a crash: launches {counts_b} over "
+             f"{calls_b} steps")
+    first, last = rep_a["first_loss"], rep_a["last_loss"]
+    if not (math.isfinite(last) and last < first):
+        fail(f"{LM_ARCH} training: loss {first} -> {last} did not fall")
+    if rep_b["loss_log"][:3] != rep_a["loss_log"][:3]:
+        fail(f"{LM_ARCH} training: a rerun's losses differ: "
+             f"{rep_b['loss_log'][:3]} vs {rep_a['loss_log'][:3]}")
+    if rep_b["losses"] != rep_a["losses"] or \
+            rep_b["params_digest"] != rep_a["params_digest"]:
+        fail(f"{LM_ARCH} training: crash + restart differs from "
+             f"uninterrupted: {rep_b['losses']} vs {rep_a['losses']}, "
+             f"digest {rep_b['params_digest']} vs {rep_a['params_digest']}")
+    work = lm_step_work(cfg, b, s)
+    steps_s = sum(rep_a["step_ms"]) / 1e3
+    record = {
+        "arch": LM_ARCH, "batch": b, "seq": s, "steps": steps,
+        "losses": rep_a["losses"], "ms_per_step": rep_a["ms_per_step"],
+        "tokens_per_s": rep_a["tokens_per_s"],
+        "peak_device_gib": rep_a["peak_device_gib"],
+        "step_bound_ms": work["bound_ms"], "step_bound_by": work["bound_by"],
+        "step_flops": work["flops"],
+        "launches_per_step": {"flash_attn": counts["flash_attn"] / steps,
+                              "flash_attn_bwd": counts["flash_attn_bwd"]
+                              / steps},
+        "runner_wall_s": rep_a["wall_s"],
+        "checkpoint_and_setup_s": rep_a["wall_s"] - steps_s,
+        "restart_run_wall_s": rep_b["wall_s"],
+        "rerun_bit_equal_steps": 3, "restart_bit_equal": True,
+        "vs_cpu": vs_cpu, "smi": smi}
+    log(f"{LM_ARCH} training at {b} x {s} tokens, all {cfg.n_layers} layers: "
+        f"{record['ms_per_step']:.1f} ms a step (median of steps 2-{steps}), "
+        f"{record['tokens_per_s']:.0f} tokens/s, bound "
+        f"{work['bound_ms']:.1f} ms ({work['bound_by']}: "
+        f"{work['flops']:.4g} FLOP), peak {record['peak_device_gib']:.2f} "
+        f"GiB; the runner's wall {rep_a['wall_s']:.1f} s of which "
+        f"{record['checkpoint_and_setup_s']:.1f} s outside the steps (the "
+        f"step-0 checkpoint); with the crash {rep_b['wall_s']:.1f} s; "
+        f"launches a step B6 {per_step[0]}, B6-bwd {per_step[1]}  [{smi}]")
+    return held, record, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2729,6 +3250,14 @@ def main() -> int:
     flash_row["launches"] += n_4h
     log(f"encoder-decoder and VLM phase (4h): "
         f"{time.perf_counter() - t_4h:.1f} s")
+    free_device()
+    t_4i = time.perf_counter()
+    bwd_held, lm_train_record, lm_counts = lm_train_phase(device, smi)
+    flash_row["launches"] += lm_counts["flash_attn"]
+    bwd_row = b6_bwd_time(bwd_held["max_abs_err"], device)
+    bwd_row["launches"] = lm_counts["flash_attn_bwd"]
+    rows.append(bwd_row)
+    log(f"LM training phase (4i): {time.perf_counter() - t_4i:.1f} s")
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "
@@ -2771,6 +3300,17 @@ def main() -> int:
             encdec_vlm_reports:
         log("token_run " + json.dumps(
             {k: v for k, v in rep.items() if k != "tokens"}))
+    r = bwd_row
+    log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the device, "
+        f"{r['wall_ms']:.6f} ms per call, plain {r['plain_ms']:.6f} ms, bound "
+        f"{r['bound_ms']:.6f} ms ({r['bound_by']}), SDPA's backward "
+        f"{r['library_ms']:.6f} ms, {r['launches']} launches on the main "
+        f"path  [{smi}]")
+    f = r["forward_lse"]
+    log(f"time flash_attn with lse ({r['shape']}): {f['ms']:.6f} ms on the "
+        f"device, {f['ms_without_lse']:.6f} ms without it, plain (with lse) "
+        f"{f['plain_ms']:.6f} ms  [{smi}]")
+    log("lm_train_run " + json.dumps(lm_train_record))
     log("chaos_run " + json.dumps(chaos))
     log("eq3_run " + json.dumps(eq3_summary(eq3_runs, rows, name, smi)))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -39,7 +39,10 @@ class ModelConfig:
     gated_mlp: bool = True    # SwiGLU (llama family); False -> squared ReLU
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
-    quant: str = "none"       # only "none" until the LM-training slice
+    quant: str = "none"       # only "none": QAT and int8 dots are ROADMAP §A 3
+    parallel_block: bool = False  # PaLM-style attn || mlp: refused (§A 3)
+    remat: str = "full"       # "full": each block's activations recomputed
+                              # in the backward; "save_attn" refused (§A 3)
     decode_unroll: bool = False  # per-layer decode caches (else stacked)
     # --- MoE (family == "moe") ---
     n_experts: int = 0        # routed experts
@@ -105,8 +108,16 @@ class ModelConfig:
                              f"positive top_k")
         if self.quant != "none":
             raise NotImplementedError(
-                f"{self.name}: quant={self.quant!r} arrives with the "
-                f"LM-training slice (ROADMAP.md §A)")
+                f"{self.name}: quant={self.quant!r} (fake-quant QAT, int8 "
+                f"dots) is not ported yet (ROADMAP.md §A 3)")
+        if self.parallel_block:
+            raise NotImplementedError(
+                f"{self.name}: parallel_block is not ported yet (ROADMAP.md "
+                f"§A 3)")
+        if self.remat != "full":
+            raise NotImplementedError(
+                f"{self.name}: remat={self.remat!r}; the port checkpoints "
+                f"whole blocks (\"full\"), \"save_attn\" is ROADMAP.md §A 3")
         return self
 
     def _validate_attention(self) -> None:

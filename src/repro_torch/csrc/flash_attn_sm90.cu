@@ -65,6 +65,12 @@
 // fast math: expf is the accurate one.  No atomics: a launch and its repeat
 // give the same bits.
 //
+// Training: with a non-null lse pointer the kernel also writes each row's
+// log-sum-exp, m + log(max(l, 1e-30)) of its final running max and sum
+// (-1e30 for a row of no kept key: f32 cannot hold -1e30 + log(l)), which
+// the backward kernel (flash_attn_bwd.cu) recomputes P from.  It is written
+// after the output and changes none of its bits.
+//
 // The tensor maps are encoded on the host for each call, through the
 // driver's cuTensorMapEncodeTiled fetched with cudaGetDriverEntryPoint, so
 // the library needs no -lcuda; they reach the kernel as __grid_constant__
@@ -448,7 +454,8 @@ flash_attn_kernel_sm90(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
                        __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ scores, int n_heads, int sq, int sk,
+                       float* __restrict__ scores, float* __restrict__ lse,
+                       int n_heads, int sq, int sk,
                        int group, int kv_len, int causal, int window,
                        float scale) {
   using T = Tiles<DH>;
@@ -684,6 +691,9 @@ flash_attn_kernel_sm90(const __grid_constant__ CUtensorMap q_map,
           *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
               __floats2bfloat162_rn(__fdiv_rn(acc[4 * j + 2 * h], denom),
                                     __fdiv_rn(acc[4 * j + 2 * h + 1], denom));
+        // every lane of the quad holds the row's m and l: lane t = 0 writes
+        if (lse != nullptr && t == 0)
+          lse[out_row + 8 * h] = __fadd_rn(m[h], logf(denom));
       }
     }
     if (wg == 0) my_turn();  // the last turn warpgroup 1 passed
@@ -745,8 +755,8 @@ int make_map(CUtensorMap* map, const void* ptr, int rows, int dh, int panel,
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out,
-           float* scores, int bh, int sq, int sk, int group, int kv_len,
-           int causal, int window, cudaStream_t stream) {
+           float* scores, float* lse, int bh, int sq, int sk, int group,
+           int kv_len, int causal, int window, cudaStream_t stream) {
   using T = Tiles<DH>;
   CUtensorMap q_map, k_map, v_map;
   int e = make_map(&q_map, q, bh * sq, DH, T::kPanel, kBlockQ);
@@ -765,8 +775,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(DH)));
   kern<<<n_items < sms ? n_items : sms, kThreads, T::kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), scores, bh, sq,
-      sk, group, kv_len, causal, window, scale);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), scores, lse,
+      bh, sq, sk, group, kv_len, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -781,29 +791,32 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // masks: the check that holds the kernel against its plain version feeds
 // them to the plain version (the tensor core sums q k^T in its own order,
 // and a score one f32 ulp off can round its p to the neighbouring bf16
-// value).  Null on the serving path.  The wrapper checks all of this.
+// value).  Null on the serving path.  lse, when not null, is an f32 (bh,
+// sq) tensor that receives each row's log-sum-exp (training; null on the
+// serving path).  The wrapper checks all of this.
 // Returns 0, a cudaError_t after the launch, or kNoEntryPoint /
 // kEncodeFailed + CUresult when a tensor map could not be made.
 extern "C" int flash_attn_sm90_launch(const void* q, const void* k,
                                       const void* v, void* out, void* scores,
-                                      int bh, int sq, int sk, int dh,
+                                      void* lse, int bh, int sq, int sk, int dh,
                                       int group, int kv_len, int causal,
                                       int window, void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scores);
+  float* ls = static_cast<float*>(lse);
   switch (dh) {
     case 16:
-      return launch<16>(q, k, v, out, sc, bh, sq, sk, group, kv_len, causal,
+      return launch<16>(q, k, v, out, sc, ls, bh, sq, sk, group, kv_len, causal,
                         window, s);
     case 32:
-      return launch<32>(q, k, v, out, sc, bh, sq, sk, group, kv_len, causal,
+      return launch<32>(q, k, v, out, sc, ls, bh, sq, sk, group, kv_len, causal,
                         window, s);
     case 64:
-      return launch<64>(q, k, v, out, sc, bh, sq, sk, group, kv_len, causal,
+      return launch<64>(q, k, v, out, sc, ls, bh, sq, sk, group, kv_len, causal,
                         window, s);
     case 128:
-      return launch<128>(q, k, v, out, sc, bh, sq, sk, group, kv_len, causal,
+      return launch<128>(q, k, v, out, sc, ls, bh, sq, sk, group, kv_len, causal,
                          window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

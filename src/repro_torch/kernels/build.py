@@ -32,7 +32,8 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 #: kernel name -> source file under ``csrc/``
 SOURCES = {"qat_dense": "qat_dense.cu", "fused_forward": "fused_forward.cu",
            "fused_train": "fused_train.cu", "flash_attn": "flash_attn.cu",
-           "flash_attn_sm90": "flash_attn_sm90.cu"}
+           "flash_attn_sm90": "flash_attn_sm90.cu",
+           "flash_attn_bwd": "flash_attn_bwd.cu"}
 
 #: bytes of shared memory a block may use on sm_90
 SMEM_MAX = 232_448

@@ -56,3 +56,18 @@ def disable_tf32() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if a gradient could reach a kernel whose output has none: grad
+    enabled and an input that requires it.  The port's ctypes wrappers fill
+    outputs that the autograd graph does not see, so the gradient would be
+    cut silently and a different model trained.  B1-B5 compute no
+    gradient on either device and check on the CPU too; B6's wrapper
+    checks CUDA tensors (its plain version differentiates on the CPU)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel's output has no "
+            f"backward; call it under torch.no_grad() (or on detached "
+            f"inputs) where no gradient is wanted")

@@ -12,6 +12,9 @@
   row of a q block is skipped for that q block, as on the TPU.  The CPU
   runs it for the kernel's wrapper; on the card it is what the kernel is
   held against.
+* :func:`flash_attention_bwd_plain` — B6-bwd's plain version: dQ, dK and
+  dV from the forward's per-row log-sum-exp, in the backward kernel's
+  order (``csrc/flash_attn_bwd.cu``).
 * :func:`bf16_ulps` — the measure that holds a bf16 output against the
   plain version's, element by element.
 * :func:`plain_scores` / :func:`scores_bound` — the plain version's scaled
@@ -75,12 +78,15 @@ def block_runs(q_lo: int, block_q: int, k_lo: int, block_k: int, *,
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           block_q: int = 64, block_k: int = 64,
                           group: int = 1, kv_len: int | None = None,
-                          scores=None):
+                          scores=None, return_lse: bool = False):
     """q: (BH, Sq, dh); k/v: (BH // group, Sk, dh), Sq and Sk multiples of
     ``block_q`` / ``block_k``; ``kv_len`` the true kv length (default Sk).
     ``scores``: (BH, Sq, Sk) float32 scaled scores to take in place of the
     plain version's own ``q k^T / sqrt(dh)`` (a kernel's, see above); the
-    masks still apply.  Returns (BH, Sq, dh) in q's dtype."""
+    masks still apply.  Returns (BH, Sq, dh) in q's dtype, and with
+    ``return_lse`` also each row's log-sum-exp, (BH, Sq) float32: ``m +
+    log(max(l, 1e-30))`` of the final running max and sum, -1e30 for a row
+    of no kept key (f32 cannot hold -1e30 + log(l))."""
     bh, sq, dh = q.shape
     bkv, sk = k.shape[0], k.shape[1]
     if bh != bkv * group or sq % block_q or sk % block_k:
@@ -126,7 +132,59 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         l = torch.where(run, l_new, l)
         acc = torch.where(run, acc_new, acc)
     out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(bh, sq, dh).to(q.dtype)
+    out = out.reshape(bh, sq, dh).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(torch.clamp(l, min=1e-30))).reshape(bh, sq)
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = True,
+                              window: int = 0, group: int = 1,
+                              kv_len: int | None = None):
+    """B6-bwd's plain version: (dq, dk, dv) of the forward ``out`` from
+    q, out, dout (BH, Sq, dh), k, v (BH // group, Sk, dh) and the forward's
+    ``lse`` (BH, Sq) float32, in the kernel's formulas and order
+    (``csrc/flash_attn_bwd.cu``): scores ``q k^T`` as f32 sums of the
+    inputs' products times ``1/sqrt(dh)``; ``P = exp(s - lse)``, 0 where the
+    masks drop the pair (and on every key of a row of no kept key);
+    ``D = rowsum(dout * out)``; ``dP = dout v^T``; ``dS = P (dP - D)``;
+    ``dV = P^T dout`` with P rounded to v's dtype, ``dQ = (dS k) scale``
+    and ``dK = (dS^T q) scale`` with dS rounded to q's dtype, every product
+    summed in f32; dK and dV sum over the ``group`` query heads of each kv
+    head.  Returns them in the inputs' dtypes.  Fully masked kv tiles, which
+    the kernel skips, add exact zeros here."""
+    bh, sq, dh = q.shape
+    bkv, sk = k.shape[0], k.shape[1]
+    if bh != bkv * group or v.shape != k.shape or out.shape != q.shape \
+            or dout.shape != q.shape or lse.shape != (bh, sq):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)}, "
+                         f"group {group}")
+    seq_len = sk if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    rows = group * sq  # q head bh reads kv head bh // group
+    qf = q.reshape(bkv, rows, dh).float()
+    dof = dout.reshape(bkv, rows, dh).float()
+    q_pos = torch.arange(sq, device=dev).repeat(group)
+    k_pos = torch.arange(sk, device=dev)
+    keep = (k_pos[None, :] < seq_len).expand(rows, sk)
+    if causal:
+        keep = keep & (k_pos[None, :] <= q_pos[:, None])
+    if window:
+        keep = keep & (k_pos[None, :] > q_pos[:, None] - window)
+    s = torch.matmul(qf, k.float().transpose(1, 2)) * scale
+    p = torch.where(keep[None], torch.exp(s - lse.reshape(bkv, rows, 1)), 0.0)
+    d = torch.sum(dof * out.reshape(bkv, rows, dh).float(), dim=-1,
+                  keepdim=True)
+    dp = torch.matmul(dof, v.float().transpose(1, 2))
+    ds = (p * (dp - d)).to(q.dtype).float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(1, 2), dof)
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(1, 2), qf) * scale
+    return (dq.reshape(bh, sq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def bf16_ulps(got, want) -> torch.Tensor:
@@ -168,3 +226,63 @@ def scores_bound(q, k, *, group: int = 1):
     mag = torch.matmul(qa, k.float().abs().transpose(1, 2)) * (
         1.0 / math.sqrt(dh))
     return (mag * (4 * (dh + 1) * 2.0 ** -24)).reshape(bh, sq, sk)
+
+
+def bwd_bounds(q, k, v, out, dout, lse, *, causal: bool = True,
+               window: int = 0, group: int = 1, kv_len: int | None = None):
+    """How far B6-bwd's (dq, dk, dv) may lie from its plain version's on the
+    same inputs, element by element, as float32 tensors of their shapes.
+
+    The kernel rounds P and dS to bf16 as the plain version does, but its
+    tensor cores sum the scores, dP and the three gradient products in
+    other f32 orders: a P or dS one f32 ulp off can round to the
+    neighbouring bf16 value, at most 2^-7 of its magnitude, and the two f32
+    orders of a sum of n products differ by at most ``4 n u`` of their
+    magnitudes (u = 2^-24, as :func:`scores_bound`).  So, for dV the
+    rounding share ``2^-7 |P|^T |dout|``; for dQ and dK ``2^-7`` of
+    ``|dS| |k|`` and ``|dS|^T |q|`` (times the scale) plus the f32 share,
+    ``P (|dout| |v|^T + |D|)`` times ``4 (dh + Sk + 1) u`` carried through
+    the same products.  :func:`bwd_ratio` adds one bf16 ulp of each
+    output's own magnitude, for its final rounding."""
+    bh, sq, dh = q.shape
+    bkv, sk = k.shape[0], k.shape[1]
+    seq_len = sk if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    rows = group * sq
+    qf = q.reshape(bkv, rows, dh).float()
+    dof = dout.reshape(bkv, rows, dh).float()
+    q_pos = torch.arange(sq, device=dev).repeat(group)
+    k_pos = torch.arange(sk, device=dev)
+    keep = (k_pos[None, :] < seq_len).expand(rows, sk)
+    if causal:
+        keep = keep & (k_pos[None, :] <= q_pos[:, None])
+    if window:
+        keep = keep & (k_pos[None, :] > q_pos[:, None] - window)
+    s = torch.matmul(qf, k.float().transpose(1, 2)) * scale
+    p = torch.where(keep[None], torch.exp(s - lse.reshape(bkv, rows, 1)), 0.0)
+    d = torch.sum(dof * out.reshape(bkv, rows, dh).float(), dim=-1,
+                  keepdim=True)
+    dp = torch.matmul(dof, v.float().transpose(1, 2))
+    ds = (p * (dp - d)).abs()
+    f32 = 4 * (dh + sk + 1) * 2.0 ** -24
+    ds_f32 = p * (torch.matmul(dof.abs(), v.float().abs().transpose(1, 2))
+                  + d.abs()) * f32
+    ka, qa = k.float().abs(), qf.abs()
+    rnd = 2.0 ** -7
+    tv = torch.matmul(p.transpose(1, 2), dof.abs()) * (rnd + f32)
+    tq = torch.matmul(rnd * ds + ds_f32, ka) * scale
+    tk = torch.matmul((rnd * ds + ds_f32).transpose(1, 2), qa) * scale
+    return tq.reshape(bh, sq, dh), tk, tv
+
+
+def bwd_ratio(got, want, bound) -> torch.Tensor:
+    """``|got - want|`` over ``bound`` (:func:`bwd_bounds`) plus one bf16
+    ulp of ``want``'s magnitude (at least :data:`BF16_FLOOR` times the
+    largest), element by element, as float64: at most 1 where the kernel
+    holds."""
+    g, w = got.double(), want.double()
+    floor = max(float(w.abs().max()) * BF16_FLOOR, 2.0 ** -126)
+    mag = torch.clamp(w.abs(), min=floor)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (g - w).abs() / (bound.double() + ulp)

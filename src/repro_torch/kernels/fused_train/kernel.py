@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import refuse_grad
 from repro_torch.kernels.fused_train.ref import (AdamRule, fused_train_plain,
                                                  packed_size)
 
@@ -225,8 +226,12 @@ def run_fused_train(x, y, params, widths, *, lr: float, tile_batch: int,
     size launched is kept in ``run_fused_train.last_cluster``.
 
     Returns ``(params, mu, nu, losses (n_tiles,), launched)``;
-    ``launched`` is False on the CPU and when there are no rows.
+    ``launched`` is False on the CPU and when there are no rows.  The
+    update is computed in the kernel, not by autograd: raises under grad
+    for an input that requires one, on either device.
     """
+    refuse_grad("fused_train", x, y, params, step0,
+                *(moments if moments is not None else ()))
     widths = _check_widths(widths)
     rows = x.shape[0]
     if tile_batch < 1 or rows % tile_batch:

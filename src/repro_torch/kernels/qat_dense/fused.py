@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import refuse_grad
 from repro_torch.kernels.qat_dense.ref import ref_fused_forward
 
 _HEADER_INTS = 4     # per layer: k_chunks, n_tiles, frag_offset, bs_offset
@@ -122,8 +123,10 @@ def fused_forward_call(x, net, *, drow=None):
 
     ``net``: an ``ops.PaddedInt8Net``.  ``drow``: optional (out_dim,) fp32
     row multiplied after the head scale (the serving engine's
-    denormalization, fused).
+    denormalization, fused).  Computes no gradient: raises under grad for
+    an input that requires one, on either device.
     """
+    refuse_grad("fused_forward_call", x, drow)
     if x.device.type == "cpu":
         return ref_fused_forward(x, net.s_in, net.packed, net.out_dim,
                                  drow=drow)

@@ -20,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import refuse_grad
 from repro_torch.kernels.qat_dense.ref import ref_qat_dense
 
 
@@ -70,7 +71,9 @@ def qat_dense_call(x_q, w_q, b_q, scale, *, relu: bool = True,
                    float_out: bool = False):
     """x_q (M,K) int8, w_q (K,N) int8, b_q (N,) int32, scale (N,) fp32 ->
     (M,N) int8 (requantized, ReLU-clamped when ``relu``) or fp32
-    (``float_out``, the linear head)."""
+    (``float_out``, the linear head).  Computes no gradient: raises under
+    grad for an input that requires one, on either device."""
+    refuse_grad("qat_dense_call", x_q, w_q, b_q, scale)
     if x_q.device.type == "cpu":
         return ref_qat_dense(x_q, w_q, b_q, scale, relu=relu,
                              float_out=float_out)

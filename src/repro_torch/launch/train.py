@@ -1,31 +1,66 @@
-"""Training launcher of the port: the MRF branch of ``repro.launch.train``.
+"""Training launcher of the port (counterpart of ``repro.launch.train``): the
+MRF nets and the LMs.
 
     python -m repro_torch.launch.train --arch mrf-fpga --backend fused \\
         --optimizer sgd --tile-batch 128 --chunk-steps 50 --steps 200 \\
         --batch 256 --device cuda
+    python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 5 \\
+        --batch 8 --seq 2048
 
-Config -> model -> engine (``float`` | ``qat-int8`` | ``fused``, the last
-the JAX package's ``fused-pallas``) -> fault-tolerant runner (checkpoints,
-restart, straggler watchdog) -> metrics log.  ``--chunk-steps N`` runs N
-steps per dispatch (for ``fused``: one kernel launch), bit-identical to
-stepwise.  ``--smoke`` takes the reduced config (16 frames).
+MRF: config -> model -> engine (``float`` | ``qat-int8`` | ``fused``, the
+last the JAX package's ``fused-pallas``) -> fault-tolerant runner
+(checkpoints, restart, straggler watchdog) -> metrics log.  ``--chunk-steps
+N`` runs N steps per dispatch (for ``fused``: one kernel launch),
+bit-identical to stepwise.  ``--smoke`` takes the reduced config (16
+frames).  The last line printed is ``train_report {json}``: the first and
+last step losses, samples/s and the Table 1 errors of the trained net on
+1,000 held-out signals.
 
-The last line printed is ``train_report {json}``: the first and last step
-losses, samples/s and the Table 1 errors of the trained net on 1,000
-held-out signals.  LM archs are refused: LM training arrives with a later
-slice (the port serves the dense family, ``launch/serve.py``); so does
-``--grad-compress``.
+LM (the reference's LM branch; the dense and VLM families): weights from
+seed 0 (f32 masters), byte-level batches of ``--batch`` x ``--seq`` tokens
+from ``data.lm_text.TextPipeline`` (vocab capped at 256), the VLM's prefix
+embeddings ``0.02 * N(0, 1)`` in bf16 from a ``torch.Generator`` seeded by
+the step (the reference draws them with ``jax.random.PRNGKey(step)``, whose
+threefry bits no torch generator repeats) with their positions' labels at
+-1; ``models.lm.next_token_loss`` (activations in bf16, each block
+recomputed in the backward, attention on B6 and B6-bwd), Adam, clipping at
+a global norm of 1.0, ``--microbatches`` and ``--grad-compress`` as the
+reference, under the same runner.  On the card the run is deterministic:
+``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts (when this module is
+run, or by a caller such as ``chip_smoke.py``) and the run holds
+``torch.use_deterministic_algorithms(True)`` (the embedding's gradient
+would otherwise scatter with atomics), so a rerun and a crash + restart
+repeat the losses and the weights bit for bit, as XLA's do on the TPU.
+The last line is ``train_report {json}``: the per-step losses (and every
+logged loss in order, ``loss_log``: a restart logs the replayed steps
+again), tokens/s and ms a step (the median of the steps after the first),
+the runner's wall time (steps, checkpoints and restores), peak device
+memory, B6's and B6-bwd's launches, the train-step calls and a digest of
+the final params' bits.  The MoE, SSM, hybrid and encoder-decoder families
+and ``--quant`` are refused (ROADMAP.md §A 3).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import pathlib
+import statistics
 import tempfile
+import time
+
+import torch
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.kernels.common import resolve_device
+
+#: the LM families this launcher trains; the others are ROADMAP.md §A 3
+LM_TRAIN_FAMILIES = ("dense", "vlm")
+#: cuBLAS's workspace setting under which its products are deterministic;
+#: it must be in the environment before CUDA starts
+CUBLAS_DETERMINISTIC = ":4096:8"
 
 
 def train_mrf(args, cfg) -> int:
@@ -40,9 +75,6 @@ def train_mrf(args, cfg) -> int:
 
     backend = args.backend
     optimizer = args.optimizer or ("sgd" if backend == "fused" else "adam")
-    if args.grad_compress:
-        raise SystemExit("--grad-compress needs optim/grad_compression.py, "
-                         "which arrives with a later LM slice of the port")
     device = resolve_device(args.device)
     ckpt_dir = args.ckpt_dir or str(pathlib.Path(tempfile.gettempdir())
                                     / "repro_torch_ckpt"
@@ -54,6 +86,7 @@ def train_mrf(args, cfg) -> int:
     fns = build_mrf(cfg)
     ecfg = engine.EngineConfig(
         backend=backend, lr=args.lr, optimizer=optimizer,
+        microbatches=args.microbatches, grad_compress=args.grad_compress,
         tile_batch=args.tile_batch, chunk_steps=args.chunk_steps)
     stream = engine.default_stream(cfg, args.batch)
     rcfg = RunnerConfig(total_steps=args.steps, ckpt_dir=ckpt_dir,
@@ -95,15 +128,174 @@ def train_mrf(args, cfg) -> int:
     return 0
 
 
+def lm_batches(cfg, pipe, device):
+    """``step -> batch`` on ``device`` (the reference's ``make_batches``):
+    the pipeline's tokens and labels as int64, and for the VLM family
+    ``prefix_embeds`` (B, n_prefix_embeds, d) bf16 from a generator seeded
+    by the step, over positions whose labels are -1."""
+    from repro_torch.models.common import COMPUTE
+
+    def at(step: int) -> dict:
+        host = pipe.batch_at(step)
+        if cfg.family == "vlm":
+            host["labels"][:, :cfg.n_prefix_embeds] = -1
+        batch = {k: torch.from_numpy(v).long().to(device)
+                 for k, v in host.items()}
+        if cfg.family == "vlm":
+            gen = torch.Generator(device=device).manual_seed(step)
+            batch["prefix_embeds"] = (0.02 * torch.randn(
+                (host["tokens"].shape[0], cfg.n_prefix_embeds, cfg.d_model),
+                generator=gen, device=device)).to(COMPUTE)
+        return batch
+    return at
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the run, the old
+    setting restored after.  On a card, CUDA must not have started before
+    ``CUBLAS_WORKSPACE_CONFIG`` was set (this module sets it when run;
+    raises otherwise, rather than run a step that may not repeat)."""
+    if torch.cuda.is_initialized() and \
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG") != CUBLAS_DETERMINISTIC:
+        raise RuntimeError(
+            f"LM training on the card needs CUBLAS_WORKSPACE_CONFIG="
+            f"{CUBLAS_DETERMINISTIC} set before CUDA starts")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def params_digest(params) -> int:
+    """A digest of the params' bits: each leaf's 32-bit words summed as
+    int64 (exact in any order), the leaves weighted by their position,
+    modulo 2^61 - 1.  Equal digests of two runs mean, to all practical
+    purposes, the same weights bit for bit."""
+    from repro_torch.tree import leaves
+
+    total = 0
+    for i, leaf in enumerate(leaves(params)):
+        words = leaf.detach().contiguous().view(torch.int32).to(torch.int64)
+        total = (total + (i + 1) * int(words.sum())) % (2 ** 61 - 1)
+    return total
+
+
+def train_lm(args, cfg) -> int:
+    """The LM branch: the reference's ``main`` past its MRF dispatch."""
+    from repro_torch.configs.base import param_count
+    from repro_torch.data.lm_text import TextPipeline
+    from repro_torch.ft.checkpoint import latest_step
+    from repro_torch.ft.runner import RunnerConfig, run
+    from repro_torch.kernels.flash_attn.kernel import (
+        flash_attention_bwd_call, flash_attention_call)
+    from repro_torch.models import registry
+    from repro_torch.optim import adam
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    if cfg.family not in LM_TRAIN_FAMILIES:
+        raise SystemExit(f"{cfg.name}: {cfg.family} training is not ported "
+                         f"yet (ROADMAP.md §A 3); the port trains the "
+                         f"{' and '.join(LM_TRAIN_FAMILIES)} families and "
+                         f"serves every family (python -m "
+                         f"repro_torch.launch.serve)")
+    device = resolve_device(args.device)
+    if cfg.family == "vlm" and args.seq < cfg.n_prefix_embeds:
+        raise SystemExit(f"--seq {args.seq}: a {cfg.name} sequence holds its "
+                         f"{cfg.n_prefix_embeds} prefix embeddings")
+    ckpt_dir = args.ckpt_dir or str(pathlib.Path(tempfile.gettempdir())
+                                    / "repro_torch_ckpt" / cfg.name)
+    resume = latest_step(ckpt_dir)
+    if resume:
+        print(f"resuming from checkpoint step {resume} in {ckpt_dir}")
+    with deterministic():
+        fns = registry.build(cfg)
+        opt = adam(args.lr)
+        step_fn = make_train_step(fns.loss, opt,
+                                  microbatches=args.microbatches,
+                                  max_grad_norm=1.0,
+                                  grad_compress=args.grad_compress)
+        calls = [0]
+
+        def counted_step(state, batch):
+            calls[0] += 1
+            return step_fn(state, batch)
+
+        params = fns.init(0, device=device)
+        state = init_train_state(params, opt,
+                                 grad_compress=args.grad_compress)
+        print(f"arch={cfg.name} params={param_count(cfg):,} tp=1 "
+              f"device={device} batch={args.batch} seq={args.seq} "
+              f"microbatches={args.microbatches}")
+        pipe = TextPipeline(seq_len=args.seq, batch_size=args.batch,
+                            vocab_size=min(cfg.vocab_size, 256))
+        rcfg = RunnerConfig(total_steps=args.steps, ckpt_dir=ckpt_dir,
+                            ckpt_every=args.ckpt_every,
+                            inject_fault_at=args.inject_fault_at)
+        losses, times, loss_log = {}, {}, []
+
+        def log(step, metrics, dt):
+            losses[step] = float(metrics["loss"])
+            times[step] = dt
+            loss_log.append([step, losses[step]])
+            print(f"step {step:5d} loss {losses[step]:.6f} gnorm "
+                  f"{float(metrics['grad_norm']):.4f} {dt * 1e3:.1f} ms",
+                  flush=True)
+
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        launches = (flash_attention_call.launches,
+                    flash_attention_bwd_call.launches)
+        t0 = time.perf_counter()
+        state, step = run(counted_step, state, lm_batches(cfg, pipe, device),
+                          rcfg, device=device, on_metrics=log)
+        wall = time.perf_counter() - t0
+    steady = [times[s] for s in sorted(times)[1:]] or list(times.values())
+    ms = statistics.median(steady) * 1e3 if steady else None
+    report = {"arch": cfg.name, "device": str(device), "steps": step,
+              "batch": args.batch, "seq": args.seq,
+              "microbatches": args.microbatches,
+              "losses": {str(k): losses[k] for k in sorted(losses)},
+              "loss_log": loss_log,
+              "first_loss": losses[min(losses)] if losses else None,
+              "last_loss": losses[max(losses)] if losses else None,
+              "ms_per_step": ms,
+              "step_ms": [times[k] * 1e3 for k in sorted(times)],
+              "tokens_per_s": (args.batch * args.seq / ms * 1e3
+                               if ms else None),
+              "peak_device_gib": (torch.cuda.max_memory_allocated(device)
+                                  / 2 ** 30 if device.type == "cuda"
+                                  else None),
+              "train_step_calls": calls[0],
+              "wall_s": wall,
+              "flash_attn_launches": flash_attention_call.launches
+              - launches[0],
+              "flash_attn_bwd_launches": flash_attention_bwd_call.launches
+              - launches[1],
+              "params_digest": params_digest(state.params)}
+    print(f"done at step {step}")
+    print("train_report " + json.dumps(report))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True,
-                    help="mrf-fpga | mrf-original (LM archs are refused)")
+                    help="mrf-fpga | mrf-original, or a dense or VLM arch")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (16 frames)")
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 256 (MRF), 8 (LM)")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="LM sequence length (tokens)")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="gradient accumulation over M equal slices of a "
+                         "batch (not with --backend fused)")
     ap.add_argument("--backend", default="float",
                     choices=["float", "qat-int8", "fused"],
                     help="engine backend; fused = the whole-step CUDA "
@@ -117,10 +309,13 @@ def main(argv=None) -> int:
                          "batches and, for fused, makes one kernel launch "
                          "(bit-identical to stepwise; 1 = stepwise)")
     ap.add_argument("--grad-compress", action="store_true",
-                    help="int8 error-feedback gradient compression (arrives "
-                         "with a later LM slice; raises)")
+                    help="int8 error-feedback gradient compression (not "
+                         "with --backend fused)")
+    ap.add_argument("--quant", default=None, choices=[None, "qat-int8"],
+                    help="LM int8 QAT: refused, not ported yet (ROADMAP.md "
+                         "§A 3)")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="default: <tmp>/repro_torch_ckpt/<arch>-<backend> "
+                    help="default: <tmp>/repro_torch_ckpt/<arch>[-<backend>] "
                          "(a rerun resumes from it)")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--inject-fault-at", type=int, default=None,
@@ -130,12 +325,18 @@ def main(argv=None) -> int:
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.quant:
+        raise SystemExit(f"--quant {args.quant}: LM quantization (fake-quant "
+                         f"QAT, int8 dots) is not ported yet (ROADMAP.md "
+                         f"§A 3); the MRF nets' QAT is --backend qat-int8")
     if cfg.family != "mrf":
-        raise SystemExit(f"{cfg.name}: LM training arrives with a later slice "
-                         f"of the port (ROADMAP.md §A); this slice serves it "
-                         f"(python -m repro_torch.launch.serve)")
+        args.batch = 8 if args.batch is None else args.batch
+        return train_lm(args, cfg)
+    args.batch = 256 if args.batch is None else args.batch
     return train_mrf(args, cfg)
 
 
 if __name__ == "__main__":
+    # before CUDA starts: LM training runs deterministic cuBLAS products
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
     raise SystemExit(main())

@@ -34,7 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import COMPUTE, normal_init, rms_norm
-from repro_torch.models.lm import ModelFns, _heads, _logits, _no_training
+from repro_torch.models.lm import ModelFns, _heads, _logits, no_training
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.tree import tree_map
 
@@ -216,7 +216,7 @@ def build_encdec(cfg: ModelConfig, tp: int = 1) -> ModelFns:
     return ModelFns(
         cfg=cfg,
         init=partial(init_params, cfg, tp=tp),
-        loss=_no_training,
+        loss=no_training("encoder-decoder training (encdec_loss)"),
         prefill=partial(prefill, cfg, tp),
         decode=partial(decode_token, cfg, tp),
         init_cache=partial(init_cache, cfg, tp))

@@ -13,10 +13,10 @@ Mamba2Params}, ...], "final_norm": (d,), "head": (d, V)}`` in fp32, the
 ``ssm`` only, a hybrid layer all but ``moe``.
 ``convert.lm_params_from_numpy`` carries the reference's stacked params
 across.  Activations are bf16 from the embedding on.  An MoE layer's FFN is
-``models.moe.moe_block`` (attention stays on B6); its load-balance loss
-matters only to the LM training still to come and is dropped here.  A
-hybrid layer runs attention (B6) and the mamba2 mixer side by side on the
-same input, ``h + 0.5 * (attn + ssm)``, then its MLP; its layers 0, every
+``models.moe.moe_block`` (attention stays on B6), whose load-balance term
+each block returns and the stack sums.  A hybrid layer runs attention (B6)
+and the mamba2 mixer side by side on the same input, ``h + 0.5 * (attn +
+ssm)``, then its MLP; its layers 0, every
 ``global_layer_every``-th and the last attend globally, the others within
 ``swa_window``.  A VLM layer is a dense layer; the VLM's prefill takes
 ``batch["prefix_embeds"]`` (B, n_prefix_embeds, d), the vision tower's
@@ -32,8 +32,17 @@ K and V a ring of capacity ``min(swa_window, S)`` on a window layer and S
 on a global one, prefill's token t at slot ``t mod capacity``.  Decode
 writes into the caches in place and returns the same cache object.
 
-LM training (``lm_loss`` / ``cross_entropy`` of the reference) arrives
-with a later slice.
+Training: :func:`next_token_loss` (``build_lm(...).loss``) is the reference's
+next-token cross entropy (:func:`cross_entropy`) over the stack's logits,
+plus ``MOE_LOSS_COEF * aux / n_layers`` for the MoE family.  With
+``cfg.remat == "full"`` (the only setting the port takes) and grad enabled,
+each block of a non-hybrid stack runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: its activations
+are recomputed in the backward, as the reference's ``jax.checkpoint`` of
+the scanned block does (the reference's unrolled hybrid stack has no
+checkpoint, nor has the port's).  Attention's gradient is B6-bwd on the
+card (``kernels.flash_attn.ops.FlashAttention``): a step of tinyllama
+launches B6 twice a layer (forward and recompute) and B6-bwd once.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from functools import partial
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
@@ -54,6 +64,7 @@ from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.tree import tree_map
 
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+MOE_LOSS_COEF = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,12 +154,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 
 
 def _ffn(cfg: ModelConfig, lp, x):
-    """The layer's FFN on x (B, S, d): the dense MLP or the MoE block."""
+    """The layer's FFN on x (B, S, d): (the dense MLP's output, a zero
+    load-balance term) or the MoE block's (y, aux)."""
     if cfg.family == "moe":
-        y, _ = moe_block(lp["moe"], x, top_k=cfg.top_k,
+        return moe_block(lp["moe"], x, top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor)
-        return y
-    return mlp_block(lp["mlp"], x, quant=cfg.quant)
+    return mlp_block(lp["mlp"], x, quant=cfg.quant), _zero(x)
+
+
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _mixer(cfg: ModelConfig, lp, x, return_cache: bool):
@@ -161,13 +176,15 @@ def _mixer(cfg: ModelConfig, lp, x, return_cache: bool):
 
 def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool,
            is_global: bool = False):
-    """One pre-norm residual block. h: (B, S, d).  Returns (h, kv): kv is
-    the attention's (k, v), the SSM layer's Mamba2Cache or the hybrid
-    layer's ((k, v), Mamba2Cache) with ``return_kv``, else None."""
+    """One pre-norm residual block. h: (B, S, d).  Returns (h, kv, aux): kv
+    is the attention's (k, v), the SSM layer's Mamba2Cache or the hybrid
+    layer's ((k, v), Mamba2Cache) with ``return_kv``, else None; aux the
+    MoE block's load-balance term (0 in the other families)."""
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         out = _mixer(cfg, lp, x, return_kv)
-        return (h + out[0], out[1]) if return_kv else (h + out, None)
+        return (h + out[0], out[1], _zero(h)) if return_kv else \
+            (h + out, None, _zero(h))
     window = None if is_global else (cfg.swa_window or None)
     a_out = attn.attn_block(lp["attn"], x, cfg_heads=_heads(cfg, tp),
                             rope_theta=cfg.rope_theta, causal=True,
@@ -183,9 +200,10 @@ def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool,
             kv = (kv, skv)
         h = h + 0.5 * (a_out + s_out)
         return h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                             quant=cfg.quant), kv
+                             quant=cfg.quant), kv, _zero(h)
     h = h + a_out
-    return h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps)), kv
+    y, aux = _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return h + y, kv, aux
 
 
 def check_prefix_len(n_prefix: int, seq: int) -> None:
@@ -212,13 +230,22 @@ def _embed(params, tokens, prefix_embeds=None):
 def _stack_forward(cfg: ModelConfig, tp: int, params, h, *,
                    collect_kv: bool):
     """Runs the layer stack. Returns (h, [each layer's kv (``_block``)] or
-    None)."""
-    kvs = []
+    None, the sum of the blocks' aux terms in layer order).  Under grad,
+    without ``collect_kv``, each block of a non-hybrid stack is
+    checkpointed (``cfg.remat == "full"``; module docstring)."""
+    remat = torch.is_grad_enabled() and not collect_kv \
+        and cfg.family != "hybrid" and cfg.remat == "full"
+    kvs, aux_total = [], _zero(h)
     for lp, is_global in zip(params["layers"], global_flags(cfg)):
-        h, kv = _block(cfg, tp, h, lp, return_kv=collect_kv,
-                       is_global=is_global)
+        block = partial(_block, cfg, tp, lp=lp, return_kv=collect_kv,
+                        is_global=is_global)
+        if remat:
+            h, kv, aux = checkpoint(block, h, use_reentrant=False)
+        else:
+            h, kv, aux = block(h)
         kvs.append(kv)
-    return h, (kvs if collect_kv else None)
+        aux_total = aux_total + aux
+    return h, (kvs if collect_kv else None), aux_total
 
 
 def _logits(params, h):
@@ -285,7 +312,7 @@ def prefill(cfg: ModelConfig, tp: int, params, batch):
     (the VLM family; P <= S)."""
     h = _embed(params, batch["tokens"], batch.get("prefix_embeds"))
     seq = batch["tokens"].shape[1]
-    h, kvs = _stack_forward(cfg, tp, params, h, collect_kv=True)
+    h, kvs, _ = _stack_forward(cfg, tp, params, h, collect_kv=True)
     if cfg.decode_unroll or cfg.family in ("ssm", "hybrid"):
         cache = tuple(layer_cache(cfg, kv, is_global, seq)
                       for kv, is_global in zip(kvs, global_flags(cfg)))
@@ -321,8 +348,8 @@ def _decode_block(cfg: ModelConfig, tp: int, h1, lp, layer, cache_len):
     h1 = h1 + a_out
     x2 = rms_norm(h1, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":  # the B tokens route as one group of (B, 1)
-        return h1 + _ffn(cfg, lp, x2[:, None, :])[:, 0, :]
-    return h1 + _ffn(cfg, lp, x2)
+        return h1 + _ffn(cfg, lp, x2[:, None, :])[0][:, 0, :]
+    return h1 + _ffn(cfg, lp, x2)[0]
 
 
 def decode_token(cfg: ModelConfig, tp: int, params, cache, tokens1,
@@ -340,9 +367,45 @@ def decode_token(cfg: ModelConfig, tp: int, params, cache, tokens1,
     return _logits(params, h), cache
 
 
-def _no_training(*_a, **_k):
-    raise NotImplementedError("LM training (lm_loss, cross_entropy) arrives "
-                              "with a later slice (ROADMAP.md §A)")
+def cross_entropy(logits, labels, true_vocab: int):
+    """logits (B, S, V') in any float dtype, labels (B, S) int, -1 masked:
+    the mean next-token cross entropy over the kept labels, in f32, the
+    padded vocab columns (>= ``true_vocab``) at -1e30 (the reference's
+    ``cross_entropy``)."""
+    lg = logits.float()
+    if true_vocab < lg.shape[-1]:
+        col = torch.arange(lg.shape[-1], device=lg.device)
+        lg = torch.where(col < true_vocab, lg, -1e30)
+    lse = torch.logsumexp(lg, dim=-1)
+    lab = torch.gather(lg, -1, torch.clamp_min(labels, 0)[..., None]
+                       .long())[..., 0]
+    mask = (labels >= 0).float()
+    # a true division by a device tensor (never a reciprocal multiply)
+    return torch.sum((lse - lab) * mask) / torch.clamp_min(torch.sum(mask),
+                                                           1.0)
+
+
+def next_token_loss(cfg: ModelConfig, tp: int, params, batch):
+    """The training loss on ``batch`` {"tokens", "labels" (B, S), and for
+    the VLM family "prefix_embeds" (B, P, d)}: :func:`cross_entropy` of the
+    stack's logits, plus ``MOE_LOSS_COEF * aux / n_layers`` for MoE (the
+    reference's ``lm_loss``, whose name the reference's dead-exports
+    allowlist holds, as it holds ``MOE_AUX_COEF``)."""
+    h = _embed(params, batch["tokens"], batch.get("prefix_embeds"))
+    h, _, aux = _stack_forward(cfg, tp, params, h, collect_kv=False)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    loss = cross_entropy(_logits(params, h), batch["labels"], cfg.vocab_size)
+    if cfg.family == "moe":
+        loss = loss + MOE_LOSS_COEF * aux / cfg.n_layers
+    return loss
+
+
+def no_training(what: str):
+    """A ``loss`` that refuses: ``what`` trains in a later slice."""
+    def refuse(*_a, **_k):
+        raise NotImplementedError(f"{what} arrives with a later slice of the "
+                                  f"port (ROADMAP.md §A 3)")
+    return refuse
 
 
 def build_lm(cfg: ModelConfig, tp: int = 1) -> ModelFns:
@@ -354,7 +417,7 @@ def build_lm(cfg: ModelConfig, tp: int = 1) -> ModelFns:
     return ModelFns(
         cfg=cfg,
         init=partial(init_params, cfg, tp=tp),
-        loss=_no_training,
+        loss=partial(next_token_loss, cfg, tp),
         prefill=partial(prefill, cfg, tp),
         decode=partial(decode_token, cfg, tp),
         init_cache=partial(init_cache, cfg, tp))

@@ -147,12 +147,17 @@ def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int):
     # within a chunk, per head (the dual quadratic form): (B,nc,H,Q,K)
     cum_h = cum.transpose(2, 3)
     cb = torch.matmul(cr, br.transpose(2, 3))       # (B,nc,Q,K)
-    m = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
-    m.mul_(cb[:, :, None]).mul_(dtr.transpose(2, 3)[:, :, :, None, :])
-    # above the diagonal the exponent is >= 0 and may overflow to inf:
-    # those entries are selected away (a 0/1 multiply would give NaN)
+    # above the diagonal the exponent is >= 0 and may overflow to inf: it is
+    # masked before exp (to 0) and the entries selected away after, so
+    # neither the values nor the gradient meet an inf (0 * inf is NaN; the
+    # reference masks only after exp, and its gradient is NaN there).  Out
+    # of place, so autograd can differentiate it; the values are the
+    # in-place form's bit for bit.
     upper = torch.ones((q, q), dtype=torch.bool, device=x.device).triu(1)
-    m.masked_fill_(upper, 0.0)
+    m = torch.exp(torch.where(upper, 0.0,
+                              cum_h[..., :, None] - cum_h[..., None, :])) \
+        * cb[:, :, None] * dtr.transpose(2, 3)[:, :, :, None, :]
+    m = torch.where(upper, 0.0, m)
     y = torch.matmul(m, xr.transpose(2, 3)).transpose(2, 3)  # (B,nc,Q,H,P)
 
     # each chunk's contribution to the state at its end: (B,nc,H,P,N)

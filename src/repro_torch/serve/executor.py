@@ -102,6 +102,10 @@ class InflightWave:
     events: list         # per-tile torch.cuda.Event, or None on the CPU
     total: int           # real (unpadded) voxel count of the wave
 
+    @property
+    def n_tiles(self) -> int:
+        return len(self.tiles)
+
     def wait(self) -> np.ndarray:
         """Block once for the whole wave; return the (total, 2) predictions.
 
@@ -172,6 +176,9 @@ class WaveExecutor:
                           else self.int_layers[0].w_q.shape[0])
         self._fwd = self._make_forward()
         self.bucket_shapes_run: set = set()
+        # voxel counts of every request dispatched, in order: the recorded
+        # size distribution that bucket autotuning reads
+        self.request_sizes: list = []
         self.tiles_by_impl: collections.Counter = collections.Counter()
         # fault injection + the fused -> layered circuit breaker
         if breaker_threshold < 1:
@@ -231,7 +238,9 @@ class WaveExecutor:
         feature blocks *and* the zero rows that pad the ragged tail to its
         bucket, so every tile is then a contiguous static-shape slice.
         """
-        total = sum(int(f.shape[0]) for f in features_list)
+        counts = [int(f.shape[0]) for f in features_list]
+        self.request_sizes.extend(counts)
+        total = sum(counts)
         tiles = plan_tiles(total, self.buckets)
         padded_total = (tiles[-1][0] + tiles[-1][2]) if tiles else 0
         parts = [torch.as_tensor(f, dtype=torch.float32, device=self.device)

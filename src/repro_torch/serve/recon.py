@@ -219,6 +219,18 @@ class ReconEngine:
     # -- thin views over the layers (the executor owns the network state) --
 
     @property
+    def backend(self) -> str:
+        return self.executor.backend
+
+    @property
+    def params(self):
+        return self.executor.params
+
+    @property
+    def int_layers(self):
+        return self.executor.int_layers
+
+    @property
     def buckets(self) -> tuple:
         return self.executor.buckets
 
@@ -229,6 +241,16 @@ class ReconEngine:
     @property
     def int8_impl(self) -> str | None:
         return self.executor.int8_impl
+
+    @property
+    def request_sizes(self) -> list:
+        """Voxel counts of every request dispatched, in order: the recorded
+        size distribution that measured bucket autotuning reads."""
+        return self.executor.request_sizes
+
+    @property
+    def bucket_shapes_run(self) -> set:
+        return self.executor.bucket_shapes_run
 
     def compile_cache_size(self) -> int:
         """Distinct bucket shapes run so far (bounded by ``len(buckets)``)."""

@@ -86,10 +86,6 @@ class EngineConfig:
                     f"fused implements optimizers "
                     f"{fused_ops.FUSED_OPTIMIZERS} in-kernel, got "
                     f"{self.optimizer!r}")
-        elif self.grad_compress:
-            raise NotImplementedError(
-                "grad_compress needs optim/grad_compression.py, which "
-                "arrives with a later LM slice of the port")
 
 
 def _optimizer(cfg: EngineConfig):
@@ -119,10 +115,11 @@ def _backend_step(fns: ModelFns, cfg: EngineConfig, opt):
     return step, lambda params: None
 
 
-def _make_init(fns: ModelFns, opt, aux_of):
+def _make_init(fns: ModelFns, cfg: EngineConfig, opt, aux_of):
     def init_state(generator: torch.Generator) -> TrainState:
         params = fns.init(generator)
-        return init_train_state(params, opt, aux=aux_of(params))
+        return init_train_state(params, opt, grad_compress=cfg.grad_compress,
+                                aux=aux_of(params))
     return init_state
 
 
@@ -133,7 +130,7 @@ def build(fns: ModelFns, cfg: EngineConfig
     lives on the generator's device."""
     opt = _optimizer(cfg)
     step, aux_of = _backend_step(fns, cfg, opt)
-    return step, _make_init(fns, opt, aux_of)
+    return step, _make_init(fns, cfg, opt, aux_of)
 
 
 def _make_fused_chunk(cfg: EngineConfig, stream: MRFSampleStream, seed: int,
@@ -171,7 +168,7 @@ def build_chunk_fn(fns: ModelFns, cfg: EngineConfig, stream: MRFSampleStream,
     else:
         chunk = make_chunked_step(
             step, lambda s: batch_at(stream, seed, s, device=dev))
-    return chunk, _make_init(fns, opt, aux_of)
+    return chunk, _make_init(fns, cfg, opt, aux_of)
 
 
 def default_stream(model_cfg, batch_size: int) -> MRFSampleStream:

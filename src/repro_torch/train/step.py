@@ -1,4 +1,5 @@
-"""The training step of the MRF nets (counterpart of ``repro.train.step``).
+"""The training step of the MRF nets and the LMs (counterpart of
+``repro.train.step``).
 
 Composes: loss forward -> gradients by autograd -> optional sequential
 microbatch accumulation -> optional clipping by global norm -> Adam/SGD
@@ -15,10 +16,14 @@ The backend plugs in at one of two levels:
   ``microbatches > 1`` and ``grad_compress`` for it: there is no gradient
   tree to accumulate or compress.
 
-Int8 gradient compression (``grad_compress``) arrives with
-``optim/grad_compression.py`` in a later LM slice; until then it raises.
-Steps run eagerly, so ``make_chunked_step`` is a Python loop of ``n``
-steps with the metrics stacked.
+``grad_compress`` runs the int8 error-feedback compression
+(``optim.grad_compression``) on the clipped gradients, its residual
+carried in ``TrainState.ef_residual``.  Steps run eagerly, so
+``make_chunked_step`` is a Python loop of ``n`` steps with the metrics
+stacked.  A batch is a dict of tensors with a leading batch axis (the MRF
+nets' features and targets; an LM's tokens, labels and prefix
+embeddings); ``microbatches=M`` cuts every entry into M equal slices along
+it, in order, as the reference's ``resh`` does.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.optim.grad_compression import error_feedback_compress
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           global_norm)
 from repro_torch.tree import leaves, rebuild, tree_map
@@ -36,24 +42,17 @@ class TrainState(NamedTuple):
     step: torch.Tensor       # int32 0-d
     params: Any
     opt_state: Any
-    ef_residual: Any | None  # int8-compression error feedback (a later LM slice)
+    ef_residual: Any | None  # int8-compression error feedback
     aux: Any | None = None   # backend state (QAT observers); checkpointed
-
-
-def _no_grad_compress():
-    raise NotImplementedError(
-        "grad_compress needs optim/grad_compression.py, which arrives with "
-        "a later LM slice of the port")
 
 
 def init_train_state(params, opt: Optimizer, *, grad_compress: bool = False,
                      aux=None) -> TrainState:
-    if grad_compress:
-        _no_grad_compress()
     return TrainState(step=torch.zeros((), dtype=torch.int32,
                                        device=leaves(params)[0].device),
                       params=params, opt_state=opt.init(params),
-                      ef_residual=None, aux=aux)
+                      ef_residual=tree_map(torch.zeros_like, params)
+                      if grad_compress else None, aux=aux)
 
 
 def make_train_step(loss_fn, opt: Optimizer, *, microbatches: int = 1,
@@ -88,8 +87,6 @@ def make_train_step(loss_fn, opt: Optimizer, *, microbatches: int = 1,
                               ef_residual=state.ef_residual,
                               aux=new_aux), metrics
         return fused_train_step
-    if grad_compress:
-        _no_grad_compress()
 
     def grads_of(params, aux, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -131,9 +128,12 @@ def make_train_step(loss_fn, opt: Optimizer, *, microbatches: int = 1,
                 gnorm = global_norm(grads)
             else:
                 grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            residual = state.ef_residual
+            if grad_compress:
+                grads, residual = error_feedback_compress(grads, residual)
             new_params, new_opt = opt.update(grads, state.opt_state, params)
         return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt, ef_residual=state.ef_residual,
+                          opt_state=new_opt, ef_residual=residual,
                           aux=aux), {"loss": loss, "grad_norm": gnorm}
 
     return train_step

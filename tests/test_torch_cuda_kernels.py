@@ -410,6 +410,59 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     assert (got != want).float().mean().item() <= 1e-3
 
 
+@pytest.mark.parametrize("case", [
+    # B, S or (Sq, Sk), Hq, Hkv, dh, causal, window
+    (2, 256, 8, 2, 64, True, 0),
+    (1, 300, 8, 2, 32, True, 0),
+    (1, 320, 8, 2, 128, True, 24),
+    (1, 200, 4, 2, 16, True, 24),
+    (2, (200, 50), 8, 2, 64, False, 0),
+    (1, 1024, 56, 8, 128, True, 0),
+])
+def test_flash_attention_bwd_matches_plain(cuda, case):
+    """B6 with its log-sum-exp (the output unchanged) and B6-bwd against
+    the plain backward within ``ref.bwd_bounds``, a launch bit for bit its
+    repeat; ``ops.flash_attention`` under grad runs both kernels."""
+    b, s, hq, hkv, dh, causal, window = case
+    s, sk = s if isinstance(s, tuple) else (s, s)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn((b, n, h, dh), generator=g,
+                               device=cuda).to(torch.bfloat16)
+                   for n, h in ((s, hq), (sk, hkv), (sk, hkv), (s, hq)))
+    qf, kf, vf, kw = kernel_layout(q, k, v, causal=causal, window=window)
+    dof = kernel_layout(do, k, v, causal=causal, window=window)[0]
+    dof[:, s:] = 0
+    fwd, bwd = flash_kernel.flash_attention_call, \
+        flash_kernel.flash_attention_bwd_call
+    out, lse = fwd(qf, kf, vf, **kw, return_lse=True)
+    assert torch.equal(out, fwd(qf, kf, vf, **kw))
+    want_lse = flash_ref.flash_attention_plain(qf, kf, vf, **kw,
+                                               return_lse=True)[1]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    a = {x: kw[x] for x in ("causal", "window", "group", "kv_len")}
+    before = bwd.launches
+    got = bwd(qf, kf, vf, out, dof, lse, **a)
+    again = bwd(qf, kf, vf, out, dof, lse, **a)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 2
+    want = flash_ref.flash_attention_bwd_plain(qf, kf, vf, out, dof, lse, **a)
+    bounds = flash_ref.bwd_bounds(qf, kf, vf, out, dof, lse, **a)
+    for x, y, w, bb in zip(got, again, want, bounds):
+        assert torch.equal(x, y) and torch.isfinite(x).all()
+        assert flash_ref.bwd_ratio(x, w, bb).max().item() <= 1
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    fb, bb_ = fwd.launches, bwd.launches
+    o = flash_attention(qg, kg, vg, causal=causal, window=window)
+    grads = torch.autograd.grad(o, (qg, kg, vg), do)
+    assert (fwd.launches, bwd.launches) == (fb + 1, bb_ + 1)
+    for x, w, n in zip(grads, got, (hq, hkv, hkv)):
+        assert torch.equal(
+            x, w.reshape(b, n, -1, dh).transpose(1, 2)[:, :x.shape[1]])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fwd(qg.detach().requires_grad_(True).reshape(-1, s, dh)
+            .contiguous(), kf, vf, **kw)
+
+
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((4, 128, 64), device=cuda, dtype=torch.bfloat16)
     k = torch.zeros((2, 128, 64), device=cuda, dtype=torch.bfloat16)

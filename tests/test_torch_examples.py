@@ -9,6 +9,8 @@ and held.
   makes the example exit 1.
 * ``torch_serve_batch``: both SSM archs serve 8 x 48-token prompts and 24
   tokens, the launcher's ``token_report`` last, no B6 launch on the CPU.
+* ``torch_lm_train_smoke``: the crash it injects is recovered from, and the
+  run's losses and params equal an uninterrupted run's bit for bit.
 * Without a card each example refuses the default ``--device cuda``.
 """
 
@@ -144,8 +146,32 @@ def test_serve_batch_serves_both_ssm_families(arch):
     assert flash_attention_call.launches == before
 
 
+def test_lm_train_smoke_recovers_from_its_crash(tmp_path):
+    """The LM training example (smoke tinyllama, 4 steps, checkpoints every
+    2, the crash at step 2): the runner restarts, and the report's losses
+    and params digest equal an uninterrupted run's through the launcher."""
+    from repro_torch.launch import train as train_launcher
+
+    rc, lines = _run("torch_lm_train_smoke", [
+        "--device", "cpu", "--steps", "4", "--batch", "2", "--seq", "32",
+        "--ckpt-every", "2"])
+    assert rc == 0 and "crash injected at step 2" in lines[0]
+    got = _report(lines, "train_report")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_launcher.main([
+            "--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
+            "--steps", "4", "--batch", "2", "--seq", "32", "--ckpt-dir",
+            str(tmp_path)])
+    want = _report(buf.getvalue().splitlines(), "train_report")
+    assert got["train_step_calls"] == 4  # the crash came before step 2 ran
+    assert got["losses"] == want["losses"] and \
+        got["params_digest"] == want["params_digest"]
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_mrf_fpga_train",
-                                  "torch_phantom_recon", "torch_serve_batch"])
+                                  "torch_phantom_recon", "torch_serve_batch",
+                                  "torch_lm_train_smoke"])
 def test_examples_refuse_cuda_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")

@@ -113,7 +113,7 @@ def test_config_refusals():
         set(pbase.PORTED_FAMILIES)
     with pytest.raises(ValueError, match="unknown family"):
         dataclasses.replace(cfg, family="rnn").validate()
-    with pytest.raises(NotImplementedError, match="LM-training slice"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         dataclasses.replace(cfg, quant="qat-int8").validate()
     with pytest.raises(KeyError, match="unknown arch"):
         pconfigs.get_config("gpt-17")
@@ -121,16 +121,20 @@ def test_config_refusals():
 
 
 def test_registry_builds_the_ported_families():
+    """Every family serves; the dense and VLM families' loss is the LM
+    loss (``tests/test_torch_lm_train.py`` holds it against the
+    reference), the encoder-decoder's still refuses."""
     assert pregistry.build(pconfigs.get_smoke("mrf-fpga")).predict is not None
     fns = pregistry.build(pconfigs.get_smoke("tinyllama-1.1b"))
     assert fns.prefill is not None and fns.decode is not None
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fns.loss(None, None)
+    assert fns.loss.func is plm.next_token_loss
     for arch in ("seamless-m4t-large-v2", "llava-next-34b"):
         built = pregistry.build(pconfigs.get_smoke(arch))
         assert built.prefill is not None and built.decode is not None
-        with pytest.raises(NotImplementedError, match="later slice"):
-            built.loss(None, None)
+    assert built.loss.func is plm.next_token_loss  # llava
+    with pytest.raises(NotImplementedError, match="later slice"):
+        pregistry.build(pconfigs.get_smoke("seamless-m4t-large-v2")).loss(
+            None, None)
     with pytest.raises(NotImplementedError, match="sharding"):
         pregistry.build(pconfigs.get_smoke("seamless-m4t-large-v2"), tp=2)
 
@@ -424,6 +428,10 @@ def test_token_serve_launcher_on_the_cpu():
 
 
 def test_train_launcher_refuses_lm_archs():
-    with pytest.raises(SystemExit, match="LM training arrives with a later "
-                                         "slice"):
-        train_launcher.main(["--arch", "tinyllama-1.1b", "--device", "cpu"])
+    """The train launcher trains the dense and VLM families now
+    (``tests/test_torch_lm_train.py``); the other LM families and LM
+    quantization it refuses, naming the roadmap."""
+    for argv in (["--arch", "deepseek-moe-16b"],
+                 ["--arch", "tinyllama-1.1b", "--quant", "qat-int8"]):
+        with pytest.raises(SystemExit, match="ROADMAP.md §A 3"):
+            train_launcher.main(argv + ["--device", "cpu"])

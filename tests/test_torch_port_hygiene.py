@@ -26,9 +26,12 @@ from repro_torch.data.epg import default_sequence, simulate_fingerprints
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (INT8_IMPL_CHOICES, resolve_device,
                                         resolve_int8_impl)
-from repro_torch.kernels.flash_attn.kernel import flash_attention_call
+from repro_torch.kernels.flash_attn.kernel import (flash_attention_bwd_call,
+                                                   flash_attention_call)
+from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.qat_dense.kernel import qat_dense_call
 from repro_torch.launch import serve as launcher
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import registry
 from repro_torch.serve.executor import WaveExecutor
 from repro_torch.serve.recon import ReconEngine
@@ -58,7 +61,7 @@ def _imported_roots(tree):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
-    assert len(files) > 20 and len(_examples()) == 4
+    assert len(files) > 20 and len(_examples()) == 5
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files
            for line, mod in _imported_roots(ast.parse(f.read_text()))
@@ -75,7 +78,10 @@ def test_kernel_sources_exist_and_build_flags_are_exact():
     assert "fast_math" not in flags and "fast-math" not in flags
     for src in named:
         text = src.read_text()
-        assert "Replaces: src/repro/kernels/" in text
+        # B6-bwd has no TPU counterpart: it says so, and names what the
+        # reference differentiates instead
+        assert ("Replaces no TPU kernel" if src.name == "flash_attn_bwd.cu"
+                else "Replaces: src/repro/kernels/") in text
         assert "roundf(" not in text.replace("rintf(", "")
     # each source names the TPU kernel files it replaces, and they exist
     replaces = {
@@ -85,6 +91,8 @@ def test_kernel_sources_exist_and_build_flags_are_exact():
                            "src/repro/kernels/fused_train/multistep.py"],
         "flash_attn.cu": ["src/repro/kernels/flash_attn/kernel.py"],
         "flash_attn_sm90.cu": ["src/repro/kernels/flash_attn/kernel.py"],
+        "flash_attn_bwd.cu": ["src/repro/models/attention.py",
+                              "src/repro/kernels/flash_attn/kernel.py"],
     }
     assert set(replaces) == {p.name for p in named}
     for name, tpu_files in replaces.items():
@@ -176,6 +184,9 @@ def test_cuda_without_a_card_raises(tmp_path):
                                "--smoke"]),
         lambda: launcher.main(["--arch", "llava-next-34b", "--smoke",
                                "--prompt-len", "16"]),
+        lambda: train_launcher.main(["--arch", "tinyllama-1.1b", "--smoke"]),
+        lambda: train_launcher.main(["--arch", "llava-next-34b", "--smoke",
+                                     "--seq", "16"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -194,6 +205,10 @@ def test_kernel_wrappers_refuse_devices_they_cannot_serve():
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_call(*(torch.empty((2, 8, 4), **meta)
                                for _ in range(3)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_bwd_call(*(torch.empty((2, 64, 16), **meta)
+                                   for _ in range(5)),
+                                 torch.empty((2, 64), **meta))
 
 
 def _allowlisted_names():
@@ -210,7 +225,11 @@ def test_port_identifiers_leave_the_dead_exports_gate_alone():
     allow = _allowlisted_names()
     assert {"IntLayer", "QATConfig", "PaddedIntNet", "CONV_WIDTH",
             "SSMParams", "AttnParams", "ENC_FRACTION", "init_encdec",
-            "encdec_prefill", "encdec_decode", "init_encdec_cache"} <= allow
+            "encdec_prefill", "encdec_decode", "init_encdec_cache",
+            # LM training: the port's next_token_loss, MOE_LOSS_COEF,
+            # lm_batches and int8_roundtrip
+            "lm_loss", "MOE_AUX_COEF", "make_batches",
+            "int8_compress_decompress"} <= allow
     files = sorted(PORT.rglob("*.py")) + _examples() + sorted(
         (ROOT / "tests").glob("test_torch_*.py"))
     hits = []
@@ -235,3 +254,7 @@ def test_plain_versions_need_no_build(monkeypatch):
     out = qat_dense_call(x, w, torch.zeros(4, dtype=torch.int32),
                          torch.full((4,), 0.5), relu=True)
     assert out.dtype == torch.int8 and out.shape == (4, 4)
+    # attention's gradient: B6 with its log-sum-exp, then B6-bwd
+    q = torch.randn((1, 8, 2, 16), dtype=torch.bfloat16, requires_grad=True)
+    out = flash_attention(q, q, q)
+    assert torch.autograd.grad(out.float().sum(), q)[0].shape == q.shape

@@ -216,3 +216,53 @@ def test_launcher_serves_artifact_on_cpu(artifact, capsys):
                       "float", "--int8-impl", "fused"])
     with pytest.raises(SystemExit, match="not an MRF serving backend"):
         plaunch.main(["--arch", arch, "--device", "cpu", "--backend", "fp8"])
+
+
+def test_engine_read_only_surface_matches_jax(artifact):
+    """The engine's views (``backend``, ``int_layers``, ``params``,
+    ``request_sizes``, ``bucket_shapes_run``), the executor's recorded
+    request sizes and an in-flight wave's ``n_tiles``, against the JAX
+    engine serving the same requests (layer values bit for bit)."""
+    _, ints, path = artifact
+    reqs = _requests(seed=2)
+    jeng = jrecon.ReconEngine(backend="int8", int_layers=ints,
+                              max_wave_voxels=700)
+    jeng.reconstruct([jrecon.ReconRequest(
+        jnp.asarray(r.features.numpy()), r.mask, r.request_id) for r in reqs])
+    eng = ReconEngine(backend="int8", max_wave_voxels=700, device="cpu",
+                      int_layers=pqat.load_int8_artifact(path, device="cpu"))
+    eng.reconstruct(reqs)
+    assert eng.backend == jeng.backend == "int8"
+    assert eng.params is None and jeng.params is None
+    assert eng.request_sizes == jeng.request_sizes == \
+        [r.n_voxels for r in reqs]
+    assert eng.request_sizes is eng.executor.request_sizes
+    assert eng.bucket_shapes_run == jeng.bucket_shapes_run
+    assert len(eng.int_layers) == len(jeng.int_layers)
+    for p, j in zip(eng.int_layers, jeng.int_layers):
+        for f in ("w_q", "b_q", "s_in", "s_w", "s_out"):
+            pv, jv = getattr(p, f), getattr(j, f)
+            assert (pv is None) == (jv is None)
+            if pv is not None:
+                np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    feats = [r.features for r in reqs]
+    pwave = eng.executor.dispatch(feats)
+    jwave = jeng.executor.dispatch([jnp.asarray(f.numpy()) for f in feats])
+    assert pwave.n_tiles == jwave.n_tiles == len(pwave.tiles) > 1
+    pwave.wait()
+    jwave.wait()
+    assert eng.request_sizes[-len(reqs):] == [f.shape[0] for f in feats]
+
+
+def test_float_engine_exposes_its_params():
+    params = _np_params(pnet.ADAPTED_HIDDEN, seed=6)
+    jeng = jrecon.ReconEngine(backend="float", params=[
+        {k: jnp.asarray(v) for k, v in layer.items()} for layer in params])
+    eng = ReconEngine(backend="float", params=params_from_numpy(params, "cpu"),
+                      device="cpu")
+    assert eng.backend == jeng.backend == "float"
+    assert eng.int_layers is None and jeng.int_layers is None
+    for p, j in zip(eng.params, jeng.params):
+        for k in ("w", "b"):
+            np.testing.assert_array_equal(p[k].numpy(), np.asarray(j[k]))
+    assert eng.request_sizes == jeng.request_sizes == []

@@ -225,3 +225,89 @@ def test_prefill_then_decode_equals_the_longer_prefill():
             _, want = fns.prefill(params, {"tokens": toks[:, :21 + i]})
             ulp = 2.0 ** (np.floor(np.log2(_np(want).__abs__().max())) - 7)
             assert np.abs(_np(logits) - _np(want)).max() <= PREFIX_ULPS * ulp
+
+
+# --------------------------------------------------------------------------
+# the scan's gradient (the training form, ROADMAP.md §C 2)
+# --------------------------------------------------------------------------
+
+def _ssd_in_place(x, dt, A, Bmat, Cmat, chunk):
+    """The scan as it was written before it became differentiable: the
+    intra-chunk decay multiplied and masked in place after ``exp``."""
+    b, length, h, p = x.shape
+    n = Bmat.shape[-1]
+    nc = max(length // chunk, 1)
+    q = length // nc
+    xr, dtr = x.reshape(b, nc, q, h, p), dt.reshape(b, nc, q, h)
+    br, cr = Bmat.reshape(b, nc, q, n), Cmat.reshape(b, nc, q, n)
+    cum = torch.cumsum(dtr * A, dim=2)
+    cum_h = cum.transpose(2, 3)
+    cb = torch.matmul(cr, br.transpose(2, 3))
+    m = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
+    m.mul_(cb[:, :, None]).mul_(dtr.transpose(2, 3)[:, :, :, None, :])
+    m.masked_fill_(torch.ones((q, q), dtype=torch.bool).triu(1), 0.0)
+    y = torch.matmul(m, xr.transpose(2, 3)).transpose(2, 3)
+    w_end = torch.exp(cum[:, :, -1:, :] - cum) * dtr
+    s_chunk = torch.einsum("bcqhp,bcqn->bchpn", xr * w_end[..., None], br)
+    decay = torch.exp(cum[:, :, -1])
+    state = torch.zeros((b, h, p, n))
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = decay[:, c, :, None, None] * state + s_chunk[:, c]
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", cr, torch.stack(entering, 1))
+    y = y + y_inter * torch.exp(cum)[..., None]
+    return y.reshape(b, length, h, p), state
+
+
+@pytest.mark.parametrize("dt_scale,a_value", [(1.0, None), (30.0, -10.0)])
+def test_ssd_forward_is_the_in_place_forms_bit_for_bit(dt_scale, a_value):
+    """The out-of-place form gives the in-place form's values exactly, also
+    where the decay above the diagonal overflows (dt 30, A -10)."""
+    x, dt, a, bm, cm = _ssd_inputs(5, 2, 32, 2, 8, 4, dt_scale=dt_scale)
+    if a_value is not None:
+        a = np.full_like(a, a_value)
+    ts = [torch.from_numpy(t) for t in (x, dt, a, bm, cm)]
+    y, s = pssm.ssd_chunked(*ts, 8)
+    y0, s0 = _ssd_in_place(*ts, 8)
+    assert torch.equal(y, y0) and torch.equal(s, s0)
+    assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("dt_scale,a_value", [(0.3, -0.5), (30.0, -10.0)])
+def test_ssd_gradients_match_jax_where_finite(dt_scale, a_value):
+    """Gradients of ``sum(y * gy) + sum(state * gs)`` with respect to x, dt,
+    A, B and C against ``jax.grad`` of the reference's scan (rtol 1e-4,
+    atol 1e-4 of each gradient's largest magnitude: the products and the
+    cumulative sum add in other orders, and the gradient sums them again)
+    where the reference's are finite; where it overflows (dt 30, A -10:
+    its exponent above the diagonal is inf, masked only after ``exp``, and
+    0 * inf is NaN) the port's stay finite."""
+    x, dt, a, bm, cm = _ssd_inputs(6, 1, 16, 2, 4, 4)
+    dt = (dt * 0 + dt_scale).astype(np.float32)
+    a = np.full_like(a, a_value)
+    rng = np.random.default_rng(7)
+    gy = rng.normal(size=x.shape).astype(np.float32)
+    gs = rng.normal(size=(1, 2, 4, 4)).astype(np.float32)
+
+    def jloss(*args):
+        y, s = jssm.ssd_chunked(*args, 8)
+        return jnp.sum(y * gy) + jnp.sum(s * gs)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(t) for t in (x, dt, a, bm, cm)))
+    ts = [torch.from_numpy(t).requires_grad_(True)
+          for t in (x, dt, a, bm, cm)]
+    y, s = pssm.ssd_chunked(*ts, 8)
+    got = torch.autograd.grad((y * torch.from_numpy(gy)).sum()
+                              + (s * torch.from_numpy(gs)).sum(), ts)
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert np.isfinite(g).all()
+        ok = np.isfinite(w)
+        scale = np.abs(w[ok]).max() if ok.any() else 1.0
+        np.testing.assert_allclose(g[ok], w[ok], rtol=1e-4,
+                                   atol=1e-4 * scale)
+    # the reference's gradient is NaN exactly in the overflowing case
+    ref_finite = all(np.isfinite(np.asarray(w)).all() for w in want)
+    assert ref_finite == (dt_scale < 1)

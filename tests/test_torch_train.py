@@ -93,6 +93,10 @@ ENGINE_CASES = {
     "fused-adam": dict(backend="fused", optimizer="adam", lr=1e-3),
     "fused-sgd-tile16": dict(backend="fused", optimizer="sgd", lr=1e-2,
                              tile_batch=16),
+    "float-adam-compress": dict(backend="float", optimizer="adam", lr=1e-3,
+                                grad_compress=True),
+    "qat-int8-compress": dict(backend="qat-int8", optimizer="adam", lr=1e-3,
+                              grad_compress=True),
 }
 
 
@@ -113,12 +117,15 @@ def test_engine_steps_match_jax(case):
     jo = getattr(jopt, kw["optimizer"])(kw["lr"])
     jp = [{k: jnp.asarray(v) for k, v in layer.items()} for layer in params]
     qat = kw["backend"] == "qat-int8"
-    jstate = jinit_train_state(jp, jo, aux=jqat.init_qat_state(n_layers)
+    compress = kw.get("grad_compress", False)
+    jstate = jinit_train_state(jp, jo, grad_compress=compress,
+                               aux=jqat.init_qat_state(n_layers)
                                if qat else None)
 
     pstep, _ = pengine.build(build_mrf(cfg), pengine.EngineConfig(**kw))
     pp = params_from_numpy(params, CPU)
     pstate = init_train_state(pp, getattr(popt, kw["optimizer"])(kw["lr"]),
+                              grad_compress=compress,
                               aux=pqat.init_qat_state(n_layers, device=CPU)
                               if qat else None)
     for b in batches:
@@ -133,6 +140,8 @@ def test_engine_steps_match_jax(case):
     if kw["optimizer"] == "adam":
         _close_params(pstate.opt_state.mu, jstate.opt_state.mu, atol=1e-6)
         _close_params(pstate.opt_state.nu, jstate.opt_state.nu, atol=1e-7)
+    if compress:  # the int8 error-feedback residuals
+        _close_params(pstate.ef_residual, jstate.ef_residual, atol=1e-6)
     if qat:
         np.testing.assert_allclose(pstate.aux["act_absmax"].numpy(),
                                    np.asarray(jstate.aux["act_absmax"]),
@@ -158,13 +167,20 @@ def test_refusals_match_jax():
             mts(None, sgd(1e-2), fused_step=fused, microbatches=4)
         with pytest.raises(ValueError, match="compress"):
             mts(None, sgd(1e-2), fused_step=fused, grad_compress=True)
-    # the port's own: unknown backends, and compression until the LM slice
+    # the port's own: unknown backends; compression is the reference's
+    # (optim.grad_compression) for every backend but the fused one
     with pytest.raises(ValueError, match="backend"):
         pengine.EngineConfig(backend="fused-pallas")
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        pengine.EngineConfig(backend="float", grad_compress=True)
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        make_train_step(lambda p, b: 0.0, popt.sgd(1e-2), grad_compress=True)
+    for backend in ("float", "qat-int8"):
+        assert pengine.EngineConfig(backend=backend,
+                                    grad_compress=True).grad_compress
+    state = init_train_state({"w": torch.ones(3)}, popt.sgd(1e-2),
+                             grad_compress=True)
+    assert torch.equal(state.ef_residual["w"], torch.zeros(3))
+    step = make_train_step(lambda p, b: (p["w"] * b).sum(), popt.sgd(1e-2),
+                           grad_compress=True)
+    state, _ = step(state, torch.tensor([1.0, -2.0, 0.5]))
+    assert state.ef_residual is not None
 
 
 # --------------------------------------------------------------------------
@@ -353,12 +369,18 @@ def test_train_launcher_fused_adam_chunked_with_a_crash(tmp_path):
         "--inject-fault-at", "5", "--ckpt-dir", str(tmp_path)])
     assert rc == 0 and latest_step(tmp_path) == 4  # the last boundary
     assert '"steps": 6' in out.splitlines()[-1]
-    with pytest.raises(SystemExit, match="LM slice"):
+    # --grad-compress and --microbatches reach the engine (the fused
+    # backend refuses both, as the reference's); LM archs train
+    # (tests/test_torch_lm_train.py)
+    rc, out = _quiet(train_launcher.main, [
+        "--arch", "mrf-fpga", "--device", "cpu", "--smoke", "--steps", "2",
+        "--batch", "32", "--grad-compress", "--microbatches", "2",
+        "--ckpt-dir", str(tmp_path / "compress")])
+    assert rc == 0 and '"steps": 2' in out.splitlines()[-1]
+    with pytest.raises(ValueError, match="grad_compress"):
         train_launcher.main(["--arch", "mrf-fpga", "--device", "cpu",
+                             "--smoke", "--backend", "fused",
                              "--grad-compress"])
-    with pytest.raises(SystemExit, match="LM training arrives with a later "
-                                         "slice"):
-        train_launcher.main(["--arch", "tinyllama-1.1b", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("backend", ["int8", "float"])
