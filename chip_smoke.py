@@ -16,9 +16,11 @@ final result line):
 1. device facts (name, capability, ``nvidia-smi`` name and power limit);
 2. build the kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, started together;
-2b. ``cuobjdump -sass``: the bf16 flash-attention kernel must hold
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA) instructions, the int8 kernels
-   (B4, B5) ``IMMA`` (int8 tensor cores) and no ``IDP.4A`` (``__dp4a``);
+2b. ``cuobjdump -sass``: the bf16 flash-attention kernel and both B6-bwd
+   kernels (``flash_attn_bwd_dq_kernel``, ``flash_attn_bwd_dkdv_kernel``)
+   must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA) instructions, and
+   B6-bwd no atomic (``ATOM*``, ``RED*``), the int8 kernels (B4, B5)
+   ``IMMA`` (int8 tensor cores) and no ``IDP.4A`` (``__dp4a``);
 3. the serving kernels (B4, B5) against their plain versions on identical
    tensors on the card (bit-exact: integer arithmetic): B4 at every bucket
    and at a whole wave (281,600 voxels) for mrf-fpga, mrf-original and a
@@ -151,9 +153,12 @@ final result line):
    uninterrupted, and with a crash at step 3 restarted from the step-0
    checkpoint: the loss falls, 44 B6 and 22 B6-bwd launches a step, the
    steps before the crash repeat the first run's losses bit for bit and
-   the restarted run ends on its losses and params bit for bit; ms a step,
-   tokens/s, peak memory and the step's bound (``lm_step_work``) in an
-   ``lm_train_run {json}`` line;
+   the restarted run ends on its losses and params bit for bit; then one
+   step profiled by kernel class in a process of its own
+   (``lm_train_breakdown``: B6, B6-bwd, the matrix products, everything
+   else, and the idle share); ms a step,
+   tokens/s, peak memory, the step's bound (``lm_step_work``) and the
+   breakdown in an ``lm_train_run {json}`` line;
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
@@ -161,10 +166,13 @@ final result line):
    the device time of a one-element ``fill_`` (the launch floor); B1-B3
    also at each cluster size 1, 2, 4, 8, 16; B6 at the five prefill
    shapes, seamless's cross-attention and llava's group 7 beside SDPA (at
-   hymba's window the band goes to SDPA as a boolean mask); then the
-   breakdowns of phase 4d for tinyllama, deepseek, mamba2 and hymba (those
-   of seamless and llava run in phase 4h); B6-bwd at tinyllama's training
-   shape beside SDPA's backward, after phase 4i.
+   hymba's window the band goes to SDPA as a boolean mask), and the float32
+   B6 (scalar, on no main path) at the serving shape with B 1 beside SDPA
+   in float32; then the breakdowns of phase 4d for tinyllama, deepseek,
+   mamba2 and hymba (those of seamless and llava run in phase 4h); B6-bwd
+   at tinyllama's training shape beside its bound, the two-kernel design's
+   floor and SDPA's backward, and B6 with its log-sum-exp beside SDPA's
+   forward under grad, after phase 4i.
 
 Before them, ``chaos_run {json}`` records the chaos phase: states, waves,
 retries, slow waves, the final depth and wave cap, voxels/s, p50/p99 and
@@ -183,6 +191,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -255,7 +264,7 @@ TRAIN_LOSS_RTOL = 5e-4
 TRAIN_GRAD_ULPS = 4
 # the model shapes B6 is timed at beside the serving shape (phase 5)
 B6_SHAPES = ("dh128", "deepseek", "hymba_window", "hymba_global",
-             "seamless_cross", "llava")
+             "seamless_cross", "llava", "f32")
 
 
 def log(msg: str) -> None:
@@ -280,10 +289,9 @@ def device_facts() -> tuple:
     return name, smi
 
 
-def sass_counts(build, kernel: str, func: str, ops) -> list:
-    """``cuobjdump -sass`` of kernel library ``kernel``: for each compiled
-    function whose name holds ``func``, its name and the count of each
-    mnemonic in ``ops``."""
+def sass_functions(build, kernel: str, func: str) -> list:
+    """``cuobjdump -sass`` of kernel library ``kernel``: the name and the
+    machine code of each compiled function whose name holds ``func``."""
     lib = build.library_path(kernel)
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300,
@@ -292,22 +300,62 @@ def sass_counts(build, kernel: str, func: str, ops) -> list:
              if func in f.splitlines()[0]]
     if not funcs:
         fail(f"cuobjdump finds no {func} in {lib}")
-    return [(f.splitlines()[0][:90], {op: f.count(op) for op in ops})
-            for f in funcs]
+    return [(f.splitlines()[0][:90], f) for f in funcs]
+
+
+def sass_counts(build, kernel: str, func: str, ops) -> list:
+    """For each function of :func:`sass_functions`, its name and the count
+    of each mnemonic in ``ops``."""
+    return [(name, {op: text.count(op) for op in ops})
+            for name, text in sass_functions(build, kernel, func)]
+
+
+# an instruction's mnemonic: after its address and an optional predicate
+SASS_OP = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9]*)")
+
+
+def mnemonics(text: str) -> set:
+    """The mnemonics of a function's instructions (``HGMMA`` of
+    ``HGMMA.64x64x16.F32.BF16``)."""
+    return set(SASS_OP.findall(text))
+
+
+def atomic_ops(ops: set) -> set:
+    """The atomic or reduction mnemonics (``ATOM*``, ``RED*`` but the warp
+    reduction ``REDUX``) among ``ops``."""
+    return {m for m in ops
+            if m.startswith("ATOM") or (m.startswith("RED") and m != "REDUX")}
 
 
 def check_sass(build) -> None:
     """Phase 2b: the machine code, through ``cuobjdump -sass``.  The bf16 B6
-    kernel must hold tensor-core products (``HGMMA``, from wgmma) and TMA
-    loads (``UTMALDG``); B4 and B5 int8 tensor-core products (``IMMA``,
-    from mma.sync m16n8k32 s8) and no ``IDP.4A`` (``__dp4a``) — or they
-    are not the Hopper designs."""
+    kernel and both B6-bwd kernels must hold tensor-core products
+    (``HGMMA``, from wgmma) and TMA loads (``UTMALDG``), and B6-bwd no
+    atomic or reduction instruction (``ATOM*``, ``RED*``: its sums have one
+    fixed order); B4 and B5 int8 tensor-core products (``IMMA``, from
+    mma.sync m16n8k32 s8) and no ``IDP.4A`` (``__dp4a``) — or they are not
+    the Hopper designs."""
     for name, n in sass_counts(build, "flash_attn_sm90",
                                "flash_attn_kernel_sm90",
                                ("HGMMA", "UTMALDG")):
         if not all(n.values()):
             fail(f"{name}: {n} (wgmma and TMA expected)")
     log(f"cuobjdump: flash_attn_kernel_sm90 holds HGMMA and UTMALDG ({n})")
+    for func in ("flash_attn_bwd_dq_kernel", "flash_attn_bwd_dkdv_kernel"):
+        found = sass_functions(build, "flash_attn_bwd", func)
+        for name, text in found:
+            # HGMMA and UTMALDG among the parsed mnemonics: the parse that
+            # finds no atomic is shown to have read the instructions
+            ops = mnemonics(text)
+            n = {op: text.count(op) for op in ("HGMMA", "UTMALDG")}
+            atomics = atomic_ops(ops)
+            if not {"HGMMA", "UTMALDG"} <= ops or atomics:
+                fail(f"{name}: {n}, {len(ops)} mnemonics parsed, atomics "
+                     f"{sorted(atomics)} (wgmma and TMA, and no atomics, "
+                     f"expected)")
+        log(f"cuobjdump: {len(found)} {func} instances, each with HGMMA and "
+            f"UTMALDG and no ATOM or RED ({n})")
     for kernel in ("qat_dense", "fused_forward"):
         found = sass_counts(build, kernel, f"{kernel}_kernel",
                             ("IMMA.16832.S8.S8", "IDP.4A"))
@@ -1319,15 +1367,9 @@ def event_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
-              label: str = "", lead: int = 0) -> float:
-    """Device time per call from the profiler's CUDA activity: the median
-    duration of the launches of ``kernel`` it recorded, or
-    (``kernel=None``) the summed duration of every device activity over
-    ``reps`` calls, per call.  Fails when the profiler records no device
-    activity, or fewer than half the launches of ``kernel``: wall time
-    between CUDA events (:func:`event_ms`) is reported beside it, never in
-    its place.
+def device_events(run, lead=None, label: str = "device_events") -> tuple:
+    """One profiler session of ``run()``: the device activity it recorded,
+    sorted by start, and what ``run`` returned.
 
     The profiler drops the first device activity of some sessions: the
     first 1-4 of 10 back-to-back launches of the ms-long training kernel,
@@ -1335,44 +1377,89 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
     whatever idle time or lead-in kernel opened the session, in this
     process or a new one — later in a long process up to 11 of 20 launches
     of the training kernel, and once every record of a session (the
-    per-sample plain version's ~150,000 small kernels).  So a session
-    timing ``kernel`` first makes ``reps`` launches of its own, whose
-    records absorb that loss, and keeps the last ``reps`` records of
-    ``kernel``; a short count is logged (``label`` names the call), not
-    fatal, and a session that recorded nothing is taken again, at most
-    twice; a sum over ``kernel=None`` may read low, unless ``lead`` calls
-    open the session: then a one-element int16 ``fill_`` follows them as a
-    marker, and only the activity after the marker is summed.
-    """
+    per-sample plain version's ~150,000 small kernels).  So with ``lead``
+    the session first calls ``lead()``, whose records absorb that loss,
+    then a one-element int16 ``fill_`` as a marker, and keeps only the
+    activity after the marker.  A session that kept nothing is taken again,
+    at most twice (``label`` names it in the log); fails when none kept
+    anything."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     marker = torch.zeros((1,), dtype=torch.int16, device="cuda")
-    for _ in range(3):  # a session that recorded nothing is taken again
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps if kernel is not None else lead):
-                fn()  # the session's own warm-up (see above)
-            if kernel is None and lead:
+            if lead is not None:
+                lead()
                 marker.fill_(1)
-            for _ in range(reps):
-                fn()
+                torch.cuda.synchronize()
+            ret = run()
             torch.cuda.synchronize()
         evs = sorted((e for e in prof.events()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-        if kernel is None and lead:
+        if lead is not None:
             marks = [i for i, e in enumerate(evs) if MARKER in e.name]
             evs = evs[marks[-1] + 1:] if marks else []
         if evs:
-            break
-        log(f"  {label or 'device_ms'}: the profiler recorded no device "
-            f"activity{' after the marker' if lead else ''}; session taken "
-            f"again")
-    if not evs:
-        fail("the profiler recorded no device activity: no device time")
+            return evs, ret
+        log(f"  {label}: the profiler recorded no device activity"
+            f"{' after the marker' if lead else ''}; session taken again")
+    fail(f"{label}: the profiler recorded no device activity: no device "
+         f"time")
+
+
+def sum_by_class(evs) -> tuple:
+    """Device ms of profiler events summed by ``kernel_class`` and by
+    kernel name."""
+    by_class, by_name = {}, {}
+    for e in evs:
+        ms = e.time_range.elapsed_us() / 1e3
+        by_class[kernel_class(e.name)] = \
+            by_class.get(kernel_class(e.name), 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    return by_class, by_name
+
+
+def host_wall(fn):
+    """``fn()`` on the host clock, up to a synchronisation, in ms, and what
+    it returned."""
+    t0 = time.perf_counter()
+    ret = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, ret
+
+
+def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
+              label: str = "", lead: int = 0) -> float:
+    """Device time per call from the profiler's CUDA activity
+    (:func:`device_events`): the median duration of the launches of
+    ``kernel`` it recorded, or (``kernel=None``) the summed duration of
+    every device activity over ``reps`` calls, per call.  Fails when the
+    profiler records no device activity, or fewer than half the launches of
+    ``kernel``: wall time between CUDA events (:func:`event_ms`) is
+    reported beside it, never in its place.
+
+    A session timing ``kernel`` makes ``2 * reps`` launches, the first
+    ``reps`` to absorb the records the profiler drops, and keeps the last
+    ``reps`` records of ``kernel``; a short count is logged (``label``
+    names the call), not fatal.  A sum over ``kernel=None`` may read low,
+    unless ``lead`` calls open the session before its marker."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+    def calls(n):
+        for _ in range(n):
+            fn()
+
+    if kernel is not None:
+        evs, _ = device_events(lambda: calls(2 * reps),
+                               label=label or "device_ms")
+    else:
+        evs, _ = device_events(lambda: calls(reps),
+                               (lambda: calls(lead)) if lead else None,
+                               label=label or "device_ms")
     if kernel is None:
         return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
     recorded = [e.time_range.elapsed_us() for e in evs if kernel in e.name]
@@ -1635,16 +1722,17 @@ def check_flash_attention(device) -> float:
 
 def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device,
             window: int = 0, *, sk: int | None = None,
-            causal: bool = True) -> dict:
-    """B6 (bf16; causal, within ``window`` if not 0, or unmasked over
-    ``sk`` keys) at one shape: the profiler's device time, the wall time of
-    one wrapper call (tensor maps encoded on the host included), the plain
-    version's and SDPA's device time, and the bound: the products of the
-    pairs the masks keep, 4*B*Hq*dh*pairs FLOP — sum_q min(q+1, W) pairs
-    causal (S(S+1)/2 without a window), S*Sk unmasked — at the bf16
-    tensor-core peak, against q, k, v read once and the output written
-    once at 3.35 TB/s.  SDPA: ``scaled_dot_product_attention(enable_gqa=
-    True)`` on the same inputs in its (B, H, S, dh) layout, ``is_causal``
+            causal: bool = True, dtype=torch.bfloat16) -> dict:
+    """B6 (bf16, or float32 on the scalar kernel; causal, within
+    ``window`` if not 0, or unmasked over ``sk`` keys) at one shape: the
+    profiler's device time, the wall time of one wrapper call (tensor maps
+    encoded on the host included), the plain version's and SDPA's device
+    time, and the bound: the products of the pairs the masks keep,
+    4*B*Hq*dh*pairs FLOP — sum_q min(q+1, W) pairs causal (S(S+1)/2
+    without a window), S*Sk unmasked — at the bf16 tensor-core peak (the
+    float32 peak outside the tensor cores for float32), against q, k, v
+    read once and the output written once at 3.35 TB/s.  SDPA:
+    ``scaled_dot_product_attention(enable_gqa=True)`` on the same inputs in its (B, H, S, dh) layout, ``is_causal``
     as B6's, or with a window the band as a boolean ``attn_mask`` (which
     takes SDPA off its flash path): a yardstick the port never calls."""
     import torch.nn.functional as F
@@ -1656,7 +1744,7 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device,
     sk = s if sk is None else sk
     gen = torch.Generator(device=device).manual_seed(17)
     q, k, v = (torch.randn((b, n, h, dh), generator=gen,
-                           device=device).to(torch.bfloat16)
+                           device=device).to(dtype)
                for n, h in ((s, hq), (sk, hkv), (sk, hkv)))
     qf, kf, vf, kw = kernel_layout(q, k, v, causal=causal, window=window)
     ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1674,7 +1762,8 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device,
             ql, kl, vl, is_causal=causal, enable_gqa=True)
     what = f"dh {dh}, group {hq // hkv}" + \
         (f", window {window}" if window else "") + \
-        ("" if causal else f", Sq {s} over Sk {sk} unmasked")
+        ("" if causal else f", Sq {s} over Sk {sk} unmasked") + \
+        (", float32" if dtype == torch.float32 else "")
     t = {"ms": device_ms(call, "flash_attn_kernel", reps=20, warmup=2,
                          label=f"flash_attn {what}"),
          "wall_ms": event_ms(call, reps=20),
@@ -1688,8 +1777,10 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device,
     pairs = sum(min(i + 1, window or s) for i in range(s)) if causal \
         else s * sk
     nops = 4 * b * hq * dh * pairs
-    nbytes = 2 * (2 * b * s * hq * dh + 2 * b * sk * hkv * dh)
-    t_ops = nops / H100["peak_bf16_flops"] * 1e3
+    f32 = dtype == torch.float32
+    nbytes = q.element_size() * (2 * b * s * hq * dh + 2 * b * sk * hkv * dh)
+    t_ops = nops / H100["peak_fp32_flops" if f32 else "peak_bf16_flops"] \
+        * 1e3
     t_bytes = nbytes / H100["hbm_bytes_per_s"] * 1e3
     log(f"  B6 vs scaled_dot_product_attention at {what}: max abs diff "
         f"{lib_err:.3g} (not held: another algorithm)")
@@ -1698,7 +1789,8 @@ def b6_time(b: int, s: int, hq: int, hkv: int, dh: int, device,
     t.update({"bound_ms": max(t_ops, t_bytes),
               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
               "shape": f"B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}{masks}, "
-                       f"bf16", "bytes": nbytes, "ops": nops})
+                       f"{'float32' if f32 else 'bf16'}", "bytes": nbytes,
+              "ops": nops})
     return t
 
 
@@ -1710,8 +1802,10 @@ def flash_attention_timing(err: float, device) -> dict:
     dh 64) with its window of 1,024 as ``hymba_window`` and fully causal
     (its global layers) as ``hymba_global``, seamless-m4t-large-v2's
     cross-attention (Hq 16, Hkv 16, dh 64, 2,048 decoder queries unmasked
-    over 512 encoder keys) as ``seamless_cross`` and llava-next-34b's (B 4,
-    Hq 56, Hkv 8: group 7, dh 128, S 3,072) as ``llava``."""
+    over 512 encoder keys) as ``seamless_cross``, llava-next-34b's (B 4,
+    Hq 56, Hkv 8: group 7, dh 128, S 3,072) as ``llava``, and the float32
+    kernel (``csrc/flash_attn.cu``, scalar; on no main path: phase 3c's
+    checks launch it) at the serving shape with B 1 as ``f32``."""
     row = b6_time(8, 2048, 32, 4, 64, device)
     row["dh128"] = b6_time(8, 2048, 32, 8, 128, device)
     row["deepseek"] = b6_time(8, 2048, 16, 16, 128, device)
@@ -1720,6 +1814,7 @@ def flash_attention_timing(err: float, device) -> dict:
     row["seamless_cross"] = b6_time(8, 2048, 16, 16, 64, device, sk=512,
                                     causal=False)
     row["llava"] = b6_time(4, 3072, 56, 8, 128, device)
+    row["f32"] = b6_time(1, 2048, 32, 4, 64, device, dtype=torch.float32)
     row.update({"name": "flash_attn", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attn_sm90.cu",
                 "replaces": "src/repro/kernels/flash_attn/kernel.py:86",
@@ -1850,6 +1945,11 @@ def lm_model(device, arch: str = LM_ARCH) -> tuple:
 
 
 def kernel_class(name: str) -> str:
+    """B6-bwd (``flash_attn_bwd_dq_kernel<``, ``..._dkdv_kernel<``; also
+    the names of a tree from before they were named so), B6, the matrix
+    products or everything else."""
+    if "dq_kernel<" in name or "dkdv_kernel<" in name:
+        return "B6-bwd"
     if "flash_attn_kernel" in name:
         return "B6"
     if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
@@ -1934,9 +2034,6 @@ def lm_breakdown(fns, params, device, b: int = 8, s: int = 2048) -> dict:
     against its bytes over HBM (a prefill reads every weight: an MoE
     prefill's 16,384 tokens reach every expert; a decode step one token's
     active weights)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.analysis.roofline import H100, ssd_flops
     from repro_torch.kernels.flash_attn.kernel import flash_attention_call
     from repro_torch.launch.serve import token_batch
@@ -1992,22 +2089,10 @@ def lm_breakdown(fns, params, device, b: int = 8, s: int = 2048) -> dict:
         for what, fn in ((pre, run_prefill),
                          ("decode, 8 steps", run_decode)):
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            by_class, by_name = {}, {}
-            for e in prof.events():
-                if e.device_type != DeviceType.CUDA:
-                    continue
-                ms = e.time_range.elapsed_us() / 1e3
-                by_class[kernel_class(e.name)] = \
-                    by_class.get(kernel_class(e.name), 0.0) + ms
-                by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            evs, (wall, _) = device_events(lambda fn=fn: host_wall(fn),
+                                           label=f"{cfg.name} {what}")
+            by_class, by_name = sum_by_class(evs)
             busy = sum(by_class.values())
-            if busy <= 0:
-                fail(f"{what}: the profiler recorded no device activity")
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
             bound = bounds[what]
             out[what] = {"wall_ms": wall, "busy_ms": busy,
@@ -2857,18 +2942,36 @@ def check_flash_attention_bwd(device) -> dict:
             "worst_ratio": worst_ratio}
 
 
+def b6_bwd_floor_ms(case) -> float:
+    """The two-kernel B6-bwd's own floor at a causal ``bwd_cases`` case:
+    14*B*Hq*dh*pairs FLOP (S and dP again in the second kernel; pairs
+    S(S+1)/2) at the bf16 tensor-core peak.  Worked out from the shape,
+    not measured: it goes in log lines, not in the kernels line."""
+    from repro_torch.analysis.roofline import H100
+
+    _, b, s, hq, _, dh, causal, window = case
+    if not causal or window or not isinstance(s, int):
+        raise ValueError("b6_bwd_floor_ms: a causal case of one length "
+                         "and no window expected")
+    return 14 * b * hq * dh * (s * (s + 1) // 2) \
+        / H100["peak_bf16_flops"] * 1e3
+
+
 def b6_bwd_time(err: float, device) -> dict:
     """Phase 5 for B6-bwd at tinyllama-1.1b's training shape (B 8, Hq 32,
     Hkv 4, dh 64, S 2,048, causal): the kernels' device time (both, summed
     by the profiler), the wall time of one wrapper call, the plain
     backward's device time (and ``forward_lse``: B6 at the same shape
-    with and without its log-sum-exp, and the plain forward with it), and
-    SDPA's backward on the same inputs in its
-    (B, H, S, dh) layout (``torch.autograd.grad`` of
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``; a
-    yardstick the port never calls).  Bound: 10*B*Hq*dh*pairs FLOP (S, dP,
-    dV, dK, dQ; pairs S(S+1)/2) at the bf16 tensor-core peak, against q, k,
-    v, out, dout and lse read once and dq, dk, dv written once."""
+    with and without its log-sum-exp, the wall time of one call with it,
+    the plain forward with it, and SDPA's forward with inputs that require
+    grad, which saves its log-sum-exp for its backward), and SDPA's
+    backward on the same inputs in its (B, H, S, dh) layout
+    (``torch.autograd.grad`` of ``scaled_dot_product_attention(is_causal=
+    True, enable_gqa=True)``; yardsticks the port never calls).  Bound:
+    10*B*Hq*dh*pairs FLOP (S, dP, dV, dK, dQ; pairs S(S+1)/2) at the bf16
+    tensor-core peak, against q, k, v, out, dout and lse read once and dq,
+    dk, dv written once (the two-kernel design's own floor is
+    :func:`b6_bwd_floor_ms`, logged beside it, never in the row)."""
     import torch.nn.functional as F
 
     from repro_torch.analysis.roofline import H100
@@ -2881,20 +2984,25 @@ def b6_bwd_time(err: float, device) -> dict:
     bwd, fwd = kernel.flash_attention_bwd_call, kernel.flash_attention_call
     saved = bwd.launches, fwd.launches
     out, lse = fwd(qf, kf, vf, **kw, return_lse=True)
+    ql, kl, vl = (x.reshape(b, -1, s, dh).detach().requires_grad_(True)
+                  for x in (qf, kf, vf))
     # B6 itself with and without the log-sum-exp (this late in the process
     # the profiler drops a session's first records: the sum after a
     # marker, as for SDPA; a call launches B6 and nothing else)
+    lse_call = lambda: fwd(qf, kf, vf, **kw, return_lse=True)  # noqa: E731
     fwd_lse = {
         "ms_without_lse": device_ms(lambda: fwd(qf, kf, vf, **kw), None,
                                     reps=20, lead=20,
                                     label="flash_attn without lse"),
-        "ms": device_ms(lambda: fwd(qf, kf, vf, **kw, return_lse=True),
-                        None, reps=20, lead=20, label="flash_attn with lse"),
+        "ms": device_ms(lse_call, None, reps=20, lead=20,
+                        label="flash_attn with lse"),
+        "wall_ms": event_ms(lse_call, reps=20),
         "plain_ms": device_ms(lambda: ref.flash_attention_plain(
-            qf, kf, vf, **kw, return_lse=True), None, reps=2, warmup=1)}
+            qf, kf, vf, **kw, return_lse=True), None, reps=2, warmup=1),
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True, enable_gqa=True), None, reps=20,
+            lead=20, label="SDPA forward under grad")}
     call = lambda: bwd(qf, kf, vf, out, dof, lse, **a)  # noqa: E731
-    ql, kl, vl = (x.reshape(b, -1, s, dh).detach().requires_grad_(True)
-                  for x in (qf, kf, vf))
     dol = dof.reshape(b, hq, s, dh)
     o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                            enable_gqa=True)
@@ -3058,6 +3166,92 @@ def lm_step_work(cfg, b: int, s: int) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def lm_train_breakdown(device, b: int = 8, s: int = 2048) -> dict:
+    """Where the device time of one of phase 4i's training steps goes:
+    tinyllama-1.1b whole (random weights from seed 0), b x s tokens of
+    ``TextPipeline``, the launcher's step (Adam at its default rate, global
+    norm clipped to 1.0) under deterministic algorithms; one step as
+    warm-up, then one under the profiler.  Device time summed by kernel
+    class (``kernel_class``: B6, B6-bwd, the matrix products, everything
+    else) and the idle share 1 - busy / wall, wall on the host clock around
+    the step (it ends in a synchronisation).  Late in a long process the
+    profiler drops a session's first records (thousands of them here), so
+    the session (:func:`device_events`) opens with a whole step of its own
+    before its marker."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_text import TextPipeline
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.launch.train import deterministic, lm_batches
+    from repro_torch.models import registry
+    from repro_torch.optim import adam
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    fwd, bwd = kernel.flash_attention_call, kernel.flash_attention_bwd_call
+    saved = fwd.launches, bwd.launches
+    with deterministic():
+        fns = registry.build(cfg)
+        opt = adam(3e-4)
+        step = make_train_step(fns.loss, opt, max_grad_norm=1.0)
+        run = {"state": init_train_state(fns.init(0, device=device), opt)}
+        pipe = TextPipeline(seq_len=s, batch_size=b,
+                            vocab_size=min(cfg.vocab_size, 256))
+        batch = lm_batches(cfg, pipe, device)(0)
+
+        def one_step():
+            run["state"], metrics = step(run["state"], batch)
+            return metrics
+
+        one_step()  # warm-up
+        torch.cuda.synchronize()
+        evs, (wall, metrics) = device_events(
+            lambda: host_wall(one_step), lead=one_step,
+            label=f"{LM_ARCH} training step")
+    fwd.launches, bwd.launches = saved
+    by_class, by_name = sum_by_class(evs)
+    busy = sum(by_class.values())
+    if busy <= 0 or "B6-bwd" not in by_class:
+        fail(f"{LM_ARCH} training step: the profiler recorded "
+             f"{sorted(by_class)} (B6-bwd expected)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+           "by_class_ms": by_class, "loss": float(metrics["loss"]),
+           "top": [(n[:80], v) for n, v in top]}
+    log(f"breakdown {LM_ARCH} training step {b} x {s}: wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); by "
+        f"class {json.dumps({k: round(v, 3) for k, v in by_class.items()})}"
+        f"; top {[(n[:60], round(v, 3)) for n, v in top]}")
+    del run, batch, fns
+    free_device()
+    return out
+
+
+def lm_train_breakdown_fresh(b: int = 8, s: int = 2048) -> dict:
+    """:func:`lm_train_breakdown` in a process of its own (one card, this
+    checkout's build).  This late in this long process, one H100 run's
+    profiler kept no record of a whole training step, where a fresh process
+    keeps them all; whether :func:`device_events`' lead-in step and marker
+    alone would cure that is untried, so the step is profiled here.  Its
+    log line is passed on; it fails when the child fails."""
+    free_device()
+    code = ("import json, torch, chip_smoke\n"
+            "from repro_torch.kernels.common import disable_tf32\n"
+            "disable_tf32()\n"
+            f"out = chip_smoke.lm_train_breakdown(torch.device('cuda', 0), "
+            f"{b}, {s})\n"
+            "print('lm_train_breakdown ' + json.dumps(out))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    lines = r.stdout.splitlines()
+    for ln in lines:
+        if not ln.startswith("lm_train_breakdown "):
+            log(ln)
+    if r.returncode or not lines:
+        fail(f"{LM_ARCH} training-step breakdown (own process) exited "
+             f"{r.returncode}: {r.stderr.strip()[-400:]}")
+    return json.loads(lines[-1].split(" ", 1)[1])
+
+
 def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
     """Phase 4i, training: B6 with its lse and B6-bwd held
     (``check_flash_attention_bwd``), the card against the CPU
@@ -3113,6 +3307,7 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
              f"uninterrupted: {rep_b['losses']} vs {rep_a['losses']}, "
              f"digest {rep_b['params_digest']} vs {rep_a['params_digest']}")
     work = lm_step_work(cfg, b, s)
+    breakdown = lm_train_breakdown_fresh(b, s)
     steps_s = sum(rep_a["step_ms"]) / 1e3
     record = {
         "arch": LM_ARCH, "batch": b, "seq": s, "steps": steps,
@@ -3128,7 +3323,7 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
         "checkpoint_and_setup_s": rep_a["wall_s"] - steps_s,
         "restart_run_wall_s": rep_b["wall_s"],
         "rerun_bit_equal_steps": 3, "restart_bit_equal": True,
-        "vs_cpu": vs_cpu, "smi": smi}
+        "vs_cpu": vs_cpu, "breakdown": breakdown, "smi": smi}
     log(f"{LM_ARCH} training at {b} x {s} tokens, all {cfg.n_layers} layers: "
         f"{record['ms_per_step']:.1f} ms a step (median of steps 2-{steps}), "
         f"{record['tokens_per_s']:.0f} tokens/s, bound "
@@ -3303,13 +3498,15 @@ def main() -> int:
     r = bwd_row
     log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the device, "
         f"{r['wall_ms']:.6f} ms per call, plain {r['plain_ms']:.6f} ms, bound "
-        f"{r['bound_ms']:.6f} ms ({r['bound_by']}), SDPA's backward "
-        f"{r['library_ms']:.6f} ms, {r['launches']} launches on the main "
-        f"path  [{smi}]")
+        f"{r['bound_ms']:.6f} ms ({r['bound_by']}), the two-kernel "
+        f"design's floor {b6_bwd_floor_ms(bwd_cases()[0]):.6f} ms, SDPA's "
+        f"backward {r['library_ms']:.6f} ms, {r['launches']} launches on the "
+        f"main path  [{smi}]")
     f = r["forward_lse"]
     log(f"time flash_attn with lse ({r['shape']}): {f['ms']:.6f} ms on the "
-        f"device, {f['ms_without_lse']:.6f} ms without it, plain (with lse) "
-        f"{f['plain_ms']:.6f} ms  [{smi}]")
+        f"device, {f['ms_without_lse']:.6f} ms without it, {f['wall_ms']:.6f} "
+        f"ms per call, plain (with lse) {f['plain_ms']:.6f} ms, SDPA's "
+        f"forward under grad {f['library_ms']:.6f} ms  [{smi}]")
     log("lm_train_run " + json.dumps(lm_train_record))
     log("chaos_run " + json.dumps(chaos))
     log("eq3_run " + json.dumps(eq3_summary(eq3_runs, rows, name, smi)))

@@ -100,8 +100,8 @@ def main() -> int:
     for name, text in variants(src).items():
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [build.cuda_tool(), *build.NVCC_FLAGS, "-o",
-             str(out / f"{name}.so"), str(out / f"{name}.cu")],
+            [build.cuda_tool(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+             "-o", str(out / f"{name}.so"), str(out / f"{name}.cu")],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
     fns = {}
@@ -110,7 +110,7 @@ def main() -> int:
         if proc.returncode:
             raise SystemExit(f"b6_variants: {name} did not build\n{log}")
         fn = ctypes.CDLL(str(out / f"{name}.so")).flash_attn_sm90_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -128,7 +128,8 @@ def main() -> int:
             for name, fn in fns.items():
                 def call(fn=fn):
                     err = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                             o.data_ptr(), None, qf.shape[0], qf.shape[1],
+                             o.data_ptr(), None, None, qf.shape[0],
+                             qf.shape[1],
                              kf.shape[1], dh, kw["group"], kw["kv_len"],
                              int(causal), 0, stream)
                     if err:

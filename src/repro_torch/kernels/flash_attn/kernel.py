@@ -21,9 +21,11 @@ under grad with an input that requires one raises: training goes through
 with its per-row log-sum-exp (``return_lse``), and B6-bwd.
 
 :func:`flash_attention_bwd_call` is B6-bwd (``csrc/flash_attn_bwd.cu``,
-bf16 only): dq, dk and dv from q, k, v, out, dout and that log-sum-exp, in
-the same layout; its plain version (``ref.flash_attention_bwd_plain``) runs
-on CPU tensors.  ``flash_attention_bwd_call.launches`` counts its launches.
+bf16 only: a dQ kernel and a dK/dV kernel on wgmma with TMA-fed tiles, no
+atomics): dq, dk and dv from q, k, v, out, dout and that log-sum-exp, in
+the same layout, at the lengths the forward's tiles give; its plain version
+(``ref.flash_attention_bwd_plain``) runs on CPU tensors.
+``flash_attention_bwd_call.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -43,9 +45,8 @@ MAX_HEAD_DIM = 128
 BF16_HEAD_DIMS = (16, 32, 64, 128)   # the bf16 kernel's template instances
 _GRID_Y_MAX = 65535  # CUDA's limit on gridDim.y (the float32 kernel's heads)
 _INT_MAX = 2 ** 31 - 1
-_TENSOR_MAP_ERRORS = 10000  # flash_attn_sm90.cu: kNoEntryPoint, kEncodeFailed
+_TENSOR_MAP_ERRORS = 10000  # sm90_wgmma.cuh: kNoEntryPoint, kEncodeFailed
 _DTYPES = (torch.float32, torch.bfloat16)
-BWD_TILE = 64  # B6-bwd's q and kv tiles: both lengths must be multiples
 
 
 def bf16_tiles(dh: int) -> tuple:
@@ -233,9 +234,14 @@ def _check_bwd(q, k, v, out, dout, lse, group, kv_len):
                          "device")
     if dh not in BF16_HEAD_DIMS:
         raise ValueError(f"head dim {dh}: B6-bwd takes {BF16_HEAD_DIMS}")
-    if sq % BWD_TILE or sk % BWD_TILE:
-        raise ValueError(f"Sq {sq}, Sk {sk}: B6-bwd needs multiples of "
-                         f"{BWD_TILE}")
+    block_q, block_k = bf16_tiles(dh)
+    if sq % block_q or sk % block_k:
+        raise ValueError(f"Sq {sq}, Sk {sk}: B6-bwd needs Sq a multiple of "
+                         f"{block_q} and Sk of {block_k} (the forward's tiles "
+                         f"at dh {dh})")
+    if bh * sq > _INT_MAX or bkv * sk > _INT_MAX:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}: rows "
+                         f"beyond the tensor maps' 32-bit coordinates")
     if not 0 <= kv_len <= sk:
         raise ValueError(f"kv_len {kv_len} outside [0, {sk}]")
 
@@ -248,7 +254,9 @@ def flash_attention_bwd_call(q, k, v, out, dout, lse, *, causal: bool = True,
     kernel layout — q, out, dout, dq (BH, Sq, dh), k, v, dk, dv (BH // group,
     Sk, dh) — from its ``lse`` (BH, Sq) float32 (``return_lse``), with the
     forward's masks.  A CPU tensor runs ``ref.flash_attention_bwd_plain``;
-    a CUDA tensor the bf16 kernel (lengths multiples of 64) or raises."""
+    a CUDA tensor the bf16 kernel (the lengths that ``ops.kernel_layout``
+    gives bf16: Sq a multiple of 128, Sk of ``bf16_tiles(dh)[1]``) or
+    raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse,
                                          causal=causal, window=window,
@@ -270,6 +278,10 @@ def flash_attention_bwd_call(q, k, v, out, dout, lse, *, causal: bool = True,
         dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], dh, group, kv_len,
         int(causal), int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= _TENSOR_MAP_ERRORS:
+        raise RuntimeError(f"flash_attn_bwd: no TMA tensor map (code {err}: "
+                           f"10000 no driver entry point, 20000 + CUresult "
+                           f"refused)")
     if err:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
                            f"{err}")

@@ -418,6 +418,14 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     (1, 200, 4, 2, 16, True, 24),
     (2, (200, 50), 8, 2, 64, False, 0),
     (1, 1024, 56, 8, 128, True, 0),
+    # the Hopper kernels' tile edges: one q tile with kv_len inside a kv
+    # tile, a window across kv tiles, kv lengths of 64-row tiles at dh 128
+    # (the dK/dV item's second half past the keys), kv_len inside a tile
+    (1, 100, 4, 1, 64, True, 0),
+    (1, 512, 4, 2, 64, True, 200),
+    (1, 192, 4, 2, 128, True, 0),
+    (2, (256, 64), 4, 4, 128, False, 0),
+    (1, (256, 90), 4, 2, 32, False, 0),
 ])
 def test_flash_attention_bwd_matches_plain(cuda, case):
     """B6 with its log-sum-exp (the output unchanged) and B6-bwd against

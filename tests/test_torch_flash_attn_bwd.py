@@ -259,8 +259,9 @@ def test_function_applies_in_the_kernel_layout():
 
 def test_bwd_wrapper_refuses_what_the_kernel_cannot_take():
     """On the card B6-bwd takes bf16 kernel-layout tensors whose lengths
-    are multiples of 64; the checks run before any launch (here on meta
-    tensors, which reach them without a card)."""
+    are the forward's tiles' multiples (Sq of 128, Sk of 128 or of 64 at
+    dh 128); the checks run before any launch (here on meta tensors, which
+    reach them without a card)."""
     def t(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -271,13 +272,38 @@ def test_bwd_wrapper_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="bf16 only"):
         kernel._check_bwd(*(x.float() for x in (q, k, k, out, out)), lse, 2,
                           128)
-    with pytest.raises(ValueError, match="multiples of 64"):
+    with pytest.raises(ValueError, match="Sq a multiple of 128 and Sk of "
+                                         "128"):
         kernel._check_bwd(t(8, 96, 64), t(4, 96, 64), t(4, 96, 64),
                           t(8, 96, 64), t(8, 96, 64),
                           t(8, 96, dtype=torch.float32), 2, 96)
+    # Sk 64 is a whole kv tile at dh 128 only
+    with pytest.raises(ValueError, match="Sk of 128"):
+        kernel._check_bwd(t(8, 128, 64), t(4, 64, 64), t(4, 64, 64),
+                          t(8, 128, 64), t(8, 128, 64), lse, 2, 64)
+    kernel._check_bwd(t(8, 128, 128), t(4, 64, 128), t(4, 64, 128),
+                      t(8, 128, 128), t(8, 128, 128), lse, 2, 64)
     with pytest.raises(ValueError, match="head dim"):
         kernel._check_bwd(t(8, 128, 48), t(4, 128, 48), t(4, 128, 48),
                           t(8, 128, 48), t(8, 128, 48), lse, 2, 128)
     with pytest.raises(ValueError, match="lse"):
         kernel._check_bwd(q, k, k, out, out, t(8, 64, dtype=torch.float32),
                           2, 128)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True), (200, 50, False),
+                                          (300, 300, True)],
+                         ids=["100", "200 over 50", "300"])
+def test_bwd_wrapper_takes_every_bf16_kernel_layout(dh, sq, sk, causal):
+    """Every bf16 shape ``ops.kernel_layout`` gives the forward passes
+    B6-bwd's checks (here on meta tensors): no training path is refused
+    for its lengths."""
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    q, k = t(2, sq, 4, dh), t(2, sk, 2, dh)
+    qf, kf, vf, kw = kernel_layout(q, k, k, causal=causal)
+    assert (kw["block_q"], kw["block_k"]) == kernel.bf16_tiles(dh)
+    lse = t(qf.shape[0], qf.shape[1], dtype=torch.float32)
+    kernel._check_bwd(qf, kf, vf, qf, qf, lse, kw["group"], kw["kv_len"])
