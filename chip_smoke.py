@@ -6,7 +6,9 @@ runs the paper's experiment through the port's examples, serves tokens from
 tinyllama-1.1b, deepseek-moe-16b, phi3.5-moe, mamba2-1.3b, hymba-1.5b,
 seamless-m4t-large-v2 and llava-next-34b at full width through
 ``repro_torch.launch.serve``, trains tinyllama-1.1b whole through
-``repro_torch.launch.train`` and times the kernels.
+``repro_torch.launch.train``, then mamba2-1.3b, hymba-1.5b,
+deepseek-moe-16b (4 layers), seamless-m4t-large-v2 and tinyllama-1.1b
+under int8 QAT at full width, and times the kernels.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -135,13 +137,14 @@ final result line):
    B6 launches), its first two layers against a CPU copy on 1 x 3,072
    tokens (``layers_vs_cpu``, the prefix overwrite on the path) and its
    breakdown;
-4i. LM training (``lm_train_phase``), last, with nothing else on the
+4i. LM training (``lm_train_phase``), with nothing else on the
    card: B6 with its per-row log-sum-exp (the output bit-equal to the
    launch without it, the lse within ``LSE_ATOL`` of the plain version's)
    and B6-bwd (``csrc/flash_attn_bwd.cu``) against its plain backward
-   within ``ref.bwd_bounds`` at 8 cases (``bwd_cases``: tinyllama's
+   within ``ref.bwd_bounds`` at 9 cases (``bwd_cases``: tinyllama's
    training shape, group 1 and group 7 at dh 128, window 1,024 at group
-   5, 2,048 queries unmasked over 512 keys, ragged 200 over 50, a length
+   5, 2,048 queries unmasked over 512 keys, S 512 unmasked (seamless's
+   encoder), ragged 200 over 50, a length
    of 300, dh 16), a launch equal to its repeat, the plain backward within
    ``PLAIN_BWD_RTOL`` of autograd through the plain forward, the bounds
    breaking on two planted faults (the causal mask dropped, dK not summed
@@ -159,6 +162,26 @@ final result line):
    else, and the idle share); ms a step,
    tokens/s, peak memory, the step's bound (``lm_step_work``) and the
    breakdown in an ``lm_train_run {json}`` line;
+4j. the other families' training and LM QAT (``family_train_phase``),
+   after 4i and its timings: each entry of ``FAMILY_TRAIN`` — mamba2-1.3b
+   whole at 8 x 2,048 tokens, hymba-1.5b whole at 1 x 2,048 (no remat),
+   deepseek-moe-16b at 4 of 28 layers at 8 x 2,048, seamless-m4t-large-v2
+   whole at 3 x 2,048 beside 512 frames a sequence, tinyllama-1.1b with
+   ``--quant qat-int8`` at 8 x 2,048 — through the launcher,
+   ``FAMILY_STEPS`` steps, twice: the loss falls; B6 and B6-bwd counted
+   from 0 just before each run, ``train_launches`` a step (0 and 0, 32 and
+   32, 8 and 4, 144 and 72, 44 and 22); the second run repeats the first's
+   losses and params digest bit for bit — for mamba2 with its 17 GB step-0
+   checkpoint and a crash at step 2, restarted; the first runs write no
+   checkpoint (``--ckpt-every 0``); each cut printed beside the run, with
+   the memory a batch one larger would take; the first 2 layers of the
+   MoE, SSM, hybrid and encoder-decoder models (2 + 2) against a CPU copy
+   on 1 x 512 tokens (``lm_train_vs_cpu``: MoE routing flips counted, the
+   card's recompute repeating its routing, the CPU then on the card's
+   routing); one step of mamba2 and of deepseek profiled by kernel class
+   (``lm_train_breakdown``, each in a process of its own); B6-bwd timed at
+   the training shapes (``FAMILY_BWD_SHAPES``) beside its bound and SDPA's
+   backward; an ``lm_train_run {json}`` line per entry;
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
@@ -186,6 +209,7 @@ are ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  Bounds use th
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -203,6 +227,9 @@ import time
 # setting (``repro_torch.launch.train.CUBLAS_DETERMINISTIC``; on an H100 it
 # is also cuBLAS's default size, so the other phases run as without it)
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# and in expandable segments (``repro_torch.launch.train.ALLOC_CONF``):
+# phase 4j's full-width steps do not fit in fixed ones
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402
 
@@ -262,6 +289,50 @@ TRAIN_STEPS = 5
 # tests/test_torch_lm_train.py)
 TRAIN_LOSS_RTOL = 5e-4
 TRAIN_GRAD_ULPS = 4
+# phase 4j, the other families' first two layers card vs CPU: each leaf
+# within the tolerance the CPU tests hold the port to against the reference
+# (``GRAD_ULPS`` of tests/test_torch_lm_train.py, two implementations' bf16
+# sums in other orders): hymba's conv taps, sums over every token of small
+# bf16 products without a recompute, read 4.5 where tinyllama reads 1.25
+FAMILY_GRAD_ULPS = 8
+# phase 4j: the MoE, SSM, hybrid and encoder-decoder families and LM QAT
+# trained at full width through launch.train, 2,048 tokens a sequence,
+# FAMILY_STEPS steps a run, twice: arch, layers (0: all), batch, --quant,
+# the cut and why (the batch cut first, never the width).  A batch under
+# 8 is where the search for the largest that fits starts (``fit_batch``)
+FAMILY_STEPS = 3
+FAMILY_SEQ = 2048
+FAMILY_TRAIN = (
+    (SSM_ARCH, 0, 8, None, "none"),
+    (HYBRID_ARCH, 0, 2, None,
+     "no remat, as the reference's unrolled stack: every layer's "
+     "activations (the SSD scan's chunk tensors among them) are alive at "
+     "once"),
+    (MOE_ARCH, 4, 8, None,
+     "4 of 28 layers: 16 bytes a parameter (f32 masters, grads, Adam's "
+     "moments) are 270 GB for 28"),
+    (ENCDEC_ARCH, 0, 4, None,
+     "the 256,206-column logits (bf16, f32 and their gradients) grow with "
+     "the batch"),
+    (LM_ARCH, 0, 8, "qat-int8", "none"),
+)
+# B6-bwd timed at phase 4j's training shapes — key, the arch whose
+# training batch B takes, (label, S or (Sq, Sk), Hq, Hkv, dh, causal,
+# window), launches a step
+FAMILY_BWD_SHAPES = (
+    ("hymba_train", HYBRID_ARCH, ("hymba-1.5b: group 5, window 1,024", 2048,
+                                  25, 5, 64, True, 1024), 32),
+    ("deepseek_train", MOE_ARCH, ("deepseek-moe-16b: group 1 at dh 128",
+                                  2048, 16, 16, 128, True, 0), 4),
+    ("seamless_self_train", ENCDEC_ARCH,
+     ("seamless-m4t-large-v2: decoder self-attention", 2048, 16, 16, 64,
+      True, 0), 24),
+    ("seamless_cross_train", ENCDEC_ARCH,
+     ("seamless-m4t-large-v2: cross-attention", (2048, 512), 16, 16, 64,
+      False, 0), 24),
+    ("seamless_encoder_train", ENCDEC_ARCH,
+     ("seamless-m4t-large-v2: encoder", 512, 16, 16, 64, False, 0), 24),
+)
 # the model shapes B6 is timed at beside the serving shape (phase 5)
 B6_SHAPES = ("dh128", "deepseek", "hymba_window", "hymba_global",
              "seamless_cross", "llava", "f32")
@@ -2012,9 +2083,10 @@ def serving_work(cfg, b: int, s: int) -> dict:
     if cfg.family in ("ssm", "hybrid"):
         state = 2 * 4 * n_layers * b * cfg.n_ssm_heads * cfg.ssm_head_dim \
             * cfg.ssm_state
+    blocks = 2 * (frames * b * se + (body - frames) * b * s)
     return {
-        "prefill_ops": 2 * (frames * b * se + (body - frames) * b * s)
-        + 2 * d * vp * b + pair * b * pre_pairs,
+        "prefill_ops": blocks + 2 * d * vp * b + pair * b * pre_pairs,
+        "block_ops": blocks, "attention_ops": pair * b * pre_pairs,
         "prefill_bytes": 2 * param_count(cfg) + kv_bytes,
         "decode_ops": 2 * (body - frames + d * vp) * b + pair * b * dec_pairs,
         "decode_bytes": 2 * (body - frames + d * vp) + kv_bytes + state}
@@ -2766,6 +2838,8 @@ def bwd_cases() -> list:
          True, 1024),
         ("unmasked, 2,048 queries over 512 keys", 2, (2048, 512), 16, 16, 64,
          False, 0),
+        ("unmasked, S 512 (seamless-m4t-large-v2's encoder)", 2, 512, 16, 16,
+         64, False, 0),
         ("ragged unmasked, 200 queries over 50 keys", 2, (200, 50), 8, 2, 64,
          False, 0),
         ("causal, a length not a multiple of the tile (300)", 2, 300, 8, 2,
@@ -3045,14 +3119,22 @@ def b6_bwd_time(err: float, device) -> dict:
     return t
 
 
-def lm_train_vs_cpu(device, n_layers: int = 2, seq: int = 512) -> dict:
-    """Phase 4i: tinyllama-1.1b at full width, its first ``n_layers``
-    layers, one batch of 1 x ``seq`` tokens from ``TextPipeline``: the loss
+def lm_train_vs_cpu(device, arch: str = LM_ARCH, n_layers: int = 2,
+                    seq: int = 512, grad_ulps: int = TRAIN_GRAD_ULPS) -> dict:
+    """Phases 4i and 4j: ``arch`` at full width, its first ``n_layers``
+    layers (an encoder-decoder's first ``n_layers`` encoder and decoder
+    layers), one batch of 1 x ``seq`` tokens from ``TextPipeline`` (made on
+    the card, copied to the CPU: an encoder-decoder's frames too): the loss
     and every gradient leaf on the card (B6, B6-bwd, cuBLAS) against a CPU
     copy of the same f32 masters (the plain versions), both under
     deterministic algorithms.  The loss within ``TRAIN_LOSS_RTOL``, each
-    leaf within ``TRAIN_GRAD_ULPS`` bf16 ulps of its largest magnitude on
-    the CPU.  Returns the readings."""
+    leaf within ``grad_ulps`` bf16 ulps of its largest magnitude on the
+    CPU.  MoE, routing first (:class:`RoutingReplay`): the card's
+    recompute must repeat the card's routing, the CPU's own choices may
+    differ from the card's in at most ``MOE_FLIP_SHARE`` of a layer's
+    (token, choice) pairs, and the CPU copy then trains on the card's
+    routing, so that both sides compute one function.  Returns the
+    readings."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3062,12 +3144,13 @@ def lm_train_vs_cpu(device, n_layers: int = 2, seq: int = 512) -> dict:
     from repro_torch.models import registry
     from repro_torch.tree import leaves, rebuild, tree_map
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_enc_layers=n_layers)
     fns = registry.build(cfg)
     pipe = TextPipeline(seq_len=seq, batch_size=1, vocab_size=256)
 
-    def loss_and_grads(params, dev):
-        batch = lm_batches(cfg, pipe, dev)(0)
+    def loss_and_grads(params, batch):
         live = [p.detach().requires_grad_(True) for p in leaves(params)]
         loss = fns.loss(rebuild(params, live), batch)
         return loss.detach(), torch.autograd.grad(loss, live)
@@ -3078,16 +3161,20 @@ def lm_train_vs_cpu(device, n_layers: int = 2, seq: int = 512) -> dict:
     with deterministic():
         params = fns.init(0, device=device)
         cpu_params = tree_map(lambda t: t.cpu(), params)
+        batch = lm_batches(cfg, pipe, device)(0)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        replay = RoutingReplay(cfg, params, cpu_params)
         fwd.launches = bwd.launches = 0
-        loss_g, grads_g = loss_and_grads(params, device)
+        with replay.recording():
+            loss_g, grads_g = loss_and_grads(params, batch)
         torch.cuda.synchronize()
         counts = fwd.launches, bwd.launches
-        loss_c, grads_c = loss_and_grads(cpu_params, "cpu")
+        with replay.replaying():
+            loss_c, grads_c = loss_and_grads(cpu_params, cpu_batch)
     fwd.launches, bwd.launches = saved
-    if counts != (2 * n_layers, n_layers):
-        fail(f"card vs CPU training: B6 / B6-bwd launches {counts}, not "
-             f"{(2 * n_layers, n_layers)} (forward and remat recompute, "
-             f"backward, a layer)")
+    if counts != train_launches(cfg):
+        fail(f"{arch} card vs CPU training: B6 / B6-bwd launches {counts}, "
+             f"not {train_launches(cfg)}")
     loss_gap = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
     worst = 0.0
     for i, (g, c) in enumerate(zip(grads_g, grads_c)):
@@ -3095,33 +3182,103 @@ def lm_train_vs_cpu(device, n_layers: int = 2, seq: int = 512) -> dict:
         top = float(c.abs().max())
         ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
         err = float((g.float().cpu() - c).abs().max())
-        if not torch.isfinite(g).all() or not err <= TRAIN_GRAD_ULPS * ulp:
-            fail(f"card vs CPU training: gradient leaf {i} "
-                 f"{tuple(g.shape)} {err:.3g} off, {TRAIN_GRAD_ULPS} bf16 "
-                 f"ulps of its largest magnitude are "
-                 f"{TRAIN_GRAD_ULPS * ulp:.3g}")
+        if not torch.isfinite(g).all() or not err <= grad_ulps * ulp:
+            fail(f"{arch} card vs CPU training: gradient leaf {i} "
+                 f"{tuple(g.shape)} {err:.3g} off, {grad_ulps} bf16 ulps of "
+                 f"its largest magnitude are {grad_ulps * ulp:.3g}")
         worst = max(worst, err / ulp if ulp else 0.0)
     if not loss_gap <= TRAIN_LOSS_RTOL:
-        fail(f"card vs CPU training: loss {float(loss_g)} vs "
+        fail(f"{arch} card vs CPU training: loss {float(loss_g)} vs "
              f"{float(loss_c)} ({loss_gap:.3g} > {TRAIN_LOSS_RTOL})")
-    out = {"layers": n_layers, "tokens": seq, "loss_card": float(loss_g),
-           "loss_cpu": float(loss_c), "loss_rel_gap": loss_gap,
-           "worst_grad_ulps": worst, "leaves": len(grads_g),
+    out = {"arch": arch, "layers": n_layers, "tokens": seq,
+           "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+           "loss_rel_gap": loss_gap, "worst_grad_ulps": worst,
+           "leaves": len(grads_g), "launches": counts,
            "seconds": time.perf_counter() - t0}
-    log(f"{LM_ARCH} training, first {n_layers} layers at full width, 1 x "
+    if replay.flips is not None:
+        out["routing_flips"] = replay.flips
+    log(f"{arch} training, first {n_layers} layers at full width, 1 x "
         f"{seq} tokens: loss card {out['loss_card']:.6f} vs CPU "
         f"{out['loss_cpu']:.6f} (rel {loss_gap:.3g}, limit "
         f"{TRAIN_LOSS_RTOL}); {len(grads_g)} gradient leaves within "
-        f"{worst:.3g} bf16 ulps of their largest (limit {TRAIN_GRAD_ULPS}); "
-        f"B6 {counts[0]}, B6-bwd {counts[1]} launches")
+        f"{worst:.3g} bf16 ulps of their largest (limit {grad_ulps}); "
+        f"B6 {counts[0]}, B6-bwd {counts[1]} launches"
+        + (f"; routing flips CPU vs card by layer {replay.flips} of "
+           f"{replay.pairs} (token, choice) pairs each, the card's recompute "
+           f"repeating its routing" if replay.flips is not None else "")
+        + f"; {out['seconds']:.1f} s")
     del params, cpu_params, grads_g, grads_c
     free_device()
     return out
 
 
-def lm_train(argv) -> tuple:
+class RoutingReplay:
+    """MoE card vs CPU (:func:`lm_train_vs_cpu`): ``recording()`` keeps each
+    layer's top-k experts from the card's forward (a router's layer is
+    found by its storage) and fails if the card's remat recompute routes
+    otherwise; ``replaying()`` has the CPU copy compute its own routing,
+    counts its flips against the card's (``flips``, by layer; fails above
+    ``MOE_FLIP_SHARE``), then take the card's experts with the CPU's own
+    probabilities at them, renormalised, as its gates.  A no-op for the
+    other families (``flips`` None)."""
+
+    def __init__(self, cfg, params, cpu_params):
+        self.moe = cfg.family == "moe"
+        self.flips = [] if self.moe else None
+        self.idx, self.pairs = {}, 0
+        self.layer_of = {}
+        if self.moe:
+            for tree in (params, cpu_params):
+                for i, lp in enumerate(tree["layers"]):
+                    self.layer_of[lp["moe"].router.data_ptr()] = i
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from repro_torch.models import moe
+
+        if not self.moe:
+            yield
+            return
+        route = moe.route
+        moe.route = lambda router, xg, top_k, cf: fn(
+            route(router, xg, top_k, cf), self.layer_of[router.data_ptr()])
+        try:
+            yield
+        finally:
+            moe.route = route
+
+    def recording(self):
+        def record(r, layer):
+            if layer not in self.idx:
+                self.idx[layer] = r.idx
+            elif not torch.equal(self.idx[layer], r.idx):
+                fail(f"MoE layer {layer}: the card's remat recompute routed "
+                     f"otherwise than its forward")
+            return r
+        return self._patched(record)
+
+    def replaying(self):
+        def replay(r, layer):
+            want = self.idx[layer].cpu()
+            if len(self.flips) == layer:  # the forward: count the flips
+                self.pairs = want.numel()
+                self.flips.append(int((r.idx != want).sum()))
+                if self.flips[-1] > MOE_FLIP_SHARE * self.pairs:
+                    fail(f"MoE layer {layer}: {self.flips[-1]} of "
+                         f"{self.pairs} (token, choice) pairs routed "
+                         f"otherwise on the CPU than on the card, over "
+                         f"{MOE_FLIP_SHARE}")
+            vals = torch.gather(r.probs, -1, want)
+            return r._replace(gates=vals / vals.sum(-1, keepdim=True),
+                              idx=want)
+        return self._patched(replay)
+
+
+def lm_train(argv, cfg=None) -> tuple:
     """One LM run of the training launcher, B6's and B6-bwd's counts set to
-    0 just before it and read just after.  Returns (report, counts)."""
+    0 just before it and read just after; with ``cfg`` (a config cut in
+    depth) through its ``train_lm`` on the parse of ``argv``.  Returns
+    (report, counts)."""
     from repro_torch.kernels.flash_attn import kernel
     from repro_torch.launch import train as launcher
 
@@ -3129,7 +3286,8 @@ def lm_train(argv) -> tuple:
     fwd.launches = bwd.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = launcher.main(argv)
+        rc = launcher.main(argv) if cfg is None else \
+            launcher.train_lm(launcher.parser().parse_args(argv), cfg)
     counts = {"flash_attn": fwd.launches, "flash_attn_bwd": bwd.launches}
     lines = buf.getvalue().splitlines()
     log("\n".join(lines[:1] + [ln for ln in lines if ln.startswith("step")]
@@ -3140,37 +3298,59 @@ def lm_train(argv) -> tuple:
 
 
 def lm_step_work(cfg, b: int, s: int) -> dict:
-    """A remat training step's FLOPs: 6 x (the products' params) x tokens
-    for the forward and backward, 2 x that again for the forward the
-    backward recomputes, plus attention's per layer: 4 B Hq dh pairs
-    forward, again in the recompute, 10 B Hq dh pairs in B6-bwd (S, dP,
-    dV, dK, dQ); pairs S(S+1)/2 causal.  The embedding gather is no
-    product.  Bytes: Adam's update reads params, grads and both moments
-    and writes params and moments, f32 (16 + 12 bytes a param)."""
+    """A training step's least work, for its bound.  Products (bf16): the
+    forward's, ``serving_work``'s counts with the head on every token — 2
+    x the params a token passes through, less the embedding (a gather);
+    MoE only its k routed and its shared experts; an encoder-decoder's
+    encoder layers and cross K/V projections over its ``enc_len_for(s)``
+    frames —; the backward twice that; the blocks' forward again where
+    they are recomputed (every family but the hybrid; the head is outside
+    the blocks).  Attention: 4 B Hq dh a kept pair (causal, within a
+    hybrid's window, unmasked over the frames) forward, again in a
+    recompute, 10 in B6-bwd (S, dP, dV, dK, dQ).  An SSM's scan products
+    (``analysis.roofline.ssd_flops``, f32 at the f32 peak): forward,
+    backward twice, and again in a recompute.  Bytes: Adam's update reads
+    params, grads and both moments and writes params and moments, f32 (28
+    bytes a param, every expert's)."""
+    from repro_torch.analysis.roofline import H100, ssd_flops
     from repro_torch.configs.base import param_count
 
-    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    per_layer = d * hq * dh + 2 * d * hkv * dh + hq * dh * d + \
-        d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
-    mm = cfg.n_layers * per_layer + d * cfg.vocab_size
-    tokens = b * s
-    pairs = s * (s + 1) // 2
-    attn = cfg.n_layers * 18 * b * hq * dh * pairs
-    flops = 8 * mm * tokens + attn
+    work = serving_work(cfg, b, s)
+    remat = cfg.family != "hybrid"
+    head = 2 * cfg.d_model * cfg.padded_vocab(1) * b * s
+    attn = work["attention_ops"] // 4 * (18 if remat else 14)
+    flops = (4 if remat else 3) * work["block_ops"] + 3 * head + attn
+    scan = (4 if remat else 3) * ssd_flops(cfg, b, s)
     nbytes = 28 * param_count(cfg)
-    from repro_torch.analysis.roofline import H100
-    t_ops = flops / H100["peak_bf16_flops"] * 1e3
+    t_ops = (flops / H100["peak_bf16_flops"]
+             + scan / H100["peak_fp32_flops"]) * 1e3
     t_bytes = nbytes / H100["hbm_bytes_per_s"] * 1e3
-    return {"flops": flops, "matmul_params": mm, "attention_flops": attn,
+    return {"flops": flops, "scan_flops": scan, "attention_flops": attn,
             "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def lm_train_breakdown(device, b: int = 8, s: int = 2048) -> dict:
-    """Where the device time of one of phase 4i's training steps goes:
-    tinyllama-1.1b whole (random weights from seed 0), b x s tokens of
-    ``TextPipeline``, the launcher's step (Adam at its default rate, global
-    norm clipped to 1.0) under deterministic algorithms; one step as
+def train_launches(cfg) -> tuple:
+    """B6's and B6-bwd's launches in one training step of ``cfg``: one of
+    each an attention (an encoder-decoder's encoder layer one, its decoder
+    layer two: self and cross), B6 once more where the block is recomputed
+    (every family but the hybrid)."""
+    if cfg.family == "ssm":
+        n = 0
+    elif cfg.family == "encdec":
+        n = cfg.n_enc_layers + 2 * cfg.n_layers
+    else:
+        n = cfg.n_layers
+    return (n if cfg.family == "hybrid" else 2 * n), n
+
+
+def lm_train_breakdown(device, b: int = 8, s: int = 2048,
+                       arch: str = LM_ARCH, layers: int = 0) -> dict:
+    """Where the device time of one of phase 4i's or 4j's training steps
+    goes: ``arch`` at full width (its first ``layers`` layers, 0 for all;
+    random weights from seed 0), b x s tokens of ``TextPipeline``, the
+    launcher's step (Adam at its default rate, global norm clipped to 1.0)
+    under deterministic algorithms; one step as
     warm-up, then one under the profiler.  Device time summed by kernel
     class (``kernel_class``: B6, B6-bwd, the matrix products, everything
     else) and the idle share 1 - busy / wall, wall on the host clock around
@@ -3186,7 +3366,10 @@ def lm_train_breakdown(device, b: int = 8, s: int = 2048) -> dict:
     from repro_torch.optim import adam
     from repro_torch.train.step import init_train_state, make_train_step
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    name = cfg.name + (f" ({layers} layers)" if layers else "")
     fwd, bwd = kernel.flash_attention_call, kernel.flash_attention_bwd_call
     saved = fwd.launches, bwd.launches
     with deterministic():
@@ -3206,18 +3389,18 @@ def lm_train_breakdown(device, b: int = 8, s: int = 2048) -> dict:
         torch.cuda.synchronize()
         evs, (wall, metrics) = device_events(
             lambda: host_wall(one_step), lead=one_step,
-            label=f"{LM_ARCH} training step")
+            label=f"{name} training step")
     fwd.launches, bwd.launches = saved
     by_class, by_name = sum_by_class(evs)
     busy = sum(by_class.values())
-    if busy <= 0 or "B6-bwd" not in by_class:
-        fail(f"{LM_ARCH} training step: the profiler recorded "
+    if busy <= 0 or (train_launches(cfg)[1] and "B6-bwd" not in by_class):
+        fail(f"{name} training step: the profiler recorded "
              f"{sorted(by_class)} (B6-bwd expected)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
            "by_class_ms": by_class, "loss": float(metrics["loss"]),
            "top": [(n[:80], v) for n, v in top]}
-    log(f"breakdown {LM_ARCH} training step {b} x {s}: wall {wall:.3f} ms, "
+    log(f"breakdown {name} training step {b} x {s}: wall {wall:.3f} ms, "
         f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); by "
         f"class {json.dumps({k: round(v, 3) for k, v in by_class.items()})}"
         f"; top {[(n[:60], round(v, 3)) for n, v in top]}")
@@ -3226,7 +3409,8 @@ def lm_train_breakdown(device, b: int = 8, s: int = 2048) -> dict:
     return out
 
 
-def lm_train_breakdown_fresh(b: int = 8, s: int = 2048) -> dict:
+def lm_train_breakdown_fresh(b: int = 8, s: int = 2048, arch: str = LM_ARCH,
+                             layers: int = 0) -> dict:
     """:func:`lm_train_breakdown` in a process of its own (one card, this
     checkout's build).  This late in this long process, one H100 run's
     profiler kept no record of a whole training step, where a fresh process
@@ -3238,7 +3422,7 @@ def lm_train_breakdown_fresh(b: int = 8, s: int = 2048) -> dict:
             "from repro_torch.kernels.common import disable_tf32\n"
             "disable_tf32()\n"
             f"out = chip_smoke.lm_train_breakdown(torch.device('cuda', 0), "
-            f"{b}, {s})\n"
+            f"{b}, {s}, {arch!r}, {layers})\n"
             "print('lm_train_breakdown ' + json.dumps(out))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=600)
@@ -3247,7 +3431,7 @@ def lm_train_breakdown_fresh(b: int = 8, s: int = 2048) -> dict:
         if not ln.startswith("lm_train_breakdown "):
             log(ln)
     if r.returncode or not lines:
-        fail(f"{LM_ARCH} training-step breakdown (own process) exited "
+        fail(f"{arch} training-step breakdown (own process) exited "
              f"{r.returncode}: {r.stderr.strip()[-400:]}")
     return json.loads(lines[-1].split(" ", 1)[1])
 
@@ -3283,7 +3467,7 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
         shutil.rmtree(f"{tmp}/a")
         rep_b, counts_b = lm_train(base + ["--ckpt-dir", f"{tmp}/b",
                                            "--inject-fault-at", "3"])
-    per_step = (2 * cfg.n_layers, cfg.n_layers)
+    per_step = train_launches(cfg)
     if (counts["flash_attn"], counts["flash_attn_bwd"]) != \
             (per_step[0] * steps, per_step[1] * steps) or \
             rep_a["train_step_calls"] != steps:
@@ -3334,6 +3518,258 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
         f"step-0 checkpoint); with the crash {rep_b['wall_s']:.1f} s; "
         f"launches a step B6 {per_step[0]}, B6-bwd {per_step[1]}  [{smi}]")
     return held, record, counts
+
+
+def family_train(arch: str, layers: int, b: int, quant, cut: str,
+                 smi: str) -> tuple:
+    """Phase 4j for one entry of ``FAMILY_TRAIN``: ``FAMILY_STEPS`` steps of
+    ``b`` x ``FAMILY_SEQ`` tokens through ``repro_torch.launch.train``
+    (random weights from seed 0, byte-level batches, Adam with clipping),
+    twice, B6's and B6-bwd's counts set to 0 just before each run:
+
+    * run A without checkpoints (``--ckpt-every 0``): the loss falls, the
+      launches a step are :func:`train_launches`';
+    * run B the same again (a rerun), or for mamba2-1.3b with its step-0
+      checkpoint and a crash at step 2 (steps 0-1, the restore, steps 0-2):
+      its steps before the crash repeat A's losses bit for bit, and it ends
+      on A's losses and params digest bit for bit; its checkpoint directory
+      is deleted once read.
+
+    A ``b`` under 8 is first raised to the largest batch whose step fits
+    (:func:`fit_batch`).  Beside the step's time: tokens/s, peak memory,
+    the bound (:func:`lm_step_work`) and the batch tries.  Returns (the
+    ``lm_train_run`` record, the launches of both runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import param_count
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers,
+                              quant=quant or full.quant)
+    name = arch + (f" ({layers} of {full.n_layers} layers)"
+                   if layers else "") + (f" --quant {quant}" if quant else "")
+    b, tries = fit_batch(cfg, b)
+    if tries:
+        cut = f"batch {b} of 8, the largest that fits ({tries}): {cut}"
+    base = ["--arch", arch, "--steps", str(FAMILY_STEPS), "--batch", str(b),
+            "--seq", str(FAMILY_SEQ), "--device", "cuda"]
+    if quant:
+        base += ["--quant", quant]
+    crash = arch == SSM_ARCH
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4j_") as tmp:
+        rep_a, counts_a = lm_train(base + ["--ckpt-every", "0",
+                                           "--ckpt-dir", f"{tmp}/a"], cfg)
+        free_device()
+        if crash:
+            rep_b, counts_b = lm_train(base + [
+                "--ckpt-every", "1000", "--ckpt-dir", f"{tmp}/b",
+                "--inject-fault-at", "2"], cfg)
+            shutil.rmtree(f"{tmp}/b")
+        else:
+            rep_b, counts_b = lm_train(base + ["--ckpt-every", "0",
+                                               "--ckpt-dir", f"{tmp}/b"], cfg)
+        free_device()
+    per_step = train_launches(cfg)
+    calls = {"A": rep_a["train_step_calls"], "B": rep_b["train_step_calls"]}
+    if calls != {"A": FAMILY_STEPS, "B": FAMILY_STEPS + 2 * crash}:
+        fail(f"{name} training: {calls} train-step calls")
+    for run, counts in (("A", counts_a), ("B", counts_b)):
+        want = {"flash_attn": per_step[0] * calls[run],
+                "flash_attn_bwd": per_step[1] * calls[run]}
+        if counts != want:
+            fail(f"{name} training, run {run}: launches {counts}, not "
+                 f"{per_step} a step over {calls[run]} steps")
+    first, last = rep_a["first_loss"], rep_a["last_loss"]
+    if not (math.isfinite(last) and last < first):
+        fail(f"{name} training: loss {first} -> {last} did not fall")
+    if crash and rep_b["loss_log"][:2] != rep_a["loss_log"][:2]:
+        fail(f"{name} training: the steps before the crash differ from the "
+             f"first run's: {rep_b['loss_log'][:2]} vs {rep_a['loss_log'][:2]}")
+    if rep_b["losses"] != rep_a["losses"] or \
+            rep_b["params_digest"] != rep_a["params_digest"]:
+        fail(f"{name} training: the second run ({'crash + restart' if crash else 'a rerun'}) "
+             f"differs from the first: {rep_b['losses']} vs {rep_a['losses']}, "
+             f"digest {rep_b['params_digest']} vs {rep_a['params_digest']}")
+    work = lm_step_work(cfg, b, FAMILY_SEQ)
+    state_gib = 16 * param_count(cfg) / 2 ** 30
+    peak = rep_a["peak_device_gib"]
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    record = {
+        "arch": arch, "layers": cfg.n_layers, "quant": quant, "batch": b,
+        "seq": FAMILY_SEQ, "steps": FAMILY_STEPS, "cut": cut,
+        "losses": rep_a["losses"], "balance_loss": rep_a["balance_loss"],
+        "ms_per_step": rep_a["ms_per_step"], "step_ms": rep_a["step_ms"],
+        "tokens_per_s": rep_a["tokens_per_s"], "peak_device_gib": peak,
+        "state_gib": state_gib,
+        "batch_tries": tries,
+        "card_gib": card_gib, "step_bound_ms": work["bound_ms"],
+        "step_bound_by": work["bound_by"], "step_flops": work["flops"],
+        "scan_flops": work["scan_flops"],
+        "launches_per_step": {"flash_attn": per_step[0],
+                              "flash_attn_bwd": per_step[1]},
+        "second_run": "crash at step 2 + restart" if crash else "rerun",
+        "second_run_bit_equal": True, "runner_wall_s": rep_a["wall_s"],
+        "second_run_wall_s": rep_b["wall_s"], "smi": smi}
+    balance = (f", balance term {rep_a['balance_loss']:.6f}"
+               if rep_a["balance_loss"] is not None else "")
+    log(f"{name} training at {b} x {FAMILY_SEQ} tokens: "
+        f"{record['ms_per_step']:.1f} ms a step (median of steps "
+        f"2-{FAMILY_STEPS}), {record['tokens_per_s']:.0f} tokens/s, bound "
+        f"{work['bound_ms']:.1f} ms ({work['bound_by']}), peak {peak:.2f} "
+        f"GiB of {card_gib:.2f} (state {state_gib:.2f}); losses "
+        f"{list(rep_a['losses'].values())}{balance}; launches a step B6 "
+        f"{per_step[0]}, B6-bwd {per_step[1]}; second run "
+        f"({record['second_run']}, {rep_b['wall_s']:.1f} s) bit for bit; cut: "
+        f"{cut}  [{smi}]")
+    return record, {"flash_attn": counts_a["flash_attn"]
+                    + counts_b["flash_attn"],
+                    "flash_attn_bwd": counts_a["flash_attn_bwd"]
+                    + counts_b["flash_attn_bwd"]}
+
+
+def fit_batch(cfg, b: int) -> tuple:
+    """The largest batch from ``b`` up to 8 whose training step fits on the
+    card: (it, each try of a larger one — :func:`next_batch` — as (batch,
+    what it did)); ``b`` itself is taken to fit (``FAMILY_TRAIN``), and the
+    run at it says whether it does."""
+    tries = []
+    while b < 8:
+        got = next_batch(cfg, b + 1)
+        tries.append((b + 1, got))
+        if got == "out of memory":
+            break
+        b += 1
+    return b, tries
+
+
+def next_batch(cfg, b: int) -> str:
+    """One training step of ``cfg`` at ``b`` x ``FAMILY_SEQ`` tokens, as the
+    launcher's (fresh weights from seed 0, Adam, clipping, deterministic):
+    "out of memory" when the card cannot hold it, else its peak."""
+    from repro_torch.data.lm_text import TextPipeline
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.launch.train import deterministic, lm_batches
+    from repro_torch.models import registry
+    from repro_torch.optim import adam
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    saved = (kernel.flash_attention_call.launches,
+             kernel.flash_attention_bwd_call.launches)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with deterministic():
+            fns = registry.build(cfg)
+            step = make_train_step(fns.loss, adam(3e-4), max_grad_norm=1.0)
+            pipe = TextPipeline(seq_len=FAMILY_SEQ, batch_size=b,
+                                vocab_size=256)
+            step(init_train_state(fns.init(0, device="cuda"), adam(3e-4)),
+                 lm_batches(cfg, pipe, "cuda")(0))
+            torch.cuda.synchronize()
+        out = (f"fits, peak "
+               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    except torch.OutOfMemoryError:
+        out = "out of memory"
+    (kernel.flash_attention_call.launches,
+     kernel.flash_attention_bwd_call.launches) = saved
+    free_device()
+    return out
+
+
+def b6_bwd_shape_time(case, device) -> dict:
+    """B6-bwd (both kernels, summed by the profiler after a marker) at one
+    of phase 4j's training shapes beside its bound — 10*B*Hq*dh*pairs FLOP
+    at the bf16 peak, pairs as B6's (``b6_time``), against q, k, v, out,
+    dout and lse read once and dq, dk, dv written once — and SDPA's
+    backward on the same inputs (``is_causal`` as B6's; a window as a
+    boolean band ``attn_mask``, off SDPA's flash path): a yardstick the
+    port never calls."""
+    import torch.nn.functional as F
+
+    from repro_torch.analysis.roofline import H100
+    from repro_torch.kernels.flash_attn import kernel
+
+    label, b, s, hq, hkv, dh, causal, window = case
+    s, sk = s if isinstance(s, tuple) else (s, s)
+    qf, kf, vf, dof, kw = bwd_inputs(case, device, seed=31)
+    a = {x: kw[x] for x in ("causal", "window", "group", "kv_len")}
+    bwd, fwd = kernel.flash_attention_bwd_call, kernel.flash_attention_call
+    saved = bwd.launches, fwd.launches
+    out, lse = fwd(qf, kf, vf, **kw, return_lse=True)
+    call = lambda: bwd(qf, kf, vf, out, dof, lse, **a)  # noqa: E731
+    ql = qf.reshape(b, hq, -1, dh)[:, :, :s].detach().requires_grad_(True)
+    kl, vl = (x.reshape(b, hkv, -1, dh)[:, :, :sk].detach()
+              .requires_grad_(True) for x in (kf, vf))
+    dol = dof.reshape(b, hq, -1, dh)[:, :, :s]
+    if window:
+        pos = torch.arange(s, device=device)
+        band = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=band,
+                                               enable_gqa=True)
+    else:
+        o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                               enable_gqa=True)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        o_lib, (ql, kl, vl), dol, retain_graph=True)
+    t = {"ms": device_ms(call, None, reps=10, lead=5,
+                         label=f"flash_attn_bwd {label}"),
+         "wall_ms": event_ms(call, reps=10),
+         "library_ms": device_ms(lib, None, reps=10, lead=10,
+                                 label=f"SDPA backward {label}")}
+    bwd.launches, fwd.launches = saved
+    pairs = sum(min(i + 1, window or s) for i in range(s)) if causal \
+        else s * sk
+    nops = 10 * b * hq * dh * pairs
+    nbytes = 2 * (3 * b * s * hq * dh + 2 * b * sk * hkv * dh) \
+        + 4 * b * hq * s + 2 * (b * s * hq * dh + 2 * b * sk * hkv * dh)
+    t_ops = nops / H100["peak_bf16_flops"] * 1e3
+    t_bytes = nbytes / H100["hbm_bytes_per_s"] * 1e3
+    masks = (", causal" + (f", window {window}" if window else "")
+             if causal else f", Sk {sk}, unmasked")
+    t.update({"bound_ms": max(t_ops, t_bytes),
+              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+              "shape": f"{label}: B {b}, Hq {hq}, Hkv {hkv}, dh {dh}, S {s}"
+                       f"{masks}, bf16", "bytes": nbytes, "ops": nops})
+    del qf, kf, vf, dof, out, lse, ql, kl, vl, o_lib
+    free_device()
+    return t
+
+
+def family_train_phase(device, smi: str) -> tuple:
+    """Phase 4j, last: each entry of ``FAMILY_TRAIN`` trained twice
+    (:func:`family_train`); the card against the CPU on the first 2 layers
+    (an encoder-decoder's 2 + 2) at 1 x 512 tokens for the MoE, SSM, hybrid
+    and encoder-decoder families (:func:`lm_train_vs_cpu`: MoE routing
+    counted first and replayed); one step of mamba2-1.3b and of
+    deepseek-moe-16b (4 layers) profiled by kernel class, each in a process
+    of its own (:func:`lm_train_breakdown_fresh`); B6-bwd timed at the
+    training shapes (``FAMILY_BWD_SHAPES``).  Returns (the records, the
+    launches of the training runs, the B6-bwd timings by key)."""
+    records, launches = [], {"flash_attn": 0, "flash_attn_bwd": 0}
+    for arch, layers, b, quant, cut in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        rec, counts = family_train(arch, layers, b, quant, cut, smi)
+        rec["seconds"] = time.perf_counter() - t0
+        records.append(rec)
+        for k in launches:
+            launches[k] += counts[k]
+    vs_cpu = {arch: lm_train_vs_cpu(device, arch,
+                                    grad_ulps=FAMILY_GRAD_ULPS)
+              for arch in (MOE_ARCH, SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH)}
+    by_arch = {r["arch"]: r for r in records if not r["quant"]}
+    for arch, out in vs_cpu.items():
+        by_arch[arch]["vs_cpu"] = out
+    for arch, layers in ((SSM_ARCH, 0), (MOE_ARCH, 4)):
+        by_arch[arch]["breakdown"] = lm_train_breakdown_fresh(
+            8, FAMILY_SEQ, arch, layers)
+    bwd_times = {}
+    batch_of = {r["arch"]: r["batch"] for r in records if not r["quant"]}
+    for key, arch, (label, *shape), per_step in FAMILY_BWD_SHAPES:
+        t = b6_bwd_shape_time((label, batch_of[arch], *shape), device)
+        t["launches_per_step"] = per_step
+        bwd_times[key] = t
+    for rec in records:
+        log("lm_train_run " + json.dumps(rec))
+    return records, launches, bwd_times
 
 
 def main() -> int:
@@ -3453,6 +3889,13 @@ def main() -> int:
     bwd_row["launches"] = lm_counts["flash_attn_bwd"]
     rows.append(bwd_row)
     log(f"LM training phase (4i): {time.perf_counter() - t_4i:.1f} s")
+    t_4j = time.perf_counter()
+    _, fam_counts, fam_bwd = family_train_phase(device, smi)
+    flash_row["launches"] += fam_counts["flash_attn"]
+    bwd_row["launches"] += fam_counts["flash_attn_bwd"]
+    bwd_row.update(fam_bwd)
+    log(f"the other families' training phase (4j): "
+        f"{time.perf_counter() - t_4j:.1f} s")
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "
@@ -3502,6 +3945,13 @@ def main() -> int:
         f"design's floor {b6_bwd_floor_ms(bwd_cases()[0]):.6f} ms, SDPA's "
         f"backward {r['library_ms']:.6f} ms, {r['launches']} launches on the "
         f"main path  [{smi}]")
+    for key, *_ in FAMILY_BWD_SHAPES:
+        d = r[key]
+        log(f"time {r['name']} ({d['shape']}): {d['ms']:.6f} ms on the "
+            f"device, {d['wall_ms']:.6f} ms per call, bound "
+            f"{d['bound_ms']:.6f} ms ({d['bound_by']}), SDPA's backward "
+            f"{d['library_ms']:.6f} ms, {d['launches_per_step']} launches a "
+            f"training step  [{smi}]")
     f = r["forward_lse"]
     log(f"time flash_attn with lse ({r['shape']}): {f['ms']:.6f} ms on the "
         f"device, {f['ms_without_lse']:.6f} ms without it, {f['wall_ms']:.6f} "

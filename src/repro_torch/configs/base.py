@@ -39,10 +39,11 @@ class ModelConfig:
     gated_mlp: bool = True    # SwiGLU (llama family); False -> squared ReLU
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
-    quant: str = "none"       # only "none": QAT and int8 dots are ROADMAP §A 3
-    parallel_block: bool = False  # PaLM-style attn || mlp: refused (§A 3)
+    quant: str = "none"       # "none" or "qat-int8" (fake-quant QAT);
+                              # "int8-hlo" refused (ROADMAP §A 5)
+    parallel_block: bool = False  # PaLM-style attn || mlp: refused (§A 5)
     remat: str = "full"       # "full": each block's activations recomputed
-                              # in the backward; "save_attn" refused (§A 3)
+                              # in the backward; "save_attn" refused (§A 5)
     decode_unroll: bool = False  # per-layer decode caches (else stacked)
     # --- MoE (family == "moe") ---
     n_experts: int = 0        # routed experts
@@ -106,18 +107,22 @@ class ModelConfig:
         if self.family == "moe" and (self.n_experts <= 0 or self.top_k <= 0):
             raise ValueError(f"{self.name}: MoE configs need experts and a "
                              f"positive top_k")
-        if self.quant != "none":
+        if self.quant not in ("none", "qat-int8"):
             raise NotImplementedError(
-                f"{self.name}: quant={self.quant!r} (fake-quant QAT, int8 "
-                f"dots) is not ported yet (ROADMAP.md §A 3)")
+                f"{self.name}: quant={self.quant!r} (int8 dots) is not ported "
+                f"yet; the reference reaches it only through its dry-run "
+                f"(ROADMAP.md §A 5). quant='qat-int8' trains")
         if self.parallel_block:
             raise NotImplementedError(
-                f"{self.name}: parallel_block is not ported yet (ROADMAP.md "
-                f"§A 3)")
+                f"{self.name}: parallel_block is not ported yet; the "
+                f"reference reaches it only through its dry-run (ROADMAP.md "
+                f"§A 5)")
         if self.remat != "full":
             raise NotImplementedError(
                 f"{self.name}: remat={self.remat!r}; the port checkpoints "
-                f"whole blocks (\"full\"), \"save_attn\" is ROADMAP.md §A 3")
+                f"whole blocks (\"full\"), \"save_attn\" waits for the "
+                f"dry-run, its only entry point in the reference (ROADMAP.md "
+                f"§A 5)")
         return self
 
     def _validate_attention(self) -> None:

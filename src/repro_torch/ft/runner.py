@@ -24,6 +24,11 @@ Fault injection (``inject_fault_at``) makes the loop "crash" at a chosen
 step (``SimulatedCrash``, the JAX package's ``InjectedFault``); the restart
 resumes from the latest checkpoint and must reach the same final state as a
 run without the crash.
+
+``ckpt_every <= 0`` (the port's own setting; the reference always
+checkpoints) writes no checkpoint at all, not even step 0's, and resumes
+from none: a crash restarts from the initial state.  A benchmark run of a
+model whose state is tens of GB skips the writes so.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 from repro_torch.ft.checkpoint import CheckpointManager, latest_step, save_state
 from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.kernels.common import resolve_device
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 
 class SimulatedCrash(RuntimeError):
@@ -48,7 +53,7 @@ class SimulatedCrash(RuntimeError):
 class RunnerConfig:
     total_steps: int
     ckpt_dir: str
-    ckpt_every: int = 50
+    ckpt_every: int = 50      # <= 0: no checkpoints (module docstring)
     keep: int = 3
     max_restarts: int = 3
     inject_fault_at: int | None = None
@@ -56,6 +61,20 @@ class RunnerConfig:
 
 def _next_boundary(step: int, every: int) -> int:
     return (step // every + 1) * every
+
+
+class _NoCheckpoints:
+    """The manager of a run without checkpoints: saves nothing, resumes
+    from nothing."""
+
+    def maybe_save(self, state, step: int, *, force: bool = False) -> bool:
+        return False
+
+    def wait(self) -> None:
+        pass
+
+    def restore_latest(self, like, *, device="cuda"):
+        return None, 0
 
 
 def _wait_device(tensors) -> None:
@@ -74,33 +93,53 @@ def run(train_step: Callable | None, init_state, batches: Callable[[int], Any],
     so a restart replays the stream from the resume step.  With
     ``chunk_steps > 1`` a ``chunk_fn(state, start, n)`` is required and
     ``batches`` is not consulted.  ``device``: where a restored state goes.
+
+    ``init_state`` is the initial state, or a function of no arguments that
+    makes it.  Given the function, nothing keeps the initial state alive
+    once the first step has replaced it (or a checkpoint stands in for it),
+    so the device holds one state, not two (12 bytes a parameter of Adam's
+    state at full width); a restart with no checkpoint to resume from makes
+    it anew (a seeded init repeats its bits).
     """
     if chunk_steps > 1 and chunk_fn is None:
         raise ValueError("chunk_steps > 1 requires a chunk_fn "
                          "(see train/engine.build_chunk_fn)")
     dev = resolve_device(device)
-    mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep, every=cfg.ckpt_every)
+    make = init_state if callable(init_state) else (lambda: init_state)
+    # the state a loop starts from travels in a one-element list that the
+    # loop empties: no other name holds it while the loop runs
+    box = [make()]
+    like = tree_map(lambda t: torch.empty((), device="meta"), box[0])
     monitor = StragglerMonitor()
     restarts = 0
     faults_remaining = 1 if cfg.inject_fault_at is not None else 0
-
-    # step-0 checkpoint: a crash before the first periodic checkpoint
-    # restarts from here
-    if latest_step(cfg.ckpt_dir) is None:
-        save_state(init_state, cfg.ckpt_dir, 0, async_io=False)
+    if cfg.ckpt_every > 0:
+        mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep,
+                                every=cfg.ckpt_every)
+        # step-0 checkpoint: a crash before the first periodic checkpoint
+        # restarts from here
+        if latest_step(cfg.ckpt_dir) is None:
+            save_state(box[0], cfg.ckpt_dir, 0, async_io=False)
+    else:  # no boundary is ever reached
+        mgr = _NoCheckpoints()
+        cfg = dataclasses.replace(cfg, ckpt_every=cfg.total_steps + 1)
 
     while True:
-        restored, start = mgr.restore_latest(init_state, device=dev)
-        state = restored if restored is not None else init_state
+        restored, start = mgr.restore_latest(like, device=dev)
+        if restored is not None:
+            box = [restored]
+        elif not box:  # a restart with no checkpoint
+            box = [make()]
+        del restored
         try:
             if chunk_steps > 1:
                 state, step = _chunked_loop(
-                    chunk_fn, state, start, cfg, mgr, monitor,
+                    chunk_fn, box, start, cfg, mgr, monitor,
                     on_metrics=on_metrics, chunk_steps=chunk_steps,
                     fault_live=faults_remaining > 0)
             else:
                 state, step = _stepwise_loop(
-                    train_step, state, start, batches, cfg, mgr, monitor,
+                    train_step, box, start, batches, cfg, mgr, monitor,
                     on_metrics=on_metrics, fault_live=faults_remaining > 0)
             if step is None:  # the staged fault fired inside the loop
                 faults_remaining -= 1
@@ -111,13 +150,16 @@ def run(train_step: Callable | None, init_state, batches: Callable[[int], Any],
             restarts += 1
             if restarts > cfg.max_restarts:
                 raise
+            state = None  # the crashed state goes before the restart's
             mgr.wait()  # flush any pending save, then "restart"
 
 
-def _stepwise_loop(train_step, state, step, batches, cfg, mgr, monitor, *,
+def _stepwise_loop(train_step, box, step, batches, cfg, mgr, monitor, *,
                    on_metrics, fault_live):
-    """One step per call.  Returns (state, step), or (state, None) when the
-    staged fault fires (the caller raises)."""
+    """One step per call from the state ``box`` holds (taken out of it).
+    Returns (state, step), or (state, None) when the staged fault fires
+    (the caller raises)."""
+    state = box.pop()
     while step < cfg.total_steps:
         batch = batches(step)
         t0 = time.perf_counter()
@@ -137,10 +179,12 @@ def _stepwise_loop(train_step, state, step, batches, cfg, mgr, monitor, *,
     return state, step
 
 
-def _chunked_loop(chunk_fn, state, step, cfg, mgr, monitor, *, on_metrics,
+def _chunked_loop(chunk_fn, box, step, cfg, mgr, monitor, *, on_metrics,
                   chunk_steps, fault_live):
-    """Whole chunks per call, metrics retired one chunk behind.  Returns
-    (state, step), or (state, None) when the staged fault fires."""
+    """Whole chunks per call from the state ``box`` holds (taken out of it),
+    metrics retired one chunk behind.  Returns (state, step), or (state,
+    None) when the staged fault fires."""
+    state = box.pop()
     inflight = None  # (chunk start step, n, stacked metrics, dispatch t0)
     retired_at = float("-inf")  # when the device last went idle (host clock)
 

@@ -16,51 +16,61 @@ frames).  The last line printed is ``train_report {json}``: the first and
 last step losses, samples/s and the Table 1 errors of the trained net on
 1,000 held-out signals.
 
-LM (the reference's LM branch; the dense and VLM families): weights from
-seed 0 (f32 masters), byte-level batches of ``--batch`` x ``--seq`` tokens
-from ``data.lm_text.TextPipeline`` (vocab capped at 256), the VLM's prefix
-embeddings ``0.02 * N(0, 1)`` in bf16 from a ``torch.Generator`` seeded by
-the step (the reference draws them with ``jax.random.PRNGKey(step)``, whose
-threefry bits no torch generator repeats) with their positions' labels at
--1; ``models.lm.next_token_loss`` (activations in bf16, each block
-recomputed in the backward, attention on B6 and B6-bwd), Adam, clipping at
-a global norm of 1.0, ``--microbatches`` and ``--grad-compress`` as the
-reference, under the same runner.  On the card the run is deterministic:
+LM (the reference's LM branch; every LM family: dense, MoE, SSM, hybrid,
+encoder-decoder and VLM): weights from seed 0 (f32 masters), byte-level
+batches of ``--batch`` x ``--seq`` tokens from ``data.lm_text.TextPipeline``
+(vocab capped at 256); the VLM's prefix embeddings and the encoder-
+decoder's frames ``0.02 * N(0, 1)`` in bf16 from a ``torch.Generator``
+seeded by the step (the reference draws them with ``jax.random.PRNGKey
+(step)``, whose threefry bits no torch generator repeats), the prefix's
+positions' labels at -1, the frames ``(B, enc_len_for(seq), d)``; the
+family's loss (activations in bf16, each block recomputed in the backward
+but the hybrid's, attention on B6 and B6-bwd), ``--quant qat-int8`` the
+paper's int8 QAT on every dense projection (``models.common.dense``), Adam,
+clipping at a global norm of 1.0, ``--microbatches`` (the frames cut along
+with the tokens) and ``--grad-compress`` as the reference, under the same
+runner.  On the card the run is deterministic:
 ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts (when this module is
 run, or by a caller such as ``chip_smoke.py``) and the run holds
 ``torch.use_deterministic_algorithms(True)`` (the embedding's gradient
-would otherwise scatter with atomics), so a rerun and a crash + restart
+would otherwise scatter with atomics; the SSD scan's prefix sums are f64
+products, ``models.ssm.prefix_sum``), so a rerun and a crash + restart
 repeat the losses and the weights bit for bit, as XLA's do on the TPU.
 The last line is ``train_report {json}``: the per-step losses (and every
 logged loss in order, ``loss_log``: a restart logs the replayed steps
-again), tokens/s and ms a step (the median of the steps after the first),
-the runner's wall time (steps, checkpoints and restores), peak device
-memory, B6's and B6-bwd's launches, the train-step calls and a digest of
-the final params' bits.  The MoE, SSM, hybrid and encoder-decoder families
-and ``--quant`` are refused (ROADMAP.md §A 3).
+again), the MoE balance term's last value, tokens/s and ms a step (the
+median of the steps after the first), the runner's wall time (steps,
+checkpoints and restores), peak device memory, B6's and B6-bwd's
+launches, the train-step calls and a digest of the final params' bits.
+``--quant qat-int8`` on an MRF arch is ``--backend qat-int8`` (refused
+beside ``--backend fused``), as in the reference.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import pathlib
 import statistics
 import tempfile
 import time
+from functools import partial
 
 import torch
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.kernels.common import resolve_device
 
-#: the LM families this launcher trains; the others are ROADMAP.md §A 3
-LM_TRAIN_FAMILIES = ("dense", "vlm")
 #: cuBLAS's workspace setting under which its products are deterministic;
 #: it must be in the environment before CUDA starts
 CUBLAS_DETERMINISTIC = ":4096:8"
+#: the CUDA caching allocator's setting for training at full width: fixed
+#: segments fragment under a step's large activations of changing shapes
+#: (the MoE dispatch, a 256k-column head) until a step no longer fits
+ALLOC_CONF = "expandable_segments:True"
 
 
 def train_mrf(args, cfg) -> int:
@@ -74,6 +84,12 @@ def train_mrf(args, cfg) -> int:
     from repro_torch.train import engine
 
     backend = args.backend
+    if args.quant == "qat-int8":  # the LM zoo's spelling of the same request
+        if backend == "fused":
+            raise SystemExit("--quant qat-int8 conflicts with --backend fused "
+                             "(the kernel's QAT is another path); drop one "
+                             "of the flags")
+        backend = "qat-int8"
     optimizer = args.optimizer or ("sgd" if backend == "fused" else "adam")
     device = resolve_device(args.device)
     ckpt_dir = args.ckpt_dir or str(pathlib.Path(tempfile.gettempdir())
@@ -130,10 +146,17 @@ def train_mrf(args, cfg) -> int:
 
 def lm_batches(cfg, pipe, device):
     """``step -> batch`` on ``device`` (the reference's ``make_batches``):
-    the pipeline's tokens and labels as int64, and for the VLM family
-    ``prefix_embeds`` (B, n_prefix_embeds, d) bf16 from a generator seeded
-    by the step, over positions whose labels are -1."""
+    the pipeline's tokens and labels as int64; for the VLM family
+    ``prefix_embeds`` (B, n_prefix_embeds, d) over positions whose labels
+    are -1, for the encoder-decoder ``frames`` (B, enc_len_for(S), d), both
+    bf16 from a generator seeded by the step."""
     from repro_torch.models.common import COMPUTE
+    from repro_torch.models.encdec import enc_len_for
+
+    def normal(step, rows):
+        gen = torch.Generator(device=device).manual_seed(step)
+        return (0.02 * torch.randn((pipe.batch_size, rows, cfg.d_model),
+                                   generator=gen, device=device)).to(COMPUTE)
 
     def at(step: int) -> dict:
         host = pipe.batch_at(step)
@@ -142,10 +165,9 @@ def lm_batches(cfg, pipe, device):
         batch = {k: torch.from_numpy(v).long().to(device)
                  for k, v in host.items()}
         if cfg.family == "vlm":
-            gen = torch.Generator(device=device).manual_seed(step)
-            batch["prefix_embeds"] = (0.02 * torch.randn(
-                (host["tokens"].shape[0], cfg.n_prefix_embeds, cfg.d_model),
-                generator=gen, device=device)).to(COMPUTE)
+            batch["prefix_embeds"] = normal(step, cfg.n_prefix_embeds)
+        if cfg.family == "encdec":
+            batch["frames"] = normal(step, enc_len_for(host["tokens"].shape[1]))
         return batch
     return at
 
@@ -193,28 +215,33 @@ def train_lm(args, cfg) -> int:
     from repro_torch.kernels.flash_attn.kernel import (
         flash_attention_bwd_call, flash_attention_call)
     from repro_torch.models import registry
+    from repro_torch.models.moe import group_of
     from repro_torch.optim import adam
     from repro_torch.train.step import init_train_state, make_train_step
 
-    if cfg.family not in LM_TRAIN_FAMILIES:
-        raise SystemExit(f"{cfg.name}: {cfg.family} training is not ported "
-                         f"yet (ROADMAP.md §A 3); the port trains the "
-                         f"{' and '.join(LM_TRAIN_FAMILIES)} families and "
-                         f"serves every family (python -m "
-                         f"repro_torch.launch.serve)")
+    if args.quant:
+        cfg = dataclasses.replace(cfg, quant=args.quant)
     device = resolve_device(args.device)
     if cfg.family == "vlm" and args.seq < cfg.n_prefix_embeds:
         raise SystemExit(f"--seq {args.seq}: a {cfg.name} sequence holds its "
                          f"{cfg.n_prefix_embeds} prefix embeddings")
+    if cfg.family == "moe":  # each microbatch's tokens route in groups
+        try:
+            group_of(args.batch // max(args.microbatches, 1) * args.seq)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     ckpt_dir = args.ckpt_dir or str(pathlib.Path(tempfile.gettempdir())
                                     / "repro_torch_ckpt" / cfg.name)
-    resume = latest_step(ckpt_dir)
+    resume = latest_step(ckpt_dir) if args.ckpt_every > 0 else None
     if resume:
         print(f"resuming from checkpoint step {resume} in {ckpt_dir}")
     with deterministic():
         fns = registry.build(cfg)
+        terms = {}  # the MoE balance term of the last loss evaluated
+        loss_fn = partial(fns.loss, terms=terms) if cfg.family == "moe" \
+            else fns.loss
         opt = adam(args.lr)
-        step_fn = make_train_step(fns.loss, opt,
+        step_fn = make_train_step(loss_fn, opt,
                                   microbatches=args.microbatches,
                                   max_grad_norm=1.0,
                                   grad_compress=args.grad_compress)
@@ -224,12 +251,9 @@ def train_lm(args, cfg) -> int:
             calls[0] += 1
             return step_fn(state, batch)
 
-        params = fns.init(0, device=device)
-        state = init_train_state(params, opt,
-                                 grad_compress=args.grad_compress)
         print(f"arch={cfg.name} params={param_count(cfg):,} tp=1 "
               f"device={device} batch={args.batch} seq={args.seq} "
-              f"microbatches={args.microbatches}")
+              f"microbatches={args.microbatches} quant={cfg.quant}")
         pipe = TextPipeline(seq_len=args.seq, batch_size=args.batch,
                             vocab_size=min(cfg.vocab_size, 256))
         rcfg = RunnerConfig(total_steps=args.steps, ckpt_dir=ckpt_dir,
@@ -250,14 +274,22 @@ def train_lm(args, cfg) -> int:
         launches = (flash_attention_call.launches,
                     flash_attention_bwd_call.launches)
         t0 = time.perf_counter()
-        state, step = run(counted_step, state, lm_batches(cfg, pipe, device),
-                          rcfg, device=device, on_metrics=log)
+        # the runner makes the initial state and holds it no longer than
+        # it needs it: one state on the card, not two
+        state, step = run(
+            counted_step,
+            lambda: init_train_state(fns.init(0, device=device), opt,
+                                     grad_compress=args.grad_compress),
+            lm_batches(cfg, pipe, device), rcfg, device=device,
+            on_metrics=log)
         wall = time.perf_counter() - t0
     steady = [times[s] for s in sorted(times)[1:]] or list(times.values())
     ms = statistics.median(steady) * 1e3 if steady else None
     report = {"arch": cfg.name, "device": str(device), "steps": step,
               "batch": args.batch, "seq": args.seq,
-              "microbatches": args.microbatches,
+              "microbatches": args.microbatches, "quant": cfg.quant,
+              "balance_loss": (float(terms["balance"]) if "balance" in terms
+                               else None),
               "losses": {str(k): losses[k] for k in sorted(losses)},
               "loss_log": loss_log,
               "first_loss": losses[min(losses)] if losses else None,
@@ -281,10 +313,13 @@ def train_lm(args, cfg) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    """The launcher's arguments (``main``'s; a caller that trains a config
+    of its own, cut in depth, hands ``train_lm`` their parse)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True,
-                    help="mrf-fpga | mrf-original, or a dense or VLM arch")
+                    help="mrf-fpga | mrf-original, or an LM arch of any "
+                         "family")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (16 frames)")
     ap.add_argument("--steps", type=int, default=200)
@@ -312,23 +347,27 @@ def main(argv=None) -> int:
                     help="int8 error-feedback gradient compression (not "
                          "with --backend fused)")
     ap.add_argument("--quant", default=None, choices=[None, "qat-int8"],
-                    help="LM int8 QAT: refused, not ported yet (ROADMAP.md "
-                         "§A 3)")
+                    help="the paper's int8 QAT: fake-quant on every dense "
+                         "projection of an LM; on an MRF arch the same as "
+                         "--backend qat-int8")
     ap.add_argument("--ckpt-dir", default=None,
                     help="default: <tmp>/repro_torch_ckpt/<arch>[-<backend>] "
                          "(a rerun resumes from it)")
-    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--ckpt-every", type=int, default=100,
+                    help="steps between checkpoints; 0: none, not even the "
+                         "step-0 one (a crash restarts from the initial "
+                         "state)")
     ap.add_argument("--inject-fault-at", type=int, default=None,
                     help="crash once at this step and restart from the "
                          "latest checkpoint")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    if args.quant:
-        raise SystemExit(f"--quant {args.quant}: LM quantization (fake-quant "
-                         f"QAT, int8 dots) is not ported yet (ROADMAP.md "
-                         f"§A 3); the MRF nets' QAT is --backend qat-int8")
     if cfg.family != "mrf":
         args.batch = 8 if args.batch is None else args.batch
         return train_lm(args, cfg)
@@ -337,6 +376,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    # before CUDA starts: LM training runs deterministic cuBLAS products
+    # before CUDA starts: LM training runs deterministic cuBLAS products in
+    # expandable segments (``ALLOC_CONF``)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF)
     raise SystemExit(main())

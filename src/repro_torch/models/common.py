@@ -1,5 +1,6 @@
 """Shared LM components (counterpart of ``repro.models.common``): RMSNorm,
-the dense projection, RoPE and the normal init.
+the dense projection with the paper's int8 QAT (``quant="qat-int8"``:
+:func:`fake_quantize_int8` on both operands), RoPE and the normal init.
 
 Activations run in bf16 (``COMPUTE`` dtype) from the embedding on; params
 are fp32 masters.  ``dense`` casts a weight to the activation's dtype at
@@ -27,13 +28,29 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5):
     return (x32 * scale).to(dt) * gain.to(dt)
 
 
+def fake_quantize_int8(x: torch.Tensor) -> torch.Tensor:
+    """Dynamic symmetric per-tensor int8 fake-quant with a straight-through
+    gradient (the reference's ``fake_quant_int8``), op for op in x's dtype:
+    the scale ``max|x| / 127 + 1e-12`` rounded to it, a true division by
+    that device tensor, ``torch.round`` (half to even), the clip to [-127,
+    127], and ``x + (q - x).detach()`` — in bf16 each op rounds, so the
+    value is not always ``q``, but it is the reference's."""
+    s = torch.max(torch.abs(x)) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / s), -127, 127) * s
+    return x + (q - x).detach()
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
           quant: str = "none") -> torch.Tensor:
-    """``x @ w (+ b)`` in x's dtype, w in the ``(in, out)`` layout."""
-    if quant != "none":
+    """``x @ w (+ b)`` in x's dtype, w in the ``(in, out)`` layout.
+    ``quant="qat-int8"`` fake-quantizes x and w (w in its own dtype, the
+    f32 master, before its cast) first."""
+    if quant == "qat-int8":
+        x, w = fake_quantize_int8(x), fake_quantize_int8(w)
+    elif quant != "none":
         raise NotImplementedError(
-            f"quant={quant!r} (fake-quant / int8 dots) arrives with the "
-            f"LM-training slice (ROADMAP.md §A)")
+            f"quant={quant!r} (int8 dots) waits for the dry-run slice, its "
+            f"only entry point in the reference (ROADMAP.md §A 5)")
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(y.dtype)

@@ -29,12 +29,13 @@ from __future__ import annotations
 from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import COMPUTE, normal_init, rms_norm
-from repro_torch.models.lm import ModelFns, _heads, _logits, no_training
+from repro_torch.models.lm import ModelFns, _heads, _logits, cross_entropy
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.tree import tree_map
 
@@ -104,13 +105,23 @@ def _enc_block(cfg: ModelConfig, tp: int, h, lp):
                          quant=cfg.quant)
 
 
+def _remat(cfg: ModelConfig) -> bool:
+    """Checkpoint each block (encoder and decoder) under grad, as the
+    reference's ``jax.checkpoint`` of both scanned bodies: its activations
+    are recomputed in the backward (``cfg.remat == "full"``, the only
+    setting the port takes)."""
+    return torch.is_grad_enabled() and cfg.remat == "full"
+
+
 def encode(cfg: ModelConfig, tp: int, params, frames):
     """The encoder over the frames (B, Se, d), cast to bf16, ending in its
     RMSNorm: the states every decoder layer's cross K/V are projected
     from."""
     h = frames.to(COMPUTE)
+    remat = _remat(cfg)
     for lp in params["enc"]["layers"]:
-        h = _enc_block(cfg, tp, h, lp)
+        block = partial(_enc_block, cfg, tp, lp=lp)
+        h = checkpoint(block, h, use_reentrant=False) if remat else block(h)
     return rms_norm(h, params["enc"]["norm"], cfg.norm_eps)
 
 
@@ -138,6 +149,11 @@ def _dec_block(cfg: ModelConfig, tp: int, h, lp, enc_out, *,
     return h, ((kv, ckv) if return_kv else None)
 
 
+def _dec_layer(cfg: ModelConfig, tp: int, lp, h, enc_out):
+    """:func:`_dec_block` without the caches, its layer bound first."""
+    return _dec_block(cfg, tp, h, lp, enc_out, return_kv=False)[0]
+
+
 def _embed(params, tokens):
     return params["dec"]["embed"][tokens].to(COMPUTE)
 
@@ -157,6 +173,25 @@ def prefill(cfg: ModelConfig, tp: int, params, batch):
                                    ("cross_k", 1, 0), ("cross_v", 1, 1))}
     h = rms_norm(h[:, -1, :], params["dec"]["norm"], cfg.norm_eps)
     return cache, _logits(params, h)
+
+
+def seq2seq_loss(cfg: ModelConfig, tp: int, params, batch):
+    """The training loss on ``batch`` {"frames" (B, Se, d), "tokens",
+    "labels" (B, S)}: the encoder over the frames, the decoder over the
+    tokens with cross-attention to it, its final norm, the logits and
+    ``lm.cross_entropy`` (the reference's ``encdec_loss``, a name its
+    dead-exports allowlist holds).  Under grad each encoder and decoder
+    block is checkpointed (:func:`_remat`): a step launches B6 twice a
+    layer's attention (forward and recompute) and B6-bwd once."""
+    enc_out = encode(cfg, tp, params, batch["frames"])
+    h = _embed(params, batch["tokens"])
+    remat = _remat(cfg)
+    for lp in params["dec"]["layers"]:
+        block = partial(_dec_layer, cfg, tp, lp)
+        h = checkpoint(block, h, enc_out, use_reentrant=False) if remat \
+            else block(h, enc_out)
+    h = rms_norm(h, params["dec"]["norm"], cfg.norm_eps)
+    return cross_entropy(_logits(params, h), batch["labels"], cfg.vocab_size)
 
 
 def _decode_block(cfg: ModelConfig, tp: int, h1, lp, layer, cache_len: int):
@@ -216,7 +251,7 @@ def build_encdec(cfg: ModelConfig, tp: int = 1) -> ModelFns:
     return ModelFns(
         cfg=cfg,
         init=partial(init_params, cfg, tp=tp),
-        loss=no_training("encoder-decoder training (encdec_loss)"),
+        loss=partial(seq2seq_loss, cfg, tp),
         prefill=partial(prefill, cfg, tp),
         decode=partial(decode_token, cfg, tp),
         init_cache=partial(init_cache, cfg, tp))

@@ -40,9 +40,15 @@ each block of a non-hybrid stack runs under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: its activations
 are recomputed in the backward, as the reference's ``jax.checkpoint`` of
 the scanned block does (the reference's unrolled hybrid stack has no
-checkpoint, nor has the port's).  Attention's gradient is B6-bwd on the
-card (``kernels.flash_attn.ops.FlashAttention``): a step of tinyllama
-launches B6 twice a layer (forward and recompute) and B6-bwd once.
+checkpoint, nor has the port's).  The recompute repeats the block's bits,
+an MoE block's routing and an SSM block's scan included.  Attention's
+gradient is B6-bwd on the card (``kernels.flash_attn.ops.FlashAttention``):
+a step of tinyllama launches B6 twice a layer (forward and recompute) and
+B6-bwd once; of hymba (no remat) once each.  ``cfg.quant == "qat-int8"``
+fake-quantizes every dense projection's input and f32 master weight
+(``common.dense``), in training and serving alike; a bf16 serving copy of
+the params would quantize the rounded weights instead, so serve QAT
+models from the masters.
 """
 
 from __future__ import annotations
@@ -158,7 +164,8 @@ def _ffn(cfg: ModelConfig, lp, x):
     load-balance term) or the MoE block's (y, aux)."""
     if cfg.family == "moe":
         return moe_block(lp["moe"], x, top_k=cfg.top_k,
-                         capacity_factor=cfg.capacity_factor)
+                         capacity_factor=cfg.capacity_factor,
+                         quant=cfg.quant)
     return mlp_block(lp["mlp"], x, quant=cfg.quant), _zero(x)
 
 
@@ -385,27 +392,24 @@ def cross_entropy(logits, labels, true_vocab: int):
                                                            1.0)
 
 
-def next_token_loss(cfg: ModelConfig, tp: int, params, batch):
+def next_token_loss(cfg: ModelConfig, tp: int, params, batch, *,
+                    terms: dict | None = None):
     """The training loss on ``batch`` {"tokens", "labels" (B, S), and for
     the VLM family "prefix_embeds" (B, P, d)}: :func:`cross_entropy` of the
     stack's logits, plus ``MOE_LOSS_COEF * aux / n_layers`` for MoE (the
     reference's ``lm_loss``, whose name the reference's dead-exports
-    allowlist holds, as it holds ``MOE_AUX_COEF``)."""
+    allowlist holds, as it holds ``MOE_AUX_COEF``).  ``terms``, when given,
+    receives the MoE balance term ``aux`` (detached; the launcher reports
+    its last value)."""
     h = _embed(params, batch["tokens"], batch.get("prefix_embeds"))
     h, _, aux = _stack_forward(cfg, tp, params, h, collect_kv=False)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     loss = cross_entropy(_logits(params, h), batch["labels"], cfg.vocab_size)
     if cfg.family == "moe":
         loss = loss + MOE_LOSS_COEF * aux / cfg.n_layers
+        if terms is not None:
+            terms["balance"] = aux.detach()
     return loss
-
-
-def no_training(what: str):
-    """A ``loss`` that refuses: ``what`` trains in a later slice."""
-    def refuse(*_a, **_k):
-        raise NotImplementedError(f"{what} arrives with a later slice of the "
-                                  f"port (ROADMAP.md §A 3)")
-    return refuse
 
 
 def build_lm(cfg: ModelConfig, tp: int = 1) -> ModelFns:

@@ -29,6 +29,17 @@ Two forms compute the same function:
 No Pallas kernel backs MoE in the reference (XLA einsums); here the products
 are PyTorch matmuls.  Nothing here synchronises with the host: drops are
 masked, never filtered out.
+
+Under grad both forms are the reference's function: the router's gradient
+flows through the softmax and the renormalised top-k gates (the sort's
+backward scatters them back) and through the balance term, x's through the
+gathers and the shared experts, the experts' through their products.  On
+the card under ``torch.use_deterministic_algorithms`` (LM training) every
+op of the index form has a deterministic implementation: the scatter of
+the token indices, the gathers whose backward is an accumulating
+``index_put_`` (sorted on CUDA), the sort and the integer ``cumsum`` of
+:func:`slots`.  The plain form's float ``cumsum`` (``dense_combine``) has
+none and raises there; it is the tests' oracle, not the model's path.
 """
 
 from __future__ import annotations
@@ -172,20 +183,21 @@ def _experts(p: MoeParams, expert_in: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p.w_out.to(dt))
 
 
-def _finish(p: MoeParams, x, y, r: Routing) -> tuple:
-    """Shared experts added; the Switch load-balance loss."""
+def _finish(p: MoeParams, x, y, r: Routing, quant: str) -> tuple:
+    """Shared experts added (their projections the only ones ``quant``
+    reaches, as in the reference); the Switch load-balance loss."""
     n_exp = r.probs.shape[-1]
     frac_tokens = torch.mean(_one_hot(r.idx[:, :, 0], n_exp), dim=(0, 1))
     frac_probs = torch.mean(r.probs, dim=(0, 1))
     aux = n_exp * torch.sum(frac_tokens * frac_probs)
     if p.shared is not None:
-        y = y + mlp_block(p.shared, x)
+        y = y + mlp_block(p.shared, x, quant=quant)
     return y, aux
 
 
 def moe_block_plain(p: MoeParams, x, *, top_k: int,
                     capacity_factor: float = 1.25,
-                    group_size: int = GROUP_SIZE):
+                    group_size: int = GROUP_SIZE, quant: str = "none"):
     """x: (B, S, d) -> (y, aux) through the dense one-hot dispatch and
     combine, as the reference computes them."""
     xg = _groups(x, group_size)
@@ -198,11 +210,11 @@ def moe_block_plain(p: MoeParams, x, *, top_k: int,
     expert_out = _experts(p, expert_in.reshape(n_exp, -1, d)).view(
         n_exp, n_groups, r.capacity, d)
     y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
-    return _finish(p, x, y.reshape(x.shape), r)
+    return _finish(p, x, y.reshape(x.shape), r, quant)
 
 
 def moe_block(p: MoeParams, x, *, top_k: int, capacity_factor: float = 1.25,
-              group_size: int = GROUP_SIZE):
+              group_size: int = GROUP_SIZE, quant: str = "none"):
     """x: (B, S, d) -> (y, aux).  Dropped tokens pass through the residual.
 
     The expert buffer is expert-major: each kept (token, choice) takes row
@@ -233,4 +245,4 @@ def moe_block(p: MoeParams, x, *, top_k: int, capacity_factor: float = 1.25,
     w = torch.where(keep, r.gates, 0.0).to(x.dtype)
     picked = expert_out.view(n_slots, d)[torch.clamp(row, max=n_slots - 1)]
     y = torch.matmul(w[..., None, :], picked).squeeze(-2)       # (G, s, d)
-    return _finish(p, x, y.reshape(x.shape), r)
+    return _finish(p, x, y.reshape(x.shape), r, quant)

@@ -15,6 +15,9 @@ conv sums four bf16 products in Python order from 0, SiLU is
 ``jax.nn.softplus``'s ``logaddexp(x, 0)``, the gate norm takes
 ``rms_norm``'s default eps.  The products inside the scan sum in
 PyTorch's order, so the scan holds the reference within an f32 tolerance.
+The chunks' log-decay prefix sums are f64 products (:func:`prefix_sum`,
+the CPU ``cumsum``'s values), which the card computes deterministically,
+forward and backward: LM training holds deterministic algorithms.
 
 The decode cache, :class:`Mamba2Cache`, holds the f32 state (B, H, P, N)
 and the last ``CONV_TAPS - 1`` bf16 projections of x, B and C; decode
@@ -125,6 +128,19 @@ def _causal_conv(x, w):
     return out
 
 
+def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum(x, dim)`` of an f32 tensor, as a product with a
+    lower-triangular matrix of ones in f64, rounded back to f32.  The CPU's
+    ``cumsum`` sums f32 in f64 too, so the values are its own; on CUDA a
+    floating-point ``cumsum`` has no deterministic implementation (it
+    raises under ``torch.use_deterministic_algorithms``, which LM training
+    holds), the f64 product has one, and its backward is another."""
+    n = x.shape[dim]
+    ones = torch.ones((n, n), dtype=torch.float64, device=x.device).tril()
+    moved = x.movedim(dim, -1).double()
+    return torch.matmul(moved, ones.T).to(x.dtype).movedim(-1, dim)
+
+
 def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int):
     """Chunked SSD scan, f32.
 
@@ -142,7 +158,7 @@ def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int):
     dtr = dt.reshape(b, nc, q, h)
     br = Bmat.reshape(b, nc, q, n)
     cr = Cmat.reshape(b, nc, q, n)
-    cum = torch.cumsum(dtr * A, dim=2)              # (B,nc,Q,H) log-decay
+    cum = prefix_sum(dtr * A, dim=2)                # (B,nc,Q,H) log-decay
 
     # within a chunk, per head (the dual quadratic form): (B,nc,H,Q,K)
     cum_h = cum.transpose(2, 3)

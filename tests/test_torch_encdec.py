@@ -291,8 +291,11 @@ def test_init_cache_and_the_bf16_copy():
     with torch.no_grad():
         assert torch.equal(fns.prefill(masters, pbatch)[1],
                            fns.prefill(copy, pbatch)[1])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fns.loss(None, None)
+        # the loss trains now (tests/test_torch_lm_train_families.py holds
+        # it against the reference): from the masters and the bf16 copy alike
+        pbatch["labels"] = pbatch["tokens"]
+        assert torch.equal(fns.loss(masters, pbatch), fns.loss(copy, pbatch))
+    assert fns.loss.func is pencdec.seq2seq_loss
 
 
 # --------------------------------------------------------------------------

@@ -40,6 +40,7 @@ from repro_torch.launch import serve as serve_launcher
 from repro_torch.launch import train as train_launcher
 from repro_torch.models import attention as pattn
 from repro_torch.models import common as pcommon
+from repro_torch.models import encdec as pencdec
 from repro_torch.models import lm as plm
 from repro_torch.models import mlp as pmlp
 from repro_torch.models import registry as pregistry
@@ -99,9 +100,9 @@ def test_dense_configs_match_jax(arch):
 
 
 def test_config_refusals():
-    """Every family of the reference validates; what the port still lacks
-    (sharding, LM quantization) and an unknown family or arch are
-    refused."""
+    """Every family of the reference validates, and LM QAT; what the port
+    still lacks (sharding, the int8 dots) and an unknown family or arch
+    are refused."""
     cfg = pconfigs.get_config("tinyllama-1.1b")
     assert cfg.head_dim == 64 and pbase.param_count(cfg) == 1_100_048_384
     with pytest.raises(NotImplementedError, match="sharding"):
@@ -113,17 +114,20 @@ def test_config_refusals():
         set(pbase.PORTED_FAMILIES)
     with pytest.raises(ValueError, match="unknown family"):
         dataclasses.replace(cfg, family="rnn").validate()
+    assert dataclasses.replace(cfg, quant="qat-int8").validate().quant == \
+        "qat-int8"
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        dataclasses.replace(cfg, quant="qat-int8").validate()
+        dataclasses.replace(cfg, quant="int8-hlo").validate()
     with pytest.raises(KeyError, match="unknown arch"):
         pconfigs.get_config("gpt-17")
     assert pconfigs.get_config("seamless-m4t-large-v2").family == "encdec"
 
 
 def test_registry_builds_the_ported_families():
-    """Every family serves; the dense and VLM families' loss is the LM
-    loss (``tests/test_torch_lm_train.py`` holds it against the
-    reference), the encoder-decoder's still refuses."""
+    """Every family serves and trains: the dense and VLM families' loss is
+    the LM loss (``tests/test_torch_lm_train.py`` holds it against the
+    reference), the encoder-decoder's ``seq2seq_loss``
+    (``tests/test_torch_lm_train_families.py``)."""
     assert pregistry.build(pconfigs.get_smoke("mrf-fpga")).predict is not None
     fns = pregistry.build(pconfigs.get_smoke("tinyllama-1.1b"))
     assert fns.prefill is not None and fns.decode is not None
@@ -132,9 +136,8 @@ def test_registry_builds_the_ported_families():
         built = pregistry.build(pconfigs.get_smoke(arch))
         assert built.prefill is not None and built.decode is not None
     assert built.loss.func is plm.next_token_loss  # llava
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pregistry.build(pconfigs.get_smoke("seamless-m4t-large-v2")).loss(
-            None, None)
+    assert pregistry.build(pconfigs.get_smoke(
+        "seamless-m4t-large-v2")).loss.func is pencdec.seq2seq_loss
     with pytest.raises(NotImplementedError, match="sharding"):
         pregistry.build(pconfigs.get_smoke("seamless-m4t-large-v2"), tp=2)
 
@@ -428,10 +431,14 @@ def test_token_serve_launcher_on_the_cpu():
 
 
 def test_train_launcher_refuses_lm_archs():
-    """The train launcher trains the dense and VLM families now
-    (``tests/test_torch_lm_train.py``); the other LM families and LM
-    quantization it refuses, naming the roadmap."""
-    for argv in (["--arch", "deepseek-moe-16b"],
-                 ["--arch", "tinyllama-1.1b", "--quant", "qat-int8"]):
-        with pytest.raises(SystemExit, match="ROADMAP.md §A 3"):
-            train_launcher.main(argv + ["--device", "cpu"])
+    """The train launcher trains every LM family and LM QAT now
+    (``tests/test_torch_lm_train_families.py``); an LM arch it refuses
+    only for its shape (MoE tokens that are not whole routing groups),
+    before any weight is made, and the int8 dots are no ``--quant``
+    choice (ROADMAP.md §A 5)."""
+    with pytest.raises(SystemExit, match="routing groups"):
+        train_launcher.main(["--arch", "deepseek-moe-16b", "--batch", "1",
+                             "--seq", "300", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        train_launcher.main(["--arch", "tinyllama-1.1b", "--quant",
+                             "int8-hlo", "--device", "cpu"])

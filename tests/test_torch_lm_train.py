@@ -37,6 +37,7 @@ import torch
 from repro.configs import get_smoke as jget_smoke
 from repro.data.lm_text import TextPipeline as JTextPipeline
 from repro.models import lm as jlm
+from repro.models.encdec import enc_len_for as jenc_len_for
 from repro.models import registry as jregistry
 from repro.optim import optimizers as jopt
 from repro.train.step import init_train_state as jinit_train_state
@@ -50,6 +51,7 @@ from repro_torch.kernels.fused_train import multistep
 from repro_torch.kernels.qat_dense import fused as fused_fwd
 from repro_torch.kernels.qat_dense import kernel as qat_kernel
 from repro_torch.launch import train as train_launcher
+from repro_torch.models import encdec as pencdec
 from repro_torch.models import lm as plm
 from repro_torch.models import registry as pregistry
 from repro_torch.optim import adam
@@ -61,8 +63,9 @@ LOSS_RTOL = 1e-4
 GRAD_ULPS = 8
 
 
-def _models(arch):
-    jcfg, pcfg = jget_smoke(arch), pconfigs.get_smoke(arch)
+def _models(arch, quant="none"):
+    jcfg = dataclasses.replace(jget_smoke(arch), quant=quant)
+    pcfg = dataclasses.replace(pconfigs.get_smoke(arch), quant=quant)
     jfns, pfns = jregistry.build(jcfg), pregistry.build(pcfg)
     jparams = jfns.init(jax.random.PRNGKey(0))
     if jcfg.qkv_bias:  # the init's biases are zero: make them count
@@ -79,22 +82,29 @@ def _to_port(tree):
 
 
 def _batch(cfg, seed, b=2, s=32):
-    """The same batch for both: tokens, labels with some masked, and for
-    the VLM its prefix embeddings (rounded to bf16 once) over positions
-    whose labels are -1."""
+    """The same batch for both: tokens, labels with some masked; for the
+    VLM its prefix embeddings over positions whose labels are -1, for the
+    encoder-decoder its ``enc_len_for(s)`` frames (both rounded to bf16
+    once)."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
     labs = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
     labs[0, :5] = -1
     jb = {"tokens": jnp.asarray(toks)}
     pb = {"tokens": torch.from_numpy(toks).long()}
+
+    def bf16(name, rows):
+        arr = jnp.asarray(0.02 * rng.standard_normal(
+            (b, rows, cfg.d_model))).astype(jnp.bfloat16)
+        jb[name] = arr
+        pb[name] = torch.from_numpy(
+            np.array(arr.astype(jnp.float32))).to(torch.bfloat16)
+
     if cfg.family == "vlm":
-        pe = jnp.asarray(0.02 * rng.standard_normal(
-            (b, cfg.n_prefix_embeds, cfg.d_model))).astype(jnp.bfloat16)
-        jb["prefix_embeds"] = pe
-        pb["prefix_embeds"] = torch.from_numpy(
-            np.array(pe.astype(jnp.float32))).to(torch.bfloat16)
+        bf16("prefix_embeds", cfg.n_prefix_embeds)
         labs[:, :cfg.n_prefix_embeds] = -1
+    if cfg.family == "encdec":
+        bf16("frames", jenc_len_for(s))
     jb["labels"] = jnp.asarray(labs)
     pb["labels"] = torch.from_numpy(labs).long()
     return jb, pb
@@ -198,21 +208,26 @@ def test_moe_loss_adds_the_balance_term():
 
 
 def test_registry_losses():
-    """The dense and VLM families train; the encoder-decoder's loss still
-    waits for its slice (ROADMAP.md §A 3)."""
+    """Every LM family trains: the decoder-only families' loss is
+    ``next_token_loss``, the encoder-decoder's ``seq2seq_loss`` (each
+    checked against the reference in ``test_torch_lm_train_families.py``);
+    ``qat-int8`` validates.  ``int8-hlo``, ``save_attn`` and
+    ``parallel_block`` still wait for the dry-run slice (ROADMAP.md
+    §A 5)."""
     for arch in ("tinyllama-1.1b", "llava-next-34b", "deepseek-moe-16b",
-                 "mamba2-1.3b"):
+                 "mamba2-1.3b", "hymba-1.5b"):
         assert pregistry.build(pconfigs.get_smoke(arch)).loss.func is \
             plm.next_token_loss
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pregistry.build(pconfigs.get_smoke("seamless-m4t-large-v2")).loss(
-            None, None)
+    assert pregistry.build(pconfigs.get_smoke(
+        "seamless-m4t-large-v2")).loss.func is pencdec.seq2seq_loss
     cfg = pconfigs.get_smoke("tinyllama-1.1b")
+    assert dataclasses.replace(cfg, quant="qat-int8").validate()
     for bad, what in ((dict(remat="save_attn"), "save_attn"),
                       (dict(parallel_block=True), "parallel_block"),
-                      (dict(quant="qat-int8"), "qat-int8")):
-        with pytest.raises(NotImplementedError, match=what):
+                      (dict(quant="int8-hlo"), "int8-hlo")):
+        with pytest.raises(NotImplementedError, match=what) as e:
             dataclasses.replace(cfg, **bad).validate()
+        assert "ROADMAP.md §A 5" in str(e.value)
 
 
 # --------------------------------------------------------------------------
@@ -368,16 +383,21 @@ def test_lm_launcher_vlm_microbatches_and_compression(tmp_path):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--arch", "deepseek-moe-16b"], "moe training"),
-    (["--arch", "mamba2-1.3b"], "ssm training"),
-    (["--arch", "hymba-1.5b"], "hybrid training"),
-    (["--arch", "seamless-m4t-large-v2"], "encdec training"),
-    (["--arch", "tinyllama-1.1b", "--quant", "qat-int8"], "--quant"),
+    (["--arch", "tinyllama-1.1b", "--quant", "int8-hlo"], "2"),
+    (["--arch", "mrf-fpga", "--quant", "qat-int8", "--backend", "fused"],
+     "conflicts with --backend fused"),
+    (["--arch", "deepseek-moe-16b", "--batch", "3", "--seq", "100"],
+     "routing groups of 256"),
+    (["--arch", "llava-next-34b", "--seq", "4"], "prefix embeddings"),
 ])
 def test_lm_launcher_refusals(argv, what):
-    with pytest.raises(SystemExit, match=what) as e:
+    """What the launcher still refuses, before any weight is made: the
+    int8 dots (not a ``--quant`` choice: ROADMAP.md §A 5), QAT beside the
+    fused MRF kernel (as the reference), MoE tokens that are not whole
+    routing groups, a VLM sequence shorter than its prefix.  The families
+    it refused until now train (``test_torch_lm_train_families.py``)."""
+    with pytest.raises(SystemExit, match=what):
         train_launcher.main(argv + ["--smoke", "--device", "cpu"])
-    assert "ROADMAP.md §A 3" in str(e.value)
 
 
 # --------------------------------------------------------------------------
