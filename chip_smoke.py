@@ -182,6 +182,20 @@ final result line):
    (``lm_train_breakdown``, each in a process of its own); B6-bwd timed at
    the training shapes (``FAMILY_BWD_SHAPES``) beside its bound and SDPA's
    backward; an ``lm_train_run {json}`` line per entry;
+4k. the sharded path (``mesh_phase``), last: tinyllama-1.1b through
+   ``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+   repro_torch.launch.train --mesh single`` (a process of its own, its
+   counts from 0), ``TRAIN_STEPS`` steps at 8 x 2,048 tokens, twice: every
+   state leaf a DTensor on the (1, 1) mesh, B6 and B6-bwd in
+   ``local_map``; the losses and params digest equal 4i's run A bit for
+   bit, 44 and 22 launches a step, the rerun bit for bit; ms a step and
+   peak memory beside 4i's; B6, and B6 + B6-bwd under grad, at each dense
+   arch's tp-2 and tp-4 local heads (``padded_heads``), the ranks' slices
+   concatenated equal to one launch bit for bit; in a one-rank NCCL group
+   made here, ``mrf-fpga`` fused (B2) and float through ``--mesh single``
+   equal to their mesh-less runs bit for bit, and the executor's B4 and
+   B5 maps under the mesh equal to the integer oracle; a ``mesh_run
+   {json}`` line;
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
@@ -200,7 +214,8 @@ final result line):
 Before them, ``chaos_run {json}`` records the chaos phase: states, waves,
 retries, slow waves, the final depth and wave cap, voxels/s, p50/p99 and
 both kernels' launches; ``eq3_run {json}`` the paper's Eq. 3 comparison
-(``eq3_summary``); ``lm_train_run {json}`` phase 4i.  The last two lines
+(``eq3_summary``); ``lm_train_run {json}`` phase 4i; ``mesh_run {json}``
+phase 4k.  The last two lines
 are ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  Bounds use the card's published peaks
 (``repro_torch.analysis.roofline.H100``; training's through
 ``repro_torch.core.fpga_cost_model``).
@@ -279,7 +294,7 @@ LSE_ATOL = 1e-4
 # float32: the same gradient, sums over up to ~14,000 rows in other orders
 PLAIN_BWD_RTOL = 1e-4
 # phase 4i, training through launch.train: steps of tinyllama-1.1b whole
-TRAIN_STEPS = 5
+TRAIN_STEPS = 5             # phase 4k repeats run A's steps on the mesh
 # card vs CPU, tinyllama's first two layers at full width on 512 tokens:
 # the loss (an f32 mean over 512 tokens of bf16 logits that differ by ~1
 # ulp a layer; read 5.1e-5) and each gradient leaf within this many bf16
@@ -3444,7 +3459,8 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
     tokens a step, twice from fresh checkpoint directories:
 
     * run A, ``TRAIN_STEPS`` steps uninterrupted: the loss falls; B6 and
-      B6-bwd counted from 0 just before the run, 44 and 22 launches a step;
+      B6-bwd counted from 0 just before the run, 44 and 22 launches a step
+      (phase 4k repeats it on the mesh);
     * run B, the same with a crash injected at step 3: its steps before the
       crash repeat A's losses bit for bit (a rerun), and after the restart
       from the step-0 checkpoint (12 bytes a parameter: params and Adam's
@@ -3507,6 +3523,7 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
         "checkpoint_and_setup_s": rep_a["wall_s"] - steps_s,
         "restart_run_wall_s": rep_b["wall_s"],
         "rerun_bit_equal_steps": 3, "restart_bit_equal": True,
+        "params_digest": rep_a["params_digest"],
         "vs_cpu": vs_cpu, "breakdown": breakdown, "smi": smi}
     log(f"{LM_ARCH} training at {b} x {s} tokens, all {cfg.n_layers} layers: "
         f"{record['ms_per_step']:.1f} ms a step (median of steps 2-{steps}), "
@@ -3771,6 +3788,245 @@ def family_train_phase(device, smi: str) -> tuple:
         log("lm_train_run " + json.dumps(rec))
     return records, launches, bwd_times
 
+# phase 4k: the dense archs whose heads a tp mesh splits (B6 per rank)
+TP_ARCHS = ("tinyllama-1.1b", "granite-8b", "qwen2.5-14b", "minitron-8b")
+TP_DEGREES = (2, 4)
+TP_SEQ = 2048
+
+
+def free_port() -> int:
+    """A free TCP port on localhost (the world-1 process group's store)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_lm_run(b: int, s: int) -> dict:
+    """tinyllama-1.1b through ``torchrun --standalone --nproc-per-node 1
+    -m repro_torch.launch.train --mesh single`` at ``TRAIN_STEPS`` steps
+    of b x s tokens, ``--ckpt-every 0``: its ``train_report`` (a process of
+    its own, so B6's and B6-bwd's counts start at 0 in it)."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+            "--arch", LM_ARCH, "--mesh", "single", "--steps",
+            str(TRAIN_STEPS), "--batch", str(b), "--seq", str(s),
+            "--ckpt-every", "0"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:  # stop torchrun and its worker
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    lines = out.splitlines()
+    log("\n".join([ln for ln in lines if ln.startswith(("arch=", "step"))]))
+    if proc.returncode != 0:
+        fail(f"torchrun ... --mesh single returned {proc.returncode}:\n"
+             + "\n".join(lines[-120:]))
+    return report_of(lines, "train_report", " ".join(argv[3:]))
+
+
+def check_b6_tp_slices(device) -> list:
+    """B6, and B6 + B6-bwd under grad, at the heads one rank of a tp mesh
+    holds: for each dense arch at tp 2 and 4 (heads padded by
+    ``padded_heads(tp)``), random bf16 q, k, v of 1 x ``TP_SEQ`` tokens run
+    once over all the heads and once per rank's slice in turn; the slices'
+    outputs (and dq, dk, dv) concatenated must equal the one launch's bit
+    for bit: heads are independent and a slice holds whole GQA groups."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+
+    gen = torch.Generator(device=device).manual_seed(41)
+    out = []
+    for arch in TP_ARCHS:
+        cfg = get_config(arch)
+        for tp in TP_DEGREES:
+            hq, hkv = cfg.padded_heads(tp)
+            dh = cfg.head_dim
+            q, k, v = (torch.randn((1, TP_SEQ, h, dh), generator=gen,
+                                   device=device).to(torch.bfloat16)
+                       for h in (hq, hkv, hkv))
+            dout = torch.randn((1, TP_SEQ, hq, dh), generator=gen,
+                               device=device).to(torch.bfloat16)
+
+            def run(qs, ks, vs, dos):
+                leaves = [t.detach().requires_grad_(True)
+                          for t in (qs, ks, vs)]
+                with torch.no_grad():
+                    fwd = flash_attention(*leaves)
+                o = flash_attention(*leaves)
+                grads = torch.autograd.grad(o, leaves, dos)
+                return [fwd, o.detach(), *grads]
+
+            whole = run(q, k, v, dout)
+            lq, lkv = hq // tp, hkv // tp
+            parts = [run(q[:, :, r * lq:(r + 1) * lq],
+                         k[:, :, r * lkv:(r + 1) * lkv],
+                         v[:, :, r * lkv:(r + 1) * lkv],
+                         dout[:, :, r * lq:(r + 1) * lq]) for r in range(tp)]
+            for i, what in enumerate(("B6", "B6 under grad", "dq", "dk",
+                                      "dv")):
+                joined = torch.cat([p[i] for p in parts], dim=2)
+                if not torch.equal(joined, whole[i]):
+                    fail(f"{arch} tp {tp}: {what} over the ranks' heads "
+                         f"({lq}, {lkv}) differs from one launch over "
+                         f"({hq}, {hkv})")
+            out.append({"arch": arch, "tp": tp, "heads": [hq, hkv],
+                        "local_heads": [lq, lkv], "group": lq // lkv})
+            log(f"B6 and B6 + B6-bwd at {arch}'s tp-{tp} local heads "
+                f"(Hq, Hkv) = ({lq}, {lkv}) (group {lq // lkv}, dh {dh}, "
+                f"1 x {TP_SEQ}): the {tp} ranks' slices concatenated == one "
+                f"launch over ({hq}, {hkv}), bit for bit")
+    return out
+
+
+def mesh_mrf_and_serving(device) -> dict:
+    """MRF under ``--mesh single`` at world 1 (a one-rank NCCL group made
+    here, ``(data=1, model=1)``): ``mrf-fpga`` with the ``fused`` (B2) and
+    ``float`` backends through the launcher, each against its mesh-less
+    run bit for bit (params digest, losses, B2's launches); then the
+    executor's B4 and B5 maps under the mesh's rules against the integer
+    oracle and against the mesh-less executor, bit for bit.  Returns the
+    launches made under the mesh by kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.core import qat
+    from repro_torch.data.pipeline import denormalize_targets
+    from repro_torch.dist.sharding import make_mesh, use_rules
+    from repro_torch.kernels.qat_dense import fused as fused_fwd
+    from repro_torch.kernels.qat_dense import kernel as qat_kernel
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.serve.executor import WaveExecutor
+
+    launches = {"fused_train_multistep": 0, "fused_forward": 0,
+                "qat_dense": 0}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        for backend, extra in (("fused", ["--tile-batch", "128",
+                                          "--optimizer", "sgd",
+                                          "--chunk-steps", "10"]),
+                               ("float", [])):
+            argv = ["--arch", "mrf-fpga", "--backend", backend, "--steps",
+                    "20", "--batch", "256", "--lr", "1e-3", "--ckpt-every",
+                    "0", *extra]
+            plain, meshed = train(argv), train(argv + ["--mesh", "single"])
+            if meshed["dtensor_leaves"] != meshed["state_leaves"] or \
+                    meshed["mesh"] != {"data": 1, "model": 1}:
+                fail(f"mrf-fpga {backend} --mesh single: state not DTensors "
+                     f"on (1, 1): {meshed}")
+            for key in ("params_digest", "first_loss", "last_loss",
+                        "launches"):
+                if meshed[key] != plain[key]:
+                    fail(f"mrf-fpga {backend}: --mesh single {key} "
+                         f"{meshed[key]} != mesh-less {plain[key]}")
+            launches["fused_train_multistep"] += meshed["launches"][
+                "fused_train_multistep"]
+            log(f"mrf-fpga {backend} under --mesh single == mesh-less, bit "
+                f"for bit: digest {meshed['params_digest']}, loss "
+                f"{meshed['first_loss']:.6f} -> {meshed['last_loss']:.6f}, "
+                f"B2 launches {meshed['launches']['fused_train_multistep']}")
+        from repro_torch.core.mrf_net import ADAPTED_HIDDEN
+        ints = calibrated_net(ADAPTED_HIDDEN, 5, device)
+        gen = torch.Generator(device=device).manual_seed(6)
+        x = torch.rand((5000, 64), generator=gen, device=device) * 2 - 1
+        oracle = denormalize_targets(qat.int_forward(
+            [dataclasses.replace(layer, **{
+                f.name: getattr(layer, f.name).cpu()
+                for f in dataclasses.fields(layer)
+                if getattr(layer, f.name) is not None}) for layer in ints],
+            x.cpu())).numpy()
+        rules = rules_for(make_mesh((1, 1), ("data", "model"), "cuda"),
+                          global_batch=x.shape[0])
+        for impl, counter in (("fused", fused_fwd.fused_forward_call),
+                              ("layered", qat_kernel.qat_dense_call)):
+            plain = WaveExecutor(backend="int8", int_layers=ints,
+                                 int8_impl=impl).dispatch([x]).wait()
+            counter.launches = 0
+            with use_rules(rules):
+                meshed = WaveExecutor(backend="int8", int_layers=ints,
+                                      int8_impl=impl).dispatch([x]).wait()
+            launches["fused_forward" if impl == "fused" else
+                     "qat_dense"] += counter.launches
+            if counter.launches <= 0 or not (meshed == oracle).all() or \
+                    not (meshed == plain).all():
+                fail(f"executor {impl} under the mesh: maps differ from the "
+                     f"oracle or the mesh-less executor ({counter.launches} "
+                     f"launches)")
+            log(f"executor int8 {impl} under the (1, 1) mesh's rules: "
+                f"{x.shape[0]} voxels == qat.int_forward oracle and == "
+                f"mesh-less, bit for bit ({counter.launches} launches)")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def mesh_phase(device, smi: str, record_4i: dict, b: int = 8,
+               s: int = 2048) -> tuple:
+    """Phase 4k, the sharded path: tinyllama-1.1b trained whole through
+    ``torchrun ... --mesh single`` twice (:func:`mesh_lm_run`): the params
+    and Adam's moments DTensors on the (1, 1) mesh, B6 and B6-bwd in
+    ``local_map``; every loss and the params digest equal phase 4i's
+    mesh-less run A of the same steps bit for bit, its B6 and B6-bwd
+    launches a step (44 / 22), and the rerun repeats it bit for bit.  Then
+    B6 at the tp meshes' local heads (:func:`check_b6_tp_slices`) and MRF
+    training and serving under the mesh (:func:`mesh_mrf_and_serving`).
+    Returns (its record, the main path's launches by kernel)."""
+    from repro_torch.configs import get_config
+
+    per_step = train_launches(get_config(LM_ARCH))
+    runs = [mesh_lm_run(b, s) for _ in range(2)]
+    rep = runs[0]
+    if rep["mesh"] != {"data": 1, "model": 1} or \
+            rep["dtensor_leaves"] != rep["state_leaves"] or \
+            rep["state_leaves"] <= 0:
+        fail(f"--mesh single: the state is not DTensors on the (1, 1) mesh: "
+             f"{ {k: rep.get(k) for k in ('mesh', 'dtensor_leaves', 'state_leaves')} }")
+    if rep["losses"] != record_4i["losses"] or \
+            rep["params_digest"] != record_4i["params_digest"]:
+        fail(f"--mesh single differs from phase 4i's mesh-less run: losses "
+             f"{rep['losses']} vs {record_4i['losses']}, digest "
+             f"{rep['params_digest']} vs {record_4i['params_digest']}")
+    if (rep["flash_attn_launches"], rep["flash_attn_bwd_launches"]) != \
+            (per_step[0] * TRAIN_STEPS, per_step[1] * TRAIN_STEPS):
+        fail(f"--mesh single: launches {rep['flash_attn_launches']} / "
+             f"{rep['flash_attn_bwd_launches']}, not {per_step} a step")
+    again = runs[1]
+    if (again["losses"], again["params_digest"]) != \
+            (rep["losses"], rep["params_digest"]):
+        fail(f"--mesh single: a rerun differs: {again['losses']} vs "
+             f"{rep['losses']}")
+    log(f"{LM_ARCH} under torchrun --mesh single (DTensor params and "
+        f"moments, {rep['state_leaves']} leaves on the (1, 1) mesh): losses "
+        f"and digest == phase 4i's mesh-less run bit for bit, a rerun too; "
+        f"{rep['ms_per_step']:.1f} ms a step against 4i's "
+        f"{record_4i['ms_per_step']:.1f}, peak {rep['peak_device_gib']:.2f} "
+        f"GiB against {record_4i['peak_device_gib']:.2f}; launches a step "
+        f"B6 {per_step[0]}, B6-bwd {per_step[1]}  [{smi}]")
+    slices = check_b6_tp_slices(device)
+    free_device()
+    launches = mesh_mrf_and_serving(device)
+    launches["flash_attn"] = rep["flash_attn_launches"]
+    launches["flash_attn_bwd"] = rep["flash_attn_bwd_launches"]
+    record = {"arch": LM_ARCH, "mesh": rep["mesh"], "batch": b, "seq": s,
+              "steps": TRAIN_STEPS, "losses": rep["losses"],
+              "params_digest": rep["params_digest"],
+              "ms_per_step": rep["ms_per_step"],
+              "step_ms": [r["step_ms"] for r in runs],
+              "ms_per_step_4i": record_4i["ms_per_step"],
+              "peak_device_gib": rep["peak_device_gib"],
+              "peak_device_gib_4i": record_4i["peak_device_gib"],
+              "tokens_per_s": rep["tokens_per_s"],
+              "wall_s": [r["wall_s"] for r in runs],
+              "dtensor_leaves": rep["dtensor_leaves"],
+              "bit_equal_4i": True, "rerun_bit_equal": True,
+              "b6_tp_slices": slices, "launches": launches, "smi": smi}
+    return record, launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3896,6 +4152,12 @@ def main() -> int:
     bwd_row.update(fam_bwd)
     log(f"the other families' training phase (4j): "
         f"{time.perf_counter() - t_4j:.1f} s")
+    free_device()
+    t_4k = time.perf_counter()
+    mesh_record, mesh_launches = mesh_phase(device, smi, lm_train_record)
+    for r in rows:  # B6, B6-bwd, B2, B4, B5 launched on the sharded path
+        r["launches"] += mesh_launches.get(r["name"], 0)
+    log(f"the sharded path's phase (4k): {time.perf_counter() - t_4k:.1f} s")
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "
@@ -3958,6 +4220,7 @@ def main() -> int:
         f"ms per call, plain (with lse) {f['plain_ms']:.6f} ms, SDPA's "
         f"forward under grad {f['library_ms']:.6f} ms  [{smi}]")
     log("lm_train_run " + json.dumps(lm_train_record))
+    log("mesh_run " + json.dumps(mesh_record))
     log("chaos_run " + json.dumps(chaos))
     log("eq3_run " + json.dumps(eq3_summary(eq3_runs, rows, name, smi)))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

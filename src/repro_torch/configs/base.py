@@ -1,9 +1,8 @@
 """Model configuration schema (counterpart of ``repro.configs.base``): the
 ``ModelConfig`` fields that the ``mrf``, ``dense``, ``moe``, ``ssm``
 (mamba2), ``hybrid`` (hymba), ``encdec`` (seamless) and ``vlm`` (llava)
-families read.
-
-Sharding is not ported, so the tensor-parallel degree ``tp`` must be 1.
+families read, and the head and vocab padding of a tensor-parallel
+degree ``tp``.
 """
 
 from __future__ import annotations
@@ -13,13 +12,6 @@ import math
 
 PORTED_FAMILIES = ("mrf", "dense", "moe", "ssm", "hybrid", "encdec",
                    "vlm")
-
-
-def _check_tp(tp: int) -> None:
-    if tp != 1:
-        raise NotImplementedError(
-            f"tp={tp}: the port runs on one card until sharding is ported "
-            f"(ROADMAP.md §A)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,12 +71,22 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     def padded_heads(self, tp: int = 1) -> tuple:
-        """(query heads, kv heads); with tp=1 the exact architecture."""
-        _check_tp(tp)
-        return (self.n_heads, self.n_kv_heads)
+        """(query heads, kv heads) padded so both divide ``tp`` (the
+        reference's rule): kv heads are group-replicated up to ``tp`` where
+        they do not divide it, query heads zero-padded up to a multiple of
+        ``tp`` (and of the kv heads).  With tp=1 the exact architecture."""
+        if self.n_heads == 0:
+            return (0, 0)
+        hq = math.ceil(self.n_heads / tp) * tp
+        if self.n_kv_heads % tp == 0 and hq % self.n_kv_heads == 0 \
+                and self.n_heads % tp == 0:
+            return (self.n_heads, self.n_kv_heads)
+        hkv = tp if tp > 1 else self.n_kv_heads
+        while hq % hkv:  # the grouping must divide
+            hq += tp
+        return (hq, hkv)
 
     def padded_vocab(self, tp: int = 1) -> int:
-        _check_tp(tp)
         return math.ceil(self.vocab_size / tp) * tp
 
     def validate(self):

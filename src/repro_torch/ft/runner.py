@@ -39,6 +39,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.dist.sharding import layout_of
 from repro_torch.ft.checkpoint import CheckpointManager, latest_step, save_state
 from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.kernels.common import resolve_device
@@ -73,7 +74,7 @@ class _NoCheckpoints:
     def wait(self) -> None:
         pass
 
-    def restore_latest(self, like, *, device="cuda"):
+    def restore_latest(self, like, *, device="cuda", placements=None):
         return None, 0
 
 
@@ -84,7 +85,7 @@ def _wait_device(tensors) -> None:
 
 
 def run(train_step: Callable | None, init_state, batches: Callable[[int], Any],
-        cfg: RunnerConfig, *, device="cuda", on_metrics=None,
+        cfg: RunnerConfig, *, device="cuda", shardings=None, on_metrics=None,
         chunk_fn: Callable | None = None, chunk_steps: int = 1):
     """Run to ``cfg.total_steps`` with checkpoint and restart.
 
@@ -92,7 +93,10 @@ def run(train_step: Callable | None, init_state, batches: Callable[[int], Any],
     ``batches(step)`` gives the same batch for the same step on every call,
     so a restart replays the stream from the resume step.  With
     ``chunk_steps > 1`` a ``chunk_fn(state, start, n)`` is required and
-    ``batches`` is not consulted.  ``device``: where a restored state goes.
+    ``batches`` is not consulted.  ``device``: where a restored state goes;
+    ``shardings``: a tree of ``dist.sharding.Layout`` (or ``None``) placing
+    its leaves onto a mesh, by default the initial state's own layouts (a
+    sharded state restores sharded, onto the mesh it trains on).
 
     ``init_state`` is the initial state, or a function of no arguments that
     makes it.  Given the function, nothing keeps the initial state alive
@@ -110,6 +114,8 @@ def run(train_step: Callable | None, init_state, batches: Callable[[int], Any],
     # loop empties: no other name holds it while the loop runs
     box = [make()]
     like = tree_map(lambda t: torch.empty((), device="meta"), box[0])
+    if shardings is None:
+        shardings = tree_map(layout_of, box[0])
     monitor = StragglerMonitor()
     restarts = 0
     faults_remaining = 1 if cfg.inject_fault_at is not None else 0
@@ -125,7 +131,8 @@ def run(train_step: Callable | None, init_state, batches: Callable[[int], Any],
         cfg = dataclasses.replace(cfg, ckpt_every=cfg.total_steps + 1)
 
     while True:
-        restored, start = mgr.restore_latest(like, device=dev)
+        restored, start = mgr.restore_latest(like, device=dev,
+                                             placements=shardings)
         if restored is not None:
             box = [restored]
         elif not box:  # a restart with no checkpoint

@@ -7,8 +7,9 @@ step times; a step slower than ``threshold x`` the EWMA increments a strike
 counter, and ``strikes`` consecutive slow steps trigger a mitigation action:
 
     "checkpoint_and_evict" — snapshot via CheckpointManager, remove the slow
-    host from the next job restart (elastic re-mesh handles the smaller
-    device count; ft/elastic.py arrives with the port's sharding slice).
+    host from the next job restart (``ft.elastic``: ``downsize_batch_rules``
+    checks the eviction, ``survivor_rules`` builds the smaller mesh, and the
+    checkpoint restores onto it).
 
 The tests feed it synthetic timings; the runner feeds it host step times.
 """

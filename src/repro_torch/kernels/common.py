@@ -9,6 +9,7 @@ say ``device="cpu"``.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 INT8_IMPL_CHOICES = ("fused", "lax", "layered")
 
@@ -29,12 +30,15 @@ def resolve_int8_impl(impl: str | None) -> str:
     return impl
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, *, meta: bool = False) -> torch.device:
     """``device`` as a ``torch.device``; raises for CUDA without a card.
 
-    Only ``cpu`` and ``cuda`` devices are accepted.
+    Only ``cpu`` and ``cuda`` devices are accepted, and with ``meta=True``
+    the meta device (shapes without storage: ``launch.input_specs``).
     """
     dev = torch.device(device)
+    if meta and dev.type == "meta":
+        return dev
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -71,3 +75,19 @@ def refuse_grad(what: str, *tensors) -> None:
             f"{what}: an input requires grad, and the kernel's output has no "
             f"backward; call it under torch.no_grad() (or on detached "
             f"inputs) where no gradient is wanted")
+
+
+def refuse_dtensor(what: str, *tensors) -> None:
+    """Raise if a DTensor reaches a kernel wrapper: the ctypes launch reads
+    a local buffer and would compute on one rank's shard as if it were the
+    whole tensor.  Inside a sharded region each kernel call is wrapped in
+    ``torch.distributed.tensor.experimental.local_map`` (or an explicit
+    ``to_local`` / ``DTensor.from_local`` with stated placements) over the
+    rank's local shard."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{what}: got a DTensor (placements {tuple(t.placements)}); "
+                f"kernel wrappers take local tensors. Wrap the call in "
+                f"local_map (torch.distributed.tensor.experimental) over the "
+                f"rank's local shard")

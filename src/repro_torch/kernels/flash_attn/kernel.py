@@ -36,7 +36,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import refuse_grad
+from repro_torch.kernels.common import refuse_dtensor, refuse_grad
 from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_plain, \
     flash_attention_plain
 
@@ -143,6 +143,7 @@ def flash_attention_call(q, k, v, *, causal: bool = True, window: int = 0,
     ``scores``, for checks only (bf16 on the card): a contiguous float32
     (BH, Sq, Sk) tensor that receives the kernel's scaled scores of every kv
     tile it runs (``ref.flash_attention_plain(scores=...)`` takes them)."""
+    refuse_dtensor("flash_attention_call", q, k, v)
     dq, dk = default_blocks(q.dtype, q.shape[-1])
     block_q = dq if block_q is None else block_q
     block_k = dk if block_k is None else block_k
@@ -257,6 +258,7 @@ def flash_attention_bwd_call(q, k, v, out, dout, lse, *, causal: bool = True,
     a CUDA tensor the bf16 kernel (the lengths that ``ops.kernel_layout``
     gives bf16: Sq a multiple of 128, Sk of ``bf16_tiles(dh)[1]``) or
     raises."""
+    refuse_dtensor("flash_attention_bwd_call", q, k, v, out, dout, lse)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse,
                                          causal=causal, window=window,

@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import refuse_grad
+from repro_torch.kernels.common import refuse_dtensor, refuse_grad
 from repro_torch.kernels.fused_train.ref import (AdamRule, fused_train_plain,
                                                  packed_size)
 
@@ -230,6 +230,8 @@ def run_fused_train(x, y, params, widths, *, lr: float, tile_batch: int,
     update is computed in the kernel, not by autograd: raises under grad
     for an input that requires one, on either device.
     """
+    refuse_dtensor("fused_train", x, y, params, step0,
+                   *(moments if moments is not None else ()))
     refuse_grad("fused_train", x, y, params, step0,
                 *(moments if moments is not None else ()))
     widths = _check_widths(widths)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import refuse_grad
+from repro_torch.kernels.common import refuse_dtensor, refuse_grad
 from repro_torch.kernels.qat_dense.ref import ref_fused_forward
 
 _HEADER_INTS = 4     # per layer: k_chunks, n_tiles, frag_offset, bs_offset
@@ -126,6 +126,7 @@ def fused_forward_call(x, net, *, drow=None):
     denormalization, fused).  Computes no gradient: raises under grad for
     an input that requires one, on either device.
     """
+    refuse_dtensor("fused_forward_call", x, drow)
     refuse_grad("fused_forward_call", x, drow)
     if x.device.type == "cpu":
         return ref_fused_forward(x, net.s_in, net.packed, net.out_dim,

@@ -20,7 +20,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import refuse_grad
+from repro_torch.kernels.common import refuse_dtensor, refuse_grad
 from repro_torch.kernels.qat_dense.ref import ref_qat_dense
 
 
@@ -73,6 +73,7 @@ def qat_dense_call(x_q, w_q, b_q, scale, *, relu: bool = True,
     (M,N) int8 (requantized, ReLU-clamped when ``relu``) or fp32
     (``float_out``, the linear head).  Computes no gradient: raises under
     grad for an input that requires one, on either device."""
+    refuse_dtensor("qat_dense_call", x_q, w_q, b_q, scale)
     refuse_grad("qat_dense_call", x_q, w_q, b_q, scale)
     if x_q.device.type == "cpu":
         return ref_qat_dense(x_q, w_q, b_q, scale, relu=relu,

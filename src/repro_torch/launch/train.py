@@ -44,6 +44,25 @@ checkpoints and restores), peak device memory, B6's and B6-bwd's
 launches, the train-step calls and a digest of the final params' bits.
 ``--quant qat-int8`` on an MRF arch is ``--backend qat-int8`` (refused
 beside ``--backend fused``), as in the reference.
+
+``--mesh single|multi`` (the reference's ``_mesh_context``) runs under
+``torchrun``: the process group comes from its environment (NCCL on the
+card, gloo on the CPU; a group made by the caller is used as it is), the
+mesh from ``launch.mesh.make_production_mesh`` and the rules from
+``rules_for(mesh, global_batch=--batch)``, ambient for the run.  The LM's
+params and Adam moments are DTensors placed by ``fns.param_axes()`` (heads
+padded for the mesh's ``model`` size), and each batch by
+``input_specs.batch_axes``: every rank draws the step's global batch and
+keeps the rows of its data coordinate, so the data ranks' rows together
+are the mesh-less batch (the reference instead folds the process index
+into the data key).  The MRF nets run data-parallel (``float``,
+``qat-int8``) or, for ``fused``, the kernel on the whole batch on every
+rank (``train.engine``).  Without a process group, or with ``--device
+cuda`` and no card, ``--mesh`` raises; the MoE, SSM, hybrid,
+encoder-decoder and VLM families are refused (not held multi-rank yet,
+ROADMAP.md §A 4).  ``torchrun --standalone --nproc-per-node 1 -m
+repro_torch.launch.train --mesh single`` is the ``(data=1, model=1)``
+mesh: the same DTensor path, with no collective crossing a card.
 """
 
 from __future__ import annotations
@@ -71,6 +90,69 @@ CUBLAS_DETERMINISTIC = ":4096:8"
 #: segments fragment under a step's large activations of changing shapes
 #: (the MoE dispatch, a 256k-column head) until a step no longer fits
 ALLOC_CONF = "expandable_segments:True"
+#: the LM families the sharded path holds (the rest: ROADMAP.md §A 4)
+MESH_FAMILIES = ("dense", "mrf")
+
+
+def mesh_rules(args, cfg, device):
+    """The run's mesh-bound rules, or None for ``--mesh none``: the process
+    group from ``torchrun``'s environment when none exists, the production
+    mesh over it, ``rules_for`` at the global batch."""
+    if args.mesh == "none":
+        return None
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh, rules_for
+    if cfg.family not in MESH_FAMILIES:
+        raise SystemExit(
+            f"--mesh {args.mesh}: the {cfg.family} family is not held "
+            f"multi-rank yet (ROADMAP.md §A 4: the MoE, SSM, hybrid, "
+            f"encoder-decoder and VLM families under --mesh come after the "
+            f"dense family); run it with --mesh none")
+    if args.grad_compress:
+        raise SystemExit("--grad-compress under --mesh is not held yet "
+                         "(ROADMAP.md §A 4); drop one of the flags")
+    if not dist.is_initialized():
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                f"--mesh {args.mesh} needs a process group: run under "
+                f"torchrun (e.g. torchrun --standalone --nproc-per-node 1 -m "
+                f"repro_torch.launch.train ... --mesh {args.mesh})")
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                device_type=device.type)
+    return rules_for(mesh, global_batch=args.batch)
+
+
+def _mesh_report(rules, state) -> dict:
+    """What the run's state was: the mesh and how many leaves are
+    DTensors (all of the params and moments under ``--mesh``)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import leaves
+    if rules is None:
+        return {"mesh": None}
+    mesh = rules.mesh
+    all_leaves = leaves(state)
+    return {"mesh": dict(zip(mesh.mesh_dim_names, map(int, mesh.shape))),
+            "state_leaves": len(all_leaves),
+            "dtensor_leaves": sum(isinstance(t, DTensor)
+                                  for t in all_leaves)}
+
+
+def _value(t) -> float:
+    """A metric's value: a DTensor gathered first."""
+    from torch.distributed.tensor import DTensor
+    return float(t.full_tensor() if isinstance(t, DTensor) else t)
+
+
+def use_rules_of(rules):
+    """``use_rules(rules)``, or a null context without a mesh."""
+    from repro_torch.dist.sharding import use_rules
+    return contextlib.nullcontext() if rules is None else use_rules(rules)
 
 
 def train_mrf(args, cfg) -> int:
@@ -78,6 +160,7 @@ def train_mrf(args, cfg) -> int:
     or chunked (the JAX package's ``run_mrf``)."""
     from repro_torch.core.mrf_net import layer_sizes
     from repro_torch.core.train_loop import evaluate
+    from repro_torch.dist.sharding import full_tree
     from repro_torch.ft.checkpoint import latest_step
     from repro_torch.ft.runner import RunnerConfig
     from repro_torch.models.mrf import build_mrf
@@ -100,6 +183,7 @@ def train_mrf(args, cfg) -> int:
         print(f"resuming from checkpoint step {resume} in {ckpt_dir}")
 
     fns = build_mrf(cfg)
+    rules = mesh_rules(args, cfg, device)
     ecfg = engine.EngineConfig(
         backend=backend, lr=args.lr, optimizer=optimizer,
         microbatches=args.microbatches, grad_compress=args.grad_compress,
@@ -112,19 +196,23 @@ def train_mrf(args, cfg) -> int:
     n_params = sum(k * n + n for k, n in zip(sizes[:-1], sizes[1:]))
     print(f"arch={cfg.name} backend={backend} optimizer={optimizer} "
           f"params={n_params:,} chunk_steps={args.chunk_steps} "
-          f"device={device}")
+          f"device={device} mesh={args.mesh}")
 
     losses = {}
 
     def log(step, metrics, dt):
         if step == 1 or step % 10 == 0 or step == args.steps:
-            losses[step] = float(metrics["loss"])
+            losses[step] = _value(metrics["loss"])
             print(f"step {step:5d} loss {losses[step]:.6f} {dt * 1e3:.2f} ms",
                   flush=True)
 
-    state, step, info = engine.train(
-        fns, ecfg, rcfg, stream=stream, seed=1, init_seed=0,
-        batch_size=args.batch, on_metrics=log, device=device)
+    with use_rules_of(rules):
+        state, step, info = engine.train(
+            fns, ecfg, rcfg, stream=stream, seed=1, init_seed=0,
+            batch_size=args.batch, on_metrics=log, device=device,
+            rules=rules)
+    mesh_info = _mesh_report(rules, state)
+    state = full_tree(state)  # evaluated and digested whole on every rank
     # qat-int8 carries its observers in state.aux: evaluate the fake-quant
     # net the backend trained, not the float forward
     m = evaluate(state.params, stream.seq, qstate=state.aux, n=1000,
@@ -139,7 +227,8 @@ def train_mrf(args, cfg) -> int:
               "last_loss": losses[logged[-1]] if logged else None,
               "samples_per_s": info["samples_per_s"],
               "wall_s": info["wall_seconds"],
-              "T1_MAPE_%": m["T1"]["MAPE_%"], "T2_MAPE_%": m["T2"]["MAPE_%"]}
+              "T1_MAPE_%": m["T1"]["MAPE_%"], "T2_MAPE_%": m["T2"]["MAPE_%"],
+              "params_digest": params_digest(state.params), **mesh_info}
     print("train_report " + json.dumps(report))
     return 0
 
@@ -192,15 +281,25 @@ def deterministic():
         torch.use_deterministic_algorithms(before)
 
 
+def _placed_lm_batches(batches, axes, rules):
+    from repro_torch.dist.sharding import distribute_tree
+    return lambda step: distribute_tree(batches(step), axes, rules)
+
+
 def params_digest(params) -> int:
     """A digest of the params' bits: each leaf's 32-bit words summed as
     int64 (exact in any order), the leaves weighted by their position,
-    modulo 2^61 - 1.  Equal digests of two runs mean, to all practical
-    purposes, the same weights bit for bit."""
+    modulo 2^61 - 1 (a DTensor leaf gathered whole first).  Equal digests
+    of two runs mean, to all practical purposes, the same weights bit for
+    bit."""
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.tree import leaves
 
     total = 0
     for i, leaf in enumerate(leaves(params)):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         words = leaf.detach().contiguous().view(torch.int32).to(torch.int64)
         total = (total + (i + 1) * int(words.sum())) % (2 ** 61 - 1)
     return total
@@ -210,6 +309,8 @@ def train_lm(args, cfg) -> int:
     """The LM branch: the reference's ``main`` past its MRF dispatch."""
     from repro_torch.configs.base import param_count
     from repro_torch.data.lm_text import TextPipeline
+    from repro_torch.dist.sharding import distribute_tree
+    from repro_torch.launch.input_specs import batch_axes
     from repro_torch.ft.checkpoint import latest_step
     from repro_torch.ft.runner import RunnerConfig, run
     from repro_torch.kernels.flash_attn.kernel import (
@@ -235,8 +336,10 @@ def train_lm(args, cfg) -> int:
     resume = latest_step(ckpt_dir) if args.ckpt_every > 0 else None
     if resume:
         print(f"resuming from checkpoint step {resume} in {ckpt_dir}")
-    with deterministic():
-        fns = registry.build(cfg)
+    rules = mesh_rules(args, cfg, device)
+    tp = 1 if rules is None else int(rules.mesh["model"].size())
+    with deterministic(), use_rules_of(rules):
+        fns = registry.build(cfg, tp)
         terms = {}  # the MoE balance term of the last loss evaluated
         loss_fn = partial(fns.loss, terms=terms) if cfg.family == "moe" \
             else fns.loss
@@ -251,9 +354,10 @@ def train_lm(args, cfg) -> int:
             calls[0] += 1
             return step_fn(state, batch)
 
-        print(f"arch={cfg.name} params={param_count(cfg):,} tp=1 "
+        print(f"arch={cfg.name} params={param_count(cfg):,} tp={tp} "
               f"device={device} batch={args.batch} seq={args.seq} "
-              f"microbatches={args.microbatches} quant={cfg.quant}")
+              f"microbatches={args.microbatches} quant={cfg.quant} "
+              f"mesh={args.mesh}")
         pipe = TextPipeline(seq_len=args.seq, batch_size=args.batch,
                             vocab_size=min(cfg.vocab_size, 256))
         rcfg = RunnerConfig(total_steps=args.steps, ckpt_dir=ckpt_dir,
@@ -262,12 +366,23 @@ def train_lm(args, cfg) -> int:
         losses, times, loss_log = {}, {}, []
 
         def log(step, metrics, dt):
-            losses[step] = float(metrics["loss"])
+            losses[step] = _value(metrics["loss"])
             times[step] = dt
             loss_log.append([step, losses[step]])
             print(f"step {step:5d} loss {losses[step]:.6f} gnorm "
-                  f"{float(metrics['grad_norm']):.4f} {dt * 1e3:.1f} ms",
+                  f"{_value(metrics['grad_norm']):.4f} {dt * 1e3:.1f} ms",
                   flush=True)
+
+        def init_state():
+            params = fns.init(0, device=device)
+            if rules is not None:
+                params = distribute_tree(params, fns.param_axes(), rules)
+            return init_train_state(params, opt,
+                                    grad_compress=args.grad_compress)
+
+        batches = lm_batches(cfg, pipe, device)
+        if rules is not None:  # each data rank keeps its rows
+            batches = _placed_lm_batches(batches, batch_axes(cfg), rules)
 
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
@@ -276,13 +391,10 @@ def train_lm(args, cfg) -> int:
         t0 = time.perf_counter()
         # the runner makes the initial state and holds it no longer than
         # it needs it: one state on the card, not two
-        state, step = run(
-            counted_step,
-            lambda: init_train_state(fns.init(0, device=device), opt,
-                                     grad_compress=args.grad_compress),
-            lm_batches(cfg, pipe, device), rcfg, device=device,
-            on_metrics=log)
+        state, step = run(counted_step, init_state, batches, rcfg,
+                          device=device, on_metrics=log)
         wall = time.perf_counter() - t0
+        mesh_info = _mesh_report(rules, state)
     steady = [times[s] for s in sorted(times)[1:]] or list(times.values())
     ms = statistics.median(steady) * 1e3 if steady else None
     report = {"arch": cfg.name, "device": str(device), "steps": step,
@@ -307,7 +419,7 @@ def train_lm(args, cfg) -> int:
               - launches[0],
               "flash_attn_bwd_launches": flash_attention_bwd_call.launches
               - launches[1],
-              "params_digest": params_digest(state.params)}
+              "params_digest": params_digest(state.params), **mesh_info}
     print(f"done at step {step}")
     print("train_report " + json.dumps(report))
     return 0
@@ -362,6 +474,11 @@ def parser() -> argparse.ArgumentParser:
                          "latest checkpoint")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--mesh", choices=["none", "single", "multi"],
+                    default="none",
+                    help="run sharded under torchrun on the production "
+                         "mesh (single: data x model; multi: pod x data x "
+                         "model); none: one device, no mesh")
     return ap
 
 

@@ -18,15 +18,28 @@ the copy.  A cache made by prefill is exactly as long as the prompt, so
 every decoded token overwrites the oldest prompt slot and decode attends
 over all ``capacity`` slots; RoPE positions stay absolute.  That is the
 reference's behaviour and the port keeps it (ROADMAP.md §C).
+
+Sharding (``repro_torch.dist``): :func:`attn_axes` names each weight's
+logical axes, heads on ``"tp"``.  Under a mesh q, k and v are placed
+``("batch", None, "tp", None)`` and B6 runs in ``local_map`` on each
+rank's own batch rows and heads (:func:`attention`): heads are
+independent, and ``padded_heads(tp)`` keeps each rank's query heads a
+whole number of its kv heads' groups.  No DTensor reaches the kernel
+wrapper.  Padded query heads (``init_attn(true_hq=)``) have zero ``wq``
+columns and ``wo`` rows, so they add nothing, as in the reference.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.dist.sharding import (axes_to_placements, current_rules,
+                                       replicated_like, shard)
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.models.common import apply_rope, dense, normal_init
 
@@ -44,7 +57,9 @@ class AttentionParams(NamedTuple):
 
 
 def init_attn(generator, d_model, hq, hkv, dh, qkv_bias=False,
-              device=None) -> AttentionParams:
+              device=None, true_hq=None) -> AttentionParams:
+    """``true_hq``: the unpadded query heads; the padded ones (``hq`` past
+    it, ``padded_heads(tp)``) get zero ``wq`` columns and ``wo`` rows."""
     def normal(shape, scale=0.02):
         return normal_init(generator, shape, scale, device=device)
 
@@ -52,18 +67,58 @@ def init_attn(generator, d_model, hq, hkv, dh, qkv_bias=False,
         return torch.zeros((n,), dtype=torch.float32, device=device) \
             if qkv_bias else None
 
+    wq = normal((d_model, hq * dh))
+    wk, wv = normal((d_model, hkv * dh)), normal((d_model, hkv * dh))
+    wo = normal((hq * dh, d_model), 0.02 / math.sqrt(2))
+    if true_hq is not None and true_hq < hq:
+        wq[:, true_hq * dh:] = 0.0
+        wo[true_hq * dh:, :] = 0.0
+    return AttentionParams(wq=wq, wk=wk, wv=wv, wo=wo, bq=zeros(hq * dh),
+                           bk=zeros(hkv * dh), bv=zeros(hkv * dh))
+
+
+def attn_axes(qkv_bias=False) -> AttentionParams:
+    """One layer's logical axes (the reference's ``attn_axes`` without its
+    leading stacked-layer ``None``)."""
     return AttentionParams(
-        wq=normal((d_model, hq * dh)), wk=normal((d_model, hkv * dh)),
-        wv=normal((d_model, hkv * dh)),
-        wo=normal((hq * dh, d_model), 0.02 / math.sqrt(2)),
-        bq=zeros(hq * dh), bk=zeros(hkv * dh), bv=zeros(hkv * dh))
+        wq=("fsdp", "tp"), wk=("fsdp", "tp"), wv=("fsdp", "tp"),
+        wo=("tp", "fsdp"),
+        bq=("tp",) if qkv_bias else None,
+        bk=("tp",) if qkv_bias else None,
+        bv=("tp",) if qkv_bias else None)
+
+
+#: the logical axes of (B, S, H, dh) q, k, v and attention's output
+QKV_AXES = ("batch", None, "tp", None)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """q: (B, Sq, Hq, dh); k, v: (B, Sk, Hkv, dh) -> (B, Sq, Hq, dh), Hq a
     multiple of Hkv.  Runs B6: on CUDA tensors the kernel or an exception,
-    on CPU tensors its plain version."""
-    return flash_attention(q, k, v, causal=causal, window=window or 0)
+    on CPU tensors its plain version.  DTensors run B6 in ``local_map`` on
+    each rank's local shard (:func:`local_placements`), under grad B6 and
+    B6-bwd (``ops.FlashAttention``) the same way."""
+    fn = partial(flash_attention, causal=causal, window=window or 0)
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(local_placements(q))  # a list: one output's placements
+    return local_map(fn, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def local_placements(q) -> tuple:
+    """Where attention runs per rank for a DTensor q (B, S, H, dh): the
+    ambient rules' ``QKV_AXES`` on q's mesh, else q's own placements with
+    all but batch rows (``Shard(0)``) and heads (``Shard(2)``) gathered.
+    Never the sequence or a pending sum: each rank needs whole rows of
+    scores."""
+    rules = current_rules()
+    if rules is not None and rules.mesh is q.device_mesh:
+        return axes_to_placements(QKV_AXES, rules)
+    return tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                 else Replicate() for p in q.placements)
 
 
 def attn_block(p: AttentionParams, x, *, cfg_heads, rope_theta, causal=True,
@@ -85,7 +140,8 @@ def attn_block(p: AttentionParams, x, *, cfg_heads, rope_theta, causal=True,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, torch.arange(sk, device=x.device)[None, :],
                        rope_theta)
-    out = attention(q, k, v, causal=causal, window=window)
+    q, k, v = (shard(t, *QKV_AXES) for t in (q, k, v))
+    out = shard(attention(q, k, v, causal=causal, window=window), *QKV_AXES)
     y = dense(out.reshape(b, s, hq * dh), p.wo, quant=quant)
     if return_kv:
         return y, (k, v)
@@ -108,7 +164,7 @@ def decode_attention(q1, k_cache, v_cache, cache_len: int, *,
     keep = pos < cache_len
     if window:
         keep = keep & (pos >= cache_len - window)
-    s = torch.where(keep, s, NEG_INF)
+    s = torch.where(replicated_like(keep, s), s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", p.float(), v_cache.float())
     return out.reshape(b, hq, dh).to(q1.dtype)
@@ -116,8 +172,12 @@ def decode_attention(q1, k_cache, v_cache, cache_len: int, *,
 
 def write_cache_slot(cache, new, index: int) -> None:
     """Write one token's K or V (B, Hkv, dh) into a (B, S, Hkv, dh) cache at
-    slot ``index mod S`` (a ring buffer), in place."""
-    cache[:, index % cache.shape[1]] = new.to(cache.dtype)
+    slot ``index mod S`` (a ring buffer), in place (a DTensor ``new``
+    placed as the cache's slot first)."""
+    slot = cache[:, index % cache.shape[1]]
+    if isinstance(new, DTensor) and isinstance(slot, DTensor):
+        new = new.redistribute(slot.device_mesh, slot.placements)
+    slot.copy_(new.to(cache.dtype))
 
 
 def decode_attn_block(p: AttentionParams, x1, cache_k, cache_v,
@@ -145,6 +205,8 @@ def decode_attn_block(p: AttentionParams, x1, cache_k, cache_v,
         k = apply_rope(k[:, None], pos, rope_theta)[:, 0]
     write_cache_slot(cache_k, k, cache_len)
     write_cache_slot(cache_v, v, cache_len)
+    cache_k = shard(cache_k, "batch", "cache_seq", None, None)
+    cache_v = shard(cache_v, "batch", "cache_seq", None, None)
     out = decode_attention(q, cache_k, cache_v, cache_len + 1, window=window)
     y = dense(out.reshape(b, hq * dh), p.wo, quant=quant)
     return y, cache_k, cache_v

@@ -7,13 +7,20 @@ are fp32 masters.  ``dense`` casts a weight to the activation's dtype at
 each call as the reference does; a caller may instead pass bf16 params
 (``lm.init_params(..., dtype=COMPUTE)``), whose values are identical (the
 cast is the same rounding, done once at load), so the cast here is then a
-no-op.  ``shard`` is the identity on one card and is
-left out.
+no-op.  Model code places activations with ``repro_torch.dist.sharding.
+shard`` (the reference's ``models.common.shard``); beside a DTensor input
+the RoPE tables are replicated on its mesh.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.dist.sharding import replicated_like
 
 COMPUTE = torch.bfloat16
 
@@ -57,6 +64,52 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     return y
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  For a DTensor table the lookup runs per rank in
+    ``local_map`` with the vocab split as the table's is: each rank looks
+    its tokens up in its own rows (:func:`_rows_of`, zero for a token of
+    another rank's rows), the pieces are summed over the vocab's mesh dim,
+    and the table's other dims are gathered.  The table's gradient stays
+    split over the vocab and is pending over the dims that split the
+    tokens (each rank holds its rows' share).  DTensor's own rule for the
+    lookup's backward (``index_put``) fails on the card in torch 2.11
+    under deterministic algorithms."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    if len(vocab) > 1:
+        raise ValueError(f"an embedding table split over {len(vocab)} mesh "
+                         f"dims along its vocab {tuple(table.placements)}")
+    tab = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    rows = [Replicate() if i in vocab else p
+            for i, p in enumerate(tokens.placements)]
+    out = [Partial() if i in vocab else p for i, p in enumerate(rows)]
+    grad = [Shard(0) if i in vocab else
+            Partial() if isinstance(p, Shard) else Replicate()
+            for i, p in enumerate(rows)]
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, tab)
+    lookup = local_map(partial(_rows_of, offset=int(offset[0])),
+                       out_placements=out, in_placements=(tab, rows),
+                       in_grad_placements=(grad, rows), device_mesh=mesh)
+    h = lookup(table.redistribute(mesh, tab), tokens.redistribute(mesh, rows))
+    return h.redistribute(mesh, tokens.placements)
+
+
+def _rows_of(table: torch.Tensor, ids: torch.Tensor, offset: int):
+    """The rows of ``ids`` that fall in this rank's table (global rows
+    ``offset`` on), zero for the others."""
+    local = ids - offset
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(own, local, 0)]
+    return torch.where(own[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
 def rope_inv_freqs(head_dim: int, theta: float = 1e4,
                    device=None) -> torch.Tensor:
     """The RoPE inverse-frequency table ``(head_dim // 2,)`` in f32, made on
@@ -73,8 +126,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     dh = x.shape[-1]
     freqs = rope_inv_freqs(dh, theta, device=x.device)
     angles = positions[..., None].float() * freqs         # (..., S, dh/2)
-    cos = torch.cos(angles)[..., None, :]                 # (..., S, 1, dh/2)
-    sin = torch.sin(angles)[..., None, :]
+    cos = replicated_like(torch.cos(angles)[..., None, :], x)  # (.., S, 1, dh/2)
+    sin = replicated_like(torch.sin(angles)[..., None, :], x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -32,11 +32,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import COMPUTE, normal_init, rms_norm
+from repro_torch.models.common import (COMPUTE, embed_lookup, normal_init,
+                                      rms_norm)
 from repro_torch.models.lm import ModelFns, _heads, _logits, cross_entropy
-from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.models.mlp import init_mlp, mlp_axes, mlp_block
 from repro_torch.tree import tree_map
 
 TOKENS_PER_FRAME = 4  # the encoder sees a quarter as many frames as tokens
@@ -56,7 +58,7 @@ def _layer_init(cfg: ModelConfig, generator, tp: int, device, *,
 
     def attention():
         return attn.init_attn(generator, d, hq, hkv, dh, cfg.qkv_bias,
-                              device=device)
+                              device=device, true_hq=cfg.n_heads)
 
     layer = {"ln1": ones(), "attn": attention()}
     if cross:
@@ -66,14 +68,39 @@ def _layer_init(cfg: ModelConfig, generator, tp: int, device, *,
     return layer
 
 
+def encdec_axes(cfg: ModelConfig) -> dict:
+    """The params' logical axes, one entry per layer (the reference's
+    ``encdec_param_axes``, whose name its dead-exports allowlist holds)."""
+    def layer(cross: bool) -> dict:
+        out = {"ln1": (None,), "attn": attn.attn_axes(cfg.qkv_bias),
+               "ln2": (None,), "mlp": mlp_axes(cfg.gated_mlp)}
+        if cross:
+            out.update(ln_cross=(None,), cross=attn.attn_axes(cfg.qkv_bias))
+        return out
+
+    return {"enc": {"layers": [layer(False) for _ in range(cfg.n_enc_layers)],
+                    "norm": (None,)},
+            "dec": {"embed": ("tp", "fsdp"),
+                    "layers": [layer(True) for _ in range(cfg.n_layers)],
+                    "norm": (None,)},
+            "head": ("fsdp", "tp")}
+
+
+def encdec_cache_axes(cfg: ModelConfig) -> dict:
+    """The caches' logical axes (stacked, as ``init_cache`` makes them)."""
+    ax = (None, "batch", "cache_seq", None, None)
+    return {"k": ax, "v": ax, "cross_k": ax, "cross_v": ax}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                 tp: int = 1, dtype=torch.float32) -> dict:
     """Params from a ``torch.Generator`` seeded with ``seed`` on ``device``
     (raises for CUDA without a card): fp32 masters, or with ``dtype`` their
     values cast to it layer by layer as they are drawn (``lm.init_params``
     says why)."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    dev = resolve_device(device, meta=True)
+    gen = (None if dev.type == "meta"  # shapes only: nothing to draw
+           else torch.Generator(device=dev).manual_seed(seed))
     d, vp = cfg.d_model, cfg.padded_vocab(tp)
 
     def cast(tree):
@@ -117,11 +144,12 @@ def encode(cfg: ModelConfig, tp: int, params, frames):
     """The encoder over the frames (B, Se, d), cast to bf16, ending in its
     RMSNorm: the states every decoder layer's cross K/V are projected
     from."""
-    h = frames.to(COMPUTE)
+    h = shard(frames.to(COMPUTE), "batch", "act_seq", None)
     remat = _remat(cfg)
     for lp in params["enc"]["layers"]:
         block = partial(_enc_block, cfg, tp, lp=lp)
         h = checkpoint(block, h, use_reentrant=False) if remat else block(h)
+        h = shard(h, "batch", "act_seq", None)
     return rms_norm(h, params["enc"]["norm"], cfg.norm_eps)
 
 
@@ -154,8 +182,9 @@ def _dec_layer(cfg: ModelConfig, tp: int, lp, h, enc_out):
     return _dec_block(cfg, tp, h, lp, enc_out, return_kv=False)[0]
 
 
-def _embed(params, tokens):
-    return params["dec"]["embed"][tokens].to(COMPUTE)
+def _embed(params, tokens, axes=("batch", "act_seq", None)):
+    return shard(embed_lookup(params["dec"]["embed"], tokens).to(COMPUTE),
+                 *axes)
 
 
 def prefill(cfg: ModelConfig, tp: int, params, batch):
@@ -167,8 +196,11 @@ def prefill(cfg: ModelConfig, tp: int, params, batch):
     kvs = []
     for lp in params["dec"]["layers"]:
         h, kv = _dec_block(cfg, tp, h, lp, enc_out, return_kv=True)
+        h = shard(h, "batch", "act_seq", None)
         kvs.append(kv)
-    cache = {name: torch.stack([kv[side][j] for kv in kvs]).to(COMPUTE)
+    cache = {name: shard(torch.stack([kv[side][j] for kv in kvs])
+                         .to(COMPUTE), "layers", "batch", "cache_seq", None,
+                         None)
              for name, side, j in (("k", 0, 0), ("v", 0, 1),
                                    ("cross_k", 1, 0), ("cross_v", 1, 1))}
     h = rms_norm(h[:, -1, :], params["dec"]["norm"], cfg.norm_eps)
@@ -190,6 +222,7 @@ def seq2seq_loss(cfg: ModelConfig, tp: int, params, batch):
         block = partial(_dec_layer, cfg, tp, lp)
         h = checkpoint(block, h, enc_out, use_reentrant=False) if remat \
             else block(h, enc_out)
+        h = shard(h, "batch", "act_seq", None)
     h = rms_norm(h, params["dec"]["norm"], cfg.norm_eps)
     return cross_entropy(_logits(params, h), batch["labels"], cfg.vocab_size)
 
@@ -219,7 +252,7 @@ def decode_token(cfg: ModelConfig, tp: int, params, cache, tokens1,
     """tokens1: (B,) the newly sampled tokens; ``cache_len`` the position
     they take.  Writes their self-attention K and V into ``cache`` in
     place; returns (logits (B, V), cache)."""
-    h = _embed(params, tokens1)
+    h = _embed(params, tokens1, axes=("batch", None))
     for i, lp in enumerate(params["dec"]["layers"]):
         layer = {name: t[i] for name, t in cache.items()}
         h = _decode_block(cfg, tp, h, lp, layer, cache_len)
@@ -231,7 +264,7 @@ def init_cache(cfg: ModelConfig, tp: int, batch: int, seq: int, *,
                device="cuda"):
     """Zeroed caches for a prompt of ``seq`` tokens: self-attention K/V of
     ``seq`` slots, cross K/V of ``enc_len_for(seq)``."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     _, hkv, dh = _heads(cfg, tp)
 
     def zeros(slots):
@@ -247,11 +280,11 @@ def build_encdec(cfg: ModelConfig, tp: int = 1) -> ModelFns:
     cfg.validate()
     if cfg.family != "encdec":
         raise ValueError(f"{cfg.name}: family {cfg.family!r}, not encdec")
-    cfg.padded_heads(tp)  # tp must be 1 until sharding is ported
     return ModelFns(
         cfg=cfg,
         init=partial(init_params, cfg, tp=tp),
         loss=partial(seq2seq_loss, cfg, tp),
         prefill=partial(prefill, cfg, tp),
         decode=partial(decode_token, cfg, tp),
-        init_cache=partial(init_cache, cfg, tp))
+        init_cache=partial(init_cache, cfg, tp),
+        param_axes=partial(encdec_axes, cfg))

@@ -49,6 +49,15 @@ fake-quantizes every dense projection's input and f32 master weight
 (``common.dense``), in training and serving alike; a bf16 serving copy of
 the params would quantize the rounded weights instead, so serve QAT
 models from the masters.
+
+Sharding: :func:`lm_axes` (``ModelFns.param_axes``) and
+:func:`lm_cache_axes` name every param's and cache's logical axes, the
+reference's trees with the stacked-layer ``None`` dropped and the layers
+split into a list, as ``convert.lm_params_from_numpy`` splits the weights;
+the activations are placed with ``dist.sharding.shard`` where the
+reference places them.  At ``tp > 1`` heads are padded
+(``ModelConfig.padded_heads``, padded query heads zero) and so are the SSM
+heads (:func:`ssm_heads`) and the vocab.
 """
 
 from __future__ import annotations
@@ -58,15 +67,18 @@ from functools import partial
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import replicated_like, shard
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
-from repro_torch.models.common import COMPUTE, normal_init, rms_norm
-from repro_torch.models.mlp import init_mlp, mlp_block
-from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.models.common import (COMPUTE, embed_lookup, normal_init,
+                                      rms_norm)
+from repro_torch.models.mlp import init_mlp, mlp_axes, mlp_block
+from repro_torch.models.moe import init_moe, moe_axes, moe_block
 from repro_torch.tree import tree_map
 
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
@@ -82,6 +94,7 @@ class ModelFns:
     decode: Callable | None = None      # (params, cache, tokens1, cache_len)
                                         #   -> (logits, cache)
     init_cache: Callable | None = None  # (batch, seq, device=) -> cache
+    param_axes: Callable | None = None  # () -> logical-axes tree
     predict: Callable | None = None     # MRF: (params, batch) -> (B, 2)
     qat_loss: Callable | None = None    # MRF: (params, qstate, batch)
     init_qat_aux: Callable | None = None  # MRF: params -> qstate
@@ -91,6 +104,12 @@ def _heads(cfg: ModelConfig, tp: int) -> tuple:
     return (*cfg.padded_heads(tp), cfg.head_dim)
 
 
+def ssm_heads(cfg: ModelConfig, tp: int) -> int:
+    """SSM heads padded to a multiple of ``tp`` (the reference's
+    ``_ssm_heads``); the mixer's inner width is this times its head dim."""
+    return -(-cfg.n_ssm_heads // tp) * tp
+
+
 def _layer_init(cfg: ModelConfig, generator, tp: int, device) -> dict:
     d = cfg.d_model
     hq, hkv, dh = _heads(cfg, tp)
@@ -98,7 +117,8 @@ def _layer_init(cfg: ModelConfig, generator, tp: int, device) -> dict:
     layer = {"ln1": ones()}
     if cfg.family != "ssm":
         layer["attn"] = attn.init_attn(generator, d, hq, hkv, dh,
-                                       cfg.qkv_bias, device=device)
+                                       cfg.qkv_bias, device=device,
+                                       true_hq=cfg.n_heads)
         layer["ln2"] = ones()
     if cfg.family == "moe":
         layer["moe"] = init_moe(generator, d, cfg.d_ff, cfg.n_experts,
@@ -108,9 +128,48 @@ def _layer_init(cfg: ModelConfig, generator, tp: int, device) -> dict:
         layer["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.gated_mlp,
                                 device=device)
     if cfg.family in ("ssm", "hybrid"):
-        layer["ssm"] = ssm.init_ssm(generator, d, cfg.d_inner, cfg.ssm_state,
-                                    cfg.n_ssm_heads, device=device)
+        nh = ssm_heads(cfg, tp)
+        layer["ssm"] = ssm.init_ssm(generator, d, nh * cfg.ssm_head_dim,
+                                    cfg.ssm_state, nh, device=device)
     return layer
+
+
+def _layer_axes(cfg: ModelConfig) -> dict:
+    layer = {"ln1": (None,)}
+    if cfg.family != "ssm":
+        layer["attn"] = attn.attn_axes(cfg.qkv_bias)
+        layer["ln2"] = (None,)
+    if cfg.family == "moe":
+        layer["moe"] = moe_axes(cfg.n_shared_experts, cfg.gated_mlp)
+    elif cfg.family != "ssm":
+        layer["mlp"] = mlp_axes(cfg.gated_mlp)
+    if cfg.family in ("ssm", "hybrid"):
+        layer["ssm"] = ssm.ssm_axes()
+    return layer
+
+
+def lm_axes(cfg: ModelConfig) -> dict:
+    """The params' logical axes, one entry per layer (the reference's
+    ``lm_param_axes``, whose name its dead-exports allowlist holds)."""
+    return {"embed": ("tp", "fsdp"),
+            "layers": [_layer_axes(cfg) for _ in range(cfg.n_layers)],
+            "final_norm": (None,),
+            "head": ("fsdp", "tp")}
+
+
+def lm_cache_axes(cfg: ModelConfig):
+    """The caches' logical axes (``init_cache``'s structure): per layer for
+    the SSM and hybrid families and ``decode_unroll``, else the stacked
+    ``{"k", "v"}``."""
+    kv = ("batch", "cache_seq", None, None)
+    if cfg.family == "ssm":
+        return tuple(ssm.cache_axes() for _ in range(cfg.n_layers))
+    if cfg.family == "hybrid":
+        return tuple({"k": kv, "v": kv, "ssm": ssm.cache_axes()}
+                     for _ in range(cfg.n_layers))
+    if cfg.decode_unroll:
+        return tuple({"k": kv, "v": kv} for _ in range(cfg.n_layers))
+    return {"k": (None, *kv), "v": (None, *kv)}
 
 
 def global_flags(cfg: ModelConfig) -> list:
@@ -135,8 +194,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     values as serving from the masters.  The params used in f32 keep their
     masters' values: an MoE layer's router and an SSM mixer's
     ``ssm.FP32_FIELDS``."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    dev = resolve_device(device, meta=True)
+    gen = (None if dev.type == "meta"  # shapes only: nothing to draw
+           else torch.Generator(device=dev).manual_seed(seed))
     d, vp = cfg.d_model, cfg.padded_vocab(tp)
 
     def cast(tree):
@@ -170,12 +230,13 @@ def _ffn(cfg: ModelConfig, lp, x):
 
 
 def _zero(x):
-    return torch.zeros((), dtype=torch.float32, device=x.device)
+    return replicated_like(torch.zeros((), dtype=torch.float32,
+                                       device=x.device), x)
 
 
-def _mixer(cfg: ModelConfig, lp, x, return_cache: bool):
+def _mixer(cfg: ModelConfig, tp: int, lp, x, return_cache: bool):
     """The layer's mamba2 mixer on x (B, S, d) [, its Mamba2Cache]."""
-    return ssm.ssm_block(lp["ssm"], x, n_heads=cfg.n_ssm_heads,
+    return ssm.ssm_block(lp["ssm"], x, n_heads=ssm_heads(cfg, tp),
                          head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state,
                          chunk=cfg.ssm_chunk, quant=cfg.quant,
                          return_cache=return_cache)
@@ -189,7 +250,7 @@ def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool,
     MoE block's load-balance term (0 in the other families)."""
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        out = _mixer(cfg, lp, x, return_kv)
+        out = _mixer(cfg, tp, lp, x, return_kv)
         return (h + out[0], out[1], _zero(h)) if return_kv else \
             (h + out, None, _zero(h))
     window = None if is_global else (cfg.swa_window or None)
@@ -201,7 +262,7 @@ def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool,
     if return_kv:
         a_out, kv = a_out
     if cfg.family == "hybrid":
-        s_out = _mixer(cfg, lp, x, return_kv)
+        s_out = _mixer(cfg, tp, lp, x, return_kv)
         if return_kv:
             s_out, skv = s_out
             kv = (kv, skv)
@@ -224,14 +285,15 @@ def check_prefix_len(n_prefix: int, seq: int) -> None:
             f"need at least {n_prefix} tokens")
 
 
-def _embed(params, tokens, prefix_embeds=None):
-    """The tokens' embeddings in bf16; ``prefix_embeds`` (B, P, d), when
-    given, in place of the first P."""
-    h = params["embed"][tokens].to(COMPUTE)
+def _embed(params, tokens, prefix_embeds=None,
+           axes=("batch", "act_seq", None)):
+    """The tokens' embeddings in bf16, placed by ``axes``;
+    ``prefix_embeds`` (B, P, d), when given, in place of the first P."""
+    h = embed_lookup(params["embed"], tokens).to(COMPUTE)
     if prefix_embeds is not None:
         check_prefix_len(prefix_embeds.shape[1], tokens.shape[1])
         h[:, :prefix_embeds.shape[1]] = prefix_embeds.to(COMPUTE)
-    return h
+    return shard(h, *axes)
 
 
 def _stack_forward(cfg: ModelConfig, tp: int, params, h, *,
@@ -250,13 +312,16 @@ def _stack_forward(cfg: ModelConfig, tp: int, params, h, *,
             h, kv, aux = checkpoint(block, h, use_reentrant=False)
         else:
             h, kv, aux = block(h)
+        h = shard(h, "batch", "act_seq", None)
         kvs.append(kv)
         aux_total = aux_total + aux
     return h, (kvs if collect_kv else None), aux_total
 
 
 def _logits(params, h):
-    return torch.matmul(h, params["head"].to(h.dtype))
+    logits = torch.matmul(h, params["head"].to(h.dtype))
+    axes = ("batch", None, "tp") if logits.dim() == 3 else ("batch", "tp")
+    return shard(logits, *axes)
 
 
 def init_cache(cfg: ModelConfig, tp: int, batch: int, seq: int, *,
@@ -264,7 +329,7 @@ def init_cache(cfg: ModelConfig, tp: int, batch: int, seq: int, *,
     """Zeroed caches: stacked, or per layer with ``decode_unroll`` and for
     the SSM and hybrid families (a hybrid window layer's K and V hold
     ``min(swa_window, seq)`` slots)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     _, hkv, dh = _heads(cfg, tp)
 
     def zeros(*lead, slots=seq):
@@ -272,8 +337,9 @@ def init_cache(cfg: ModelConfig, tp: int, batch: int, seq: int, *,
                            device=dev)
 
     def mixer():
-        return ssm.init_cache(batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
-                              cfg.ssm_state, cfg.d_inner, device=dev)
+        nh = ssm_heads(cfg, tp)
+        return ssm.init_cache(batch, nh, cfg.ssm_head_dim, cfg.ssm_state,
+                              nh * cfg.ssm_head_dim, device=dev)
 
     if cfg.family == "ssm":
         return tuple(mixer() for _ in range(cfg.n_layers))
@@ -323,15 +389,20 @@ def prefill(cfg: ModelConfig, tp: int, params, batch):
     if cfg.decode_unroll or cfg.family in ("ssm", "hybrid"):
         cache = tuple(layer_cache(cfg, kv, is_global, seq)
                       for kv, is_global in zip(kvs, global_flags(cfg)))
+        if cfg.decode_unroll and cfg.family not in ("ssm", "hybrid"):
+            cache = tuple({n: shard(t, "batch", "cache_seq", None, None)
+                           for n, t in layer.items()} for layer in cache)
     else:
-        cache = {"k": torch.stack([k for k, _ in kvs]).to(COMPUTE),
-                 "v": torch.stack([v for _, v in kvs]).to(COMPUTE)}
+        cache = {n: shard(torch.stack([kv[i] for kv in kvs]).to(COMPUTE),
+                          "layers", "batch", "cache_seq", None, None)
+                 for i, n in enumerate(("k", "v"))}
     h = rms_norm(h[:, -1, :], params["final_norm"], cfg.norm_eps)
     return cache, _logits(params, h)
 
 
-def _mixer_step(cfg: ModelConfig, lp, cache, x):
-    y, _ = ssm.ssm_decode_step(lp["ssm"], cache, x, n_heads=cfg.n_ssm_heads,
+def _mixer_step(cfg: ModelConfig, tp: int, lp, cache, x):
+    y, _ = ssm.ssm_decode_step(lp["ssm"], cache, x,
+                               n_heads=ssm_heads(cfg, tp),
                                head_dim=cfg.ssm_head_dim,
                                n_state=cfg.ssm_state, quant=cfg.quant)
     return y
@@ -341,14 +412,14 @@ def _decode_block(cfg: ModelConfig, tp: int, h1, lp, layer, cache_len):
     """One token through one layer; ``layer`` is the layer's cache."""
     x = rms_norm(h1, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        return h1 + _mixer_step(cfg, lp, layer, x)
+        return h1 + _mixer_step(cfg, tp, lp, layer, x)
     # the reference's decode passes no window (lm.py _decode_block): a
     # hybrid window layer is limited by its ring's capacity
     a_out, _, _ = attn.decode_attn_block(
         lp["attn"], x, layer["k"], layer["v"], cache_len,
         cfg_heads=_heads(cfg, tp), rope_theta=cfg.rope_theta, quant=cfg.quant)
     if cfg.family == "hybrid":
-        h1 = h1 + 0.5 * (a_out + _mixer_step(cfg, lp, layer["ssm"], x))
+        h1 = h1 + 0.5 * (a_out + _mixer_step(cfg, tp, lp, layer["ssm"], x))
         return h1 + mlp_block(lp["mlp"],
                               rms_norm(h1, lp["ln2"], cfg.norm_eps),
                               quant=cfg.quant)
@@ -364,7 +435,7 @@ def decode_token(cfg: ModelConfig, tp: int, params, cache, tokens1,
     """tokens1: (B,) the newly sampled tokens; ``cache_len`` the position
     they take.  Writes their K and V (and SSM state and conv tails) into
     ``cache`` in place; returns (logits (B, V), cache)."""
-    h = _embed(params, tokens1)
+    h = _embed(params, tokens1, axes=("batch", None))
     per_layer = cfg.decode_unroll or cfg.family in ("ssm", "hybrid")
     for i, lp in enumerate(params["layers"]):
         layer = cache[i] if per_layer else \
@@ -378,18 +449,97 @@ def cross_entropy(logits, labels, true_vocab: int):
     """logits (B, S, V') in any float dtype, labels (B, S) int, -1 masked:
     the mean next-token cross entropy over the kept labels, in f32, the
     padded vocab columns (>= ``true_vocab``) at -1e30 (the reference's
-    ``cross_entropy``)."""
+    ``cross_entropy``).  A DTensor's vocab stays split: each rank reduces
+    its own columns (:func:`_vocab_terms` in ``local_map``)."""
     lg = logits.float()
-    if true_vocab < lg.shape[-1]:
-        col = torch.arange(lg.shape[-1], device=lg.device)
-        lg = torch.where(col < true_vocab, lg, -1e30)
-    lse = torch.logsumexp(lg, dim=-1)
-    lab = torch.gather(lg, -1, torch.clamp_min(labels, 0)[..., None]
-                       .long())[..., 0]
+    if isinstance(lg, DTensor):
+        lse, lab = _split_vocab_terms(lg, labels, true_vocab)
+    else:
+        lse, lab = _vocab_terms(lg, labels, true_vocab=true_vocab)
     mask = (labels >= 0).float()
     # a true division by a device tensor (never a reciprocal multiply)
     return torch.sum((lse - lab) * mask) / torch.clamp_min(torch.sum(mask),
                                                            1.0)
+
+
+def _vocab_terms(lg, labels, *, true_vocab: int, offset: int = 0,
+                 group=None):
+    """Per token, the log-sum-exp over the vocab and the label's logit, of
+    f32 logits whose last dim holds the vocab's columns ``offset`` on;
+    ``group``: the ranks that hold the other columns (``None``: this rank
+    holds them all, and the ops are the mesh-less ones)."""
+    if offset + lg.shape[-1] > true_vocab:
+        col = torch.arange(offset, offset + lg.shape[-1], device=lg.device)
+        lg = torch.where(col < true_vocab, lg, -1e30)
+    if group is not None:
+        return _SplitVocabTerms.apply(lg, labels, offset, group)
+    lse = torch.logsumexp(lg, dim=-1)
+    lab = torch.gather(lg, -1, torch.clamp_min(labels, 0)[..., None]
+                       .long())[..., 0]
+    return lse, lab
+
+
+def _split_vocab_terms(lg, labels, true_vocab: int):
+    """:func:`_vocab_terms` of a DTensor's logits in ``local_map``: the rows
+    as the logits are placed, the vocab split over at most one mesh dim
+    (a group only where that dim has more than one rank)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh, last = lg.device_mesh, lg.dim() - 1
+    vocab = [i for i, p in enumerate(lg.placements)
+             if isinstance(p, Shard) and p.dim == last]
+    if len(vocab) > 1:
+        raise ValueError(f"logits split over {len(vocab)} mesh dims along "
+                         f"the vocab {tuple(lg.placements)}")
+    rows = [Replicate() if i in vocab else p
+            for i, p in enumerate(lg.placements)]
+    _, offset = compute_local_shape_and_global_offset(lg.shape, mesh,
+                                                      lg.placements)
+    group = (mesh.get_group(vocab[0])
+             if vocab and mesh.size(vocab[0]) > 1 else None)
+    terms = local_map(partial(_vocab_terms, true_vocab=true_vocab,
+                              offset=int(offset[-1]), group=group),
+                      out_placements=(rows, rows),
+                      in_placements=(lg.placements, rows), device_mesh=mesh)
+    return terms(lg, labels.redistribute(mesh, rows))
+
+
+class _SplitVocabTerms(torch.autograd.Function):
+    """The log-sum-exp and the label's logit over a vocab split across
+    ``group``: a max, a sum of exponentials and the owner's label logit
+    each all-reduced (torch's ``logsumexp`` op for op on each rank); the
+    logits' gradient ``g_lse * exp(lg - lse)``, plus ``g_lab`` at the
+    label on its owner, as the mesh-less ops'."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, offset, group):
+        import torch.distributed as dist
+        m = torch.amax(lg, dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        s = torch.sum(torch.exp(lg - m[..., None]), dim=-1)
+        dist.all_reduce(s, group=group)
+        lse = torch.log(s) + m
+        idx = torch.clamp_min(labels, 0).long() - offset
+        own = (idx >= 0) & (idx < lg.shape[-1])
+        idx = torch.where(own, idx, 0)
+        lab = torch.where(own, torch.gather(lg, -1, idx[..., None])[..., 0],
+                          0.0)
+        dist.all_reduce(lab, group=group)
+        ctx.save_for_backward(lg, lse, idx, own)
+        return lse, lab
+
+    @staticmethod
+    def backward(ctx, g_lse, g_lab):
+        lg, lse, idx, own = ctx.saved_tensors
+        grad = torch.zeros_like(lg)
+        if g_lse is not None:
+            grad = g_lse[..., None] * torch.exp(lg - lse[..., None])
+        if g_lab is not None:
+            grad = grad.scatter_add(-1, idx[..., None],
+                                    torch.where(own, g_lab, 0.0)[..., None])
+        return grad, None, None, None
 
 
 def next_token_loss(cfg: ModelConfig, tp: int, params, batch, *,
@@ -417,11 +567,11 @@ def build_lm(cfg: ModelConfig, tp: int = 1) -> ModelFns:
     if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the port's LM families are "
                                   f"{LM_FAMILIES} (ROADMAP.md §A)")
-    cfg.padded_heads(tp)  # tp must be 1 until sharding is ported
     return ModelFns(
         cfg=cfg,
         init=partial(init_params, cfg, tp=tp),
         loss=partial(next_token_loss, cfg, tp),
         prefill=partial(prefill, cfg, tp),
         decode=partial(decode_token, cfg, tp),
-        init_cache=partial(init_cache, cfg, tp))
+        init_cache=partial(init_cache, cfg, tp),
+        param_axes=partial(lm_axes, cfg))

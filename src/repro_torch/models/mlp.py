@@ -25,6 +25,13 @@ def init_mlp(generator, d_model, d_ff, gated=True, device=None) -> MlpParams:
                      w_out=normal((d_ff, d_model)))
 
 
+def mlp_axes(gated=True) -> MlpParams:
+    """One layer's logical axes (the reference's without its leading
+    stacked-layer ``None``): ff over ``"tp"``, d over ``"fsdp"``."""
+    return MlpParams(w_gate=("fsdp", "tp") if gated else None,
+                     w_in=("fsdp", "tp"), w_out=("tp", "fsdp"))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """SiLU as ``jax.nn.silu`` lowers it, ``x * (1 / (1 + exp(-x)))``, each
     op rounded to x's dtype: bit for bit the reference's on equal inputs

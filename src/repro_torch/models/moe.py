@@ -49,8 +49,10 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models.common import normal_init
-from repro_torch.models.mlp import MlpParams, init_mlp, mlp_block, silu
+from repro_torch.models.mlp import (MlpParams, init_mlp, mlp_axes, mlp_block,
+                                    silu)
 
 
 GROUP_SIZE = 256  # tokens a routing group holds (the reference's default)
@@ -83,6 +85,22 @@ def init_moe(generator, d_model, d_ff, n_experts, n_shared, gated=True,
         w_out=normal((n_experts, d_ff, d_model)),
         shared=(init_mlp(generator, d_model, n_shared * d_ff, gated,
                          device=device) if n_shared else None))
+
+
+def moe_axes(n_shared, gated=True) -> MoeParams:
+    """One layer's logical axes (the reference's without its leading
+    stacked-layer ``None``): the experts over ``"tp"``."""
+    return MoeParams(router=("fsdp", None),
+                     w_gate=("tp", "fsdp", None), w_in=("tp", "fsdp", None),
+                     w_out=("tp", None, "fsdp"),
+                     shared=mlp_axes(gated) if n_shared else None)
+
+
+def _group_axes(n_groups: int) -> tuple:
+    """Groups carry the batch's sharding when there are several; the one
+    group of a decode step keeps its tokens sharded instead (the
+    reference's)."""
+    return ("batch", None, None) if n_groups > 1 else (None, "batch", None)
 
 
 def capacity_of(group: int, top_k: int, capacity_factor: float,
@@ -225,6 +243,7 @@ def moe_block(p: MoeParams, x, *, top_k: int, capacity_factor: float = 1.25,
     any row, with weight zero)."""
     xg = _groups(x, group_size)
     n_groups, gs, d = xg.shape
+    xg = shard(xg, *_group_axes(n_groups))
     n_tok, n_exp = n_groups * gs, p.router.shape[-1]
     r = route(p.router, xg, top_k, capacity_factor)
     slot, keep = slots(r, n_exp)
@@ -239,7 +258,9 @@ def moe_block(p: MoeParams, x, *, top_k: int, capacity_factor: float = 1.25,
                      device=x.device)
     src.scatter_(0, row.reshape(-1), token.expand(-1, -1, top_k).reshape(-1))
     tokens = torch.cat([xg.reshape(n_tok, d), xg.new_zeros((1, d))])
-    expert_out = _experts(p, tokens[src[:n_slots]].view(n_exp, -1, d))
+    expert_in = shard(tokens[src[:n_slots]].view(n_exp, -1, d),
+                      "tp", None, None)
+    expert_out = shard(_experts(p, expert_in), "tp", None, None)
     # the combine weights cast to the activations' dtype, as the reference
     # casts its combine tensor; each token's k products summed
     w = torch.where(keep, r.gates, 0.0).to(x.dtype)

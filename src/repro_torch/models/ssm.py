@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models.common import COMPUTE, dense, normal_init, rms_norm
 from repro_torch.models.mlp import silu
 
@@ -87,6 +88,24 @@ def init_ssm(generator, d_model, d_inner, n_state, n_heads,
         conv_B=normal((CONV_TAPS, n_state), 0.1),
         conv_C=normal((CONV_TAPS, n_state), 0.1),
         gate_norm=ones(d_inner), wo=normal((d_inner, d_model)))
+
+
+def ssm_axes() -> Mamba2Params:
+    """One layer's logical axes (the reference's without its leading
+    stacked-layer ``None``): heads and the inner width over ``"tp"``."""
+    return Mamba2Params(
+        wx=("fsdp", "tp"), wz=("fsdp", "tp"), wB=("fsdp", None),
+        wC=("fsdp", None), wdt=("fsdp", "tp"), dt_bias=("tp",),
+        A_log=("tp",), D=("tp",), conv_x=(None, "tp"), conv_B=(None, None),
+        conv_C=(None, None), gate_norm=("tp",), wo=("tp", "fsdp"))
+
+
+def cache_axes() -> Mamba2Cache:
+    """A layer's cache axes (the reference's per-layer hybrid entry)."""
+    return Mamba2Cache(state=("batch", "tp", None, None),
+                       conv_x=("batch", None, "tp"),
+                       conv_B=("batch", None, None),
+                       conv_C=("batch", None, None))
 
 
 def init_cache(batch, n_heads, head_dim, n_state, d_inner, *,
@@ -215,7 +234,8 @@ def ssm_block(p: Mamba2Params, u, *, n_heads, head_dim, n_state, chunk,
         x, bm, cm, dt = (F.pad(t, (0, 0, 0, pad)) for t in (x, bm, cm, dt))
         dt = dt * (torch.arange(length + pad, device=u.device)
                    < length)[None, :, None]
-    xh = x.reshape(b, length + pad, n_heads, head_dim).float()
+    xh = shard(x.reshape(b, length + pad, n_heads, head_dim).float(),
+               "batch", None, "tp", None)
     y, state = ssd_chunked(xh, dt, a, bm.float(), cm.float(), chunk)
     y = y + p.D[None, None, :, None] * xh
     y = y.reshape(b, length + pad, -1)[:, :length].to(u.dtype)

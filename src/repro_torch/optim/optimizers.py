@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.dist.sharding import replicated_like
 from repro_torch.tree import leaves, rebuild, tree_map
 
 
@@ -36,7 +37,10 @@ class AdamState(NamedTuple):
 
 
 def _zero_step(params) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
+    """The int32 step counter, replicated beside DTensor params."""
+    first = leaves(params)[0]
+    return replicated_like(torch.zeros((), dtype=torch.int32,
+                                       device=first.device), first)
 
 
 def adam(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.999,

@@ -1,15 +1,24 @@
 """Token serving steps (counterpart of ``repro.serve.decode``): prefill
 (prompt -> KV cache + first token) and decode (one token against the KV
-cache), with a greedy or temperature sampler."""
+cache), with a greedy or temperature sampler.  Under ambient mesh rules
+the prompts and the current tokens are placed on ``"batch"`` (data
+parallel), as the reference's steps place them."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import shard
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return shard(t, "batch", *(None,) * (t.dim() - 1))
+
 
 def make_prefill_step(fns):
     def prefill_step(params, batch):
-        cache, logits = fns.prefill(params, batch)
+        cache, logits = fns.prefill(params, {k: _rows(v)
+                                             for k, v in batch.items()})
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return cache, next_tok, logits
 
@@ -23,7 +32,7 @@ def make_serve_step(fns, *, temperature: float = 0.0):
     ``softmax(logits / temperature)``."""
 
     def serve_step(params, cache, tokens, cache_len, generator=None):
-        logits, cache = fns.decode(params, cache, tokens, cache_len)
+        logits, cache = fns.decode(params, cache, _rows(tokens), cache_len)
         if temperature > 0.0 and generator is not None:
             probs = torch.softmax(logits.float() / temperature, dim=-1)
             next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]

@@ -18,7 +18,10 @@ forward sees one of ``len(buckets)`` shapes.  Backends: ``float``
 ``fused`` (the whole-network CUDA kernel, denormalization fused into its
 epilogue), ``layered`` (the per-layer CUDA kernel chain) or ``lax`` (plain
 PyTorch).  All int8 implementations serve bit-identical maps.  On the CPU
-the kernels' plain versions run.
+the kernels' plain versions run.  Under ambient mesh rules
+(``dist.sharding.use_rules``) each tile's voxel rows are placed on
+``"batch"`` and every implementation runs per rank on its own rows
+(:func:`on_mesh`); no kernel sees a DTensor.
 
 Graceful degradation
 --------------------
@@ -49,6 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import mrf_net
+from repro_torch.dist.sharding import (axes_to_placements, current_rules,
+                                       mesh_size)
 from repro_torch.data.pipeline import (T1_RANGE_MS, T2_RANGE_MS,
                                        denormalize_targets)
 from repro_torch.kernels.common import (disable_tf32, resolve_device,
@@ -127,6 +132,27 @@ class InflightWave:
             if ev is not None:
                 ev.synchronize()
             yield off, count, out.numpy()[:count]
+
+
+def on_mesh(fwd):
+    """``fwd`` over a tile's voxel rows, run per rank under the ambient
+    mesh rules (the reference's ``shard(x, "batch", None)``): the tile is
+    placed on ``"batch"`` (each rank keeps its own rows), B4, B5 or the
+    float net runs in ``local_map`` on the rank's rows, and the maps are
+    gathered whole on every rank.  Without a mesh, ``fwd`` itself."""
+    def placed(x):
+        rules = current_rules()
+        if rules is None or rules.mesh is None:
+            return fwd(x)
+        from torch.distributed.tensor import distribute_tensor
+        from torch.distributed.tensor.experimental import local_map
+        pl = list(axes_to_placements(("batch", None), rules))
+        rows = local_map(fwd, out_placements=pl, in_placements=(pl,),
+                         device_mesh=rules.mesh)
+        out = rows(distribute_tensor(x, rules.mesh, pl, src_data_rank=None))
+        return out.full_tensor() if mesh_size(rules.mesh) > 1 \
+            else out.to_local()
+    return placed
 
 
 class WaveExecutor:
@@ -223,7 +249,7 @@ class WaveExecutor:
 
             def fwd(x):
                 return denormalize_targets(int_forward_layered(pre, x))
-        return fwd
+        return on_mesh(fwd)
 
     def cache_size(self) -> int:
         """Distinct bucket shapes run so far; bounded by ``len(buckets)``."""

@@ -24,6 +24,12 @@ stacked.  A batch is a dict of tensors with a leading batch axis (the MRF
 nets' features and targets; an LM's tokens, labels and prefix
 embeddings); ``microbatches=M`` cuts every entry into M equal slices along
 it, in order, as the reference's ``resh`` does.
+
+Params may be DTensors (``launch/train.py --mesh``): each gradient is then
+redistributed onto its parameter's placements as autograd hands it back
+(``dist.sharding.placed_like``) — the data-parallel all-reduce, or
+reduce-scatter onto an ``fsdp`` shard, made explicit — so the clipping,
+the update and the optimizer state keep the params' layout.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.dist.sharding import placed_like, replicated_like
 from repro_torch.optim.grad_compression import error_feedback_compress
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           global_norm)
@@ -48,8 +55,10 @@ class TrainState(NamedTuple):
 
 def init_train_state(params, opt: Optimizer, *, grad_compress: bool = False,
                      aux=None) -> TrainState:
-    return TrainState(step=torch.zeros((), dtype=torch.int32,
-                                       device=leaves(params)[0].device),
+    first = leaves(params)[0]
+    return TrainState(step=replicated_like(
+                          torch.zeros((), dtype=torch.int32,
+                                      device=first.device), first),
                       params=params, opt_state=opt.init(params),
                       ef_residual=tree_map(torch.zeros_like, params)
                       if grad_compress else None, aux=aux)
@@ -95,7 +104,8 @@ def make_train_step(loss_fn, opt: Optimizer, *, microbatches: int = 1,
             new_aux = tree_map(torch.Tensor.detach, new_aux)
         else:
             loss, new_aux = loss_fn(live, batch), aux
-        grads = torch.autograd.grad(loss, leaves(live))
+        grads = [placed_like(g, p) for g, p in
+                 zip(torch.autograd.grad(loss, leaves(live)), leaves(live))]
         return loss.detach(), rebuild(params, grads), new_aux
 
     def train_step(state: TrainState, batch):

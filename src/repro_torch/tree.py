@@ -69,3 +69,20 @@ def _rebuild(like, it: Iterator):
         subs = [_rebuild(sub, it) for sub in like]
         return type(like)(*subs) if _is_namedtuple(like) else type(like)(subs)
     raise TypeError(f"not a tree of tensors: {type(like).__name__}")
+
+
+def leaves_like(like, tree) -> list:
+    """The entries of ``tree`` at the tensor positions of ``like``, in
+    ``leaves(like)``'s order: ``tree`` mirrors ``like``'s containers and
+    holds anything at its leaves (a layout, ``None``)."""
+    if like is None:
+        return []
+    if isinstance(like, torch.Tensor):
+        return [tree]
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in leaves_like(like[k],
+                                                              tree[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for sub, other in zip(like, tree)
+                for x in leaves_like(sub, other)]
+    raise TypeError(f"not a tree of tensors: {type(like).__name__}")

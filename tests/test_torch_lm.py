@@ -100,13 +100,13 @@ def test_dense_configs_match_jax(arch):
 
 
 def test_config_refusals():
-    """Every family of the reference validates, and LM QAT; what the port
-    still lacks (sharding, the int8 dots) and an unknown family or arch
-    are refused."""
+    """Every family of the reference validates, and LM QAT; tp > 1 pads
+    the heads (``tests/test_torch_dist_sharding.py`` holds every arch
+    against the reference); what the port still lacks (the int8 dots) and
+    an unknown family or arch are refused."""
     cfg = pconfigs.get_config("tinyllama-1.1b")
     assert cfg.head_dim == 64 and pbase.param_count(cfg) == 1_100_048_384
-    with pytest.raises(NotImplementedError, match="sharding"):
-        cfg.padded_heads(2)
+    assert cfg.padded_heads(2) == (32, 4) and cfg.padded_heads(3) == (33, 3)
     for family in ("encdec", "vlm"):
         assert dataclasses.replace(cfg, family=family).validate().family \
             == family
@@ -138,8 +138,10 @@ def test_registry_builds_the_ported_families():
     assert built.loss.func is plm.next_token_loss  # llava
     assert pregistry.build(pconfigs.get_smoke(
         "seamless-m4t-large-v2")).loss.func is pencdec.seq2seq_loss
-    with pytest.raises(NotImplementedError, match="sharding"):
-        pregistry.build(pconfigs.get_smoke("seamless-m4t-large-v2"), tp=2)
+    # tp > 1 builds (padded heads; tests/test_torch_dist_sharding.py holds
+    # the axes trees against the reference)
+    at_tp2 = pregistry.build(pconfigs.get_smoke("seamless-m4t-large-v2"), tp=2)
+    assert at_tp2.param_axes()["dec"]["embed"] == ("tp", "fsdp")
 
 
 # --------------------------------------------------------------------------

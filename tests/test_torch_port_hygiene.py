@@ -62,6 +62,11 @@ def _imported_roots(tree):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
     assert len(files) > 20 and len(_examples()) == 5
+    # the sharding slice's modules are among them
+    assert {PORT / "dist" / "sharding.py", PORT / "dist" / "__init__.py",
+            PORT / "launch" / "mesh.py", PORT / "launch" / "input_specs.py",
+            PORT / "ft" / "elastic.py"} <= set(files)
+    files = files + [ROOT / "tests" / "_torch_dist_worker.py"]
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files
            for line, mod in _imported_roots(ast.parse(f.read_text()))
@@ -229,9 +234,14 @@ def test_port_identifiers_leave_the_dead_exports_gate_alone():
             # LM training: the port's next_token_loss, MOE_LOSS_COEF,
             # lm_batches and int8_roundtrip
             "lm_loss", "MOE_AUX_COEF", "make_batches",
-            "int8_compress_decompress"} <= allow
+            "int8_compress_decompress",
+            # sharding: the port's reshard_state, survivor_rules,
+            # tree_nbytes, MeshDims, lm_axes, encdec_axes and mrf_axes
+            "MeshAxes", "reshard_tree", "survivor_mesh", "tree_bytes",
+            "lm_param_axes", "encdec_param_axes", "mrf_param_axes"} <= allow
     files = sorted(PORT.rglob("*.py")) + _examples() + sorted(
-        (ROOT / "tests").glob("test_torch_*.py"))
+        (ROOT / "tests").glob("test_torch_*.py")) + sorted(
+        (ROOT / "tests").glob("_torch_*.py"))
     hits = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
