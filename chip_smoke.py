@@ -8,7 +8,9 @@ seamless-m4t-large-v2 and llava-next-34b at full width through
 ``repro_torch.launch.serve``, trains tinyllama-1.1b whole through
 ``repro_torch.launch.train``, then mamba2-1.3b, hymba-1.5b,
 deepseek-moe-16b (4 layers), seamless-m4t-large-v2 and tinyllama-1.1b
-under int8 QAT at full width, and times the kernels.
+under int8 QAT at full width, tinyllama-1.1b and the MoE, SSM, hybrid and
+encoder-decoder models again on the sharded path (``torchrun ... --mesh
+single``), and times the kernels.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -164,16 +166,18 @@ final result line):
    breakdown in an ``lm_train_run {json}`` line;
 4j. the other families' training and LM QAT (``family_train_phase``),
    after 4i and its timings: each entry of ``FAMILY_TRAIN`` — mamba2-1.3b
-   whole at 8 x 2,048 tokens, hymba-1.5b whole at 1 x 2,048 (no remat),
+   at 24 of 48 layers (a depth cut for the time limit) at 8 x 2,048 tokens,
+   hymba-1.5b whole at 1 x 2,048 (no remat),
    deepseek-moe-16b at 4 of 28 layers at 8 x 2,048, seamless-m4t-large-v2
    whole at 3 x 2,048 beside 512 frames a sequence, tinyllama-1.1b with
    ``--quant qat-int8`` at 8 x 2,048 — through the launcher,
    ``FAMILY_STEPS`` steps, twice: the loss falls; B6 and B6-bwd counted
    from 0 just before each run, ``train_launches`` a step (0 and 0, 32 and
    32, 8 and 4, 144 and 72, 44 and 22); the second run repeats the first's
-   losses and params digest bit for bit — for mamba2 with its 17 GB step-0
-   checkpoint and a crash at step 2, restarted; the first runs write no
-   checkpoint (``--ckpt-every 0``); each cut printed beside the run, with
+   losses and params digest bit for bit — for mamba2 with its step-0
+   checkpoint (9.9 GB at 24 layers) and a crash at step 2, restarted;
+   the first runs write no checkpoint (``--ckpt-every 0``); each cut
+   printed beside the run, with
    the memory a batch one larger would take; the first 2 layers of the
    MoE, SSM, hybrid and encoder-decoder models (2 + 2) against a CPU copy
    on 1 x 512 tokens (``lm_train_vs_cpu``: MoE routing flips counted, the
@@ -182,7 +186,7 @@ final result line):
    (``lm_train_breakdown``, each in a process of its own); B6-bwd timed at
    the training shapes (``FAMILY_BWD_SHAPES``) beside its bound and SDPA's
    backward; an ``lm_train_run {json}`` line per entry;
-4k. the sharded path (``mesh_phase``), last: tinyllama-1.1b through
+4k. the sharded path (``mesh_phase``), after 4j: tinyllama-1.1b through
    ``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
    repro_torch.launch.train --mesh single`` (a process of its own, its
    counts from 0), ``TRAIN_STEPS`` steps at 8 x 2,048 tokens, twice: every
@@ -196,6 +200,21 @@ final result line):
    equal to their mesh-less runs bit for bit, and the executor's B4 and
    B5 maps under the mesh equal to the integer oracle; a ``mesh_run
    {json}`` line;
+4l. the other families on the sharded path (``mesh_family_phase``), last:
+   phase 4j's four non-QAT entries — mamba2-1.3b, hymba-1.5b,
+   deepseek-moe-16b at its 4j depth (``--layers``), seamless-m4t-large-v2
+   — each through ``torchrun --standalone --nproc-per-node 1 -m
+   repro_torch.launch.train --mesh single`` with 4j's run A's arguments
+   (its batch, ``FAMILY_STEPS`` steps, ``--ckpt-every 0``): every state
+   leaf a DTensor on the (1, 1) mesh (the experts and SSM heads placed
+   over ``model``, the MoE block and the SSM scan per rank in
+   ``local_map``), every loss and the params digest equal to 4j's run A
+   bit for bit, B6 and B6-bwd ``train_launches`` a step; ms a step,
+   tokens/s and peak memory beside 4j's; then B6 and B6 + B6-bwd at
+   hymba's (window and global), deepseek's and seamless's (self and
+   cross) tp-2 and tp-4 local heads (``MESH_FAMILY_CASES``), the ranks'
+   slices concatenated equal to one launch bit for bit; a
+   ``mesh_family_run {json}`` line per family;
 5. kernel times on the device (profiler, median of the launches it
    recorded, at least half of them) beside their bounds, their
    plain versions' device times and the wall time of one wrapper call
@@ -215,7 +234,7 @@ Before them, ``chaos_run {json}`` records the chaos phase: states, waves,
 retries, slow waves, the final depth and wave cap, voxels/s, p50/p99 and
 both kernels' launches; ``eq3_run {json}`` the paper's Eq. 3 comparison
 (``eq3_summary``); ``lm_train_run {json}`` phase 4i; ``mesh_run {json}``
-phase 4k.  The last two lines
+phase 4k; ``mesh_family_run {json}`` phase 4l.  The last two lines
 are ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  Bounds use the card's published peaks
 (``repro_torch.analysis.roofline.H100``; training's through
 ``repro_torch.core.fpga_cost_model``).
@@ -245,10 +264,19 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 # and in expandable segments (``repro_torch.launch.train.ALLOC_CONF``):
 # phase 4j's full-width steps do not fit in fixed ones
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+ROOT = pathlib.Path(__file__).resolve().parent
+# a Python that writes no bytecode (PYTHONDONTWRITEBYTECODE, a site-packages
+# without __pycache__) compiles torch's sources again in every process:
+# ~8 s of each child's start on the H100 host.  In a checkout, this process
+# and the ones it starts keep their bytecode under build/ instead
+if (ROOT / "src" / "repro_torch").is_dir():
+    PYCACHE = str(ROOT / "build" / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    sys.dont_write_bytecode, sys.pycache_prefix = False, PYCACHE
 
 import torch  # noqa: E402
 
-ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # the card's peaks (bytes/s, FLOP/s, SMs): ``repro_torch.analysis.roofline.H100``
@@ -318,7 +346,10 @@ FAMILY_GRAD_ULPS = 8
 FAMILY_STEPS = 3
 FAMILY_SEQ = 2048
 FAMILY_TRAIN = (
-    (SSM_ARCH, 0, 8, None, "none"),
+    (SSM_ARCH, 24, 8, None,
+     "24 of 48 layers: the script's time limit, which phase 4l (this "
+     "entry's run again under torchrun, at this depth) would pass with "
+     "all 48"),
     (HYBRID_ARCH, 0, 2, None,
      "no remat, as the reference's unrolled stack: every layer's "
      "activations (the SSD scan's chunk tensors among them) are alive at "
@@ -3289,11 +3320,10 @@ class RoutingReplay:
         return self._patched(replay)
 
 
-def lm_train(argv, cfg=None) -> tuple:
-    """One LM run of the training launcher, B6's and B6-bwd's counts set to
-    0 just before it and read just after; with ``cfg`` (a config cut in
-    depth) through its ``train_lm`` on the parse of ``argv``.  Returns
-    (report, counts)."""
+def lm_train(argv) -> tuple:
+    """One LM run of the training launcher, ``launcher.main(argv)``, B6's
+    and B6-bwd's counts set to 0 just before it and read just after.
+    Returns (report, counts)."""
     from repro_torch.kernels.flash_attn import kernel
     from repro_torch.launch import train as launcher
 
@@ -3301,8 +3331,7 @@ def lm_train(argv, cfg=None) -> tuple:
     fwd.launches = bwd.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = launcher.main(argv) if cfg is None else \
-            launcher.train_lm(launcher.parser().parse_args(argv), cfg)
+        rc = launcher.main(argv)
     counts = {"flash_attn": fwd.launches, "flash_attn_bwd": bwd.launches}
     lines = buf.getvalue().splitlines()
     log("\n".join(lines[:1] + [ln for ln in lines if ln.startswith("step")]
@@ -3569,21 +3598,23 @@ def family_train(arch: str, layers: int, b: int, quant, cut: str,
         cut = f"batch {b} of 8, the largest that fits ({tries}): {cut}"
     base = ["--arch", arch, "--steps", str(FAMILY_STEPS), "--batch", str(b),
             "--seq", str(FAMILY_SEQ), "--device", "cuda"]
+    if layers:
+        base += ["--layers", str(layers)]
     if quant:
         base += ["--quant", quant]
     crash = arch == SSM_ARCH
     with tempfile.TemporaryDirectory(prefix="chip_smoke_4j_") as tmp:
         rep_a, counts_a = lm_train(base + ["--ckpt-every", "0",
-                                           "--ckpt-dir", f"{tmp}/a"], cfg)
+                                           "--ckpt-dir", f"{tmp}/a"])
         free_device()
         if crash:
             rep_b, counts_b = lm_train(base + [
                 "--ckpt-every", "1000", "--ckpt-dir", f"{tmp}/b",
-                "--inject-fault-at", "2"], cfg)
+                "--inject-fault-at", "2"])
             shutil.rmtree(f"{tmp}/b")
         else:
             rep_b, counts_b = lm_train(base + ["--ckpt-every", "0",
-                                               "--ckpt-dir", f"{tmp}/b"], cfg)
+                                               "--ckpt-dir", f"{tmp}/b"])
         free_device()
     per_step = train_launches(cfg)
     calls = {"A": rep_a["train_step_calls"], "B": rep_b["train_step_calls"]}
@@ -3613,7 +3644,8 @@ def family_train(arch: str, layers: int, b: int, quant, cut: str,
     record = {
         "arch": arch, "layers": cfg.n_layers, "quant": quant, "batch": b,
         "seq": FAMILY_SEQ, "steps": FAMILY_STEPS, "cut": cut,
-        "losses": rep_a["losses"], "balance_loss": rep_a["balance_loss"],
+        "losses": rep_a["losses"], "params_digest": rep_a["params_digest"],
+        "balance_loss": rep_a["balance_loss"],
         "ms_per_step": rep_a["ms_per_step"], "step_ms": rep_a["step_ms"],
         "tokens_per_s": rep_a["tokens_per_s"], "peak_device_gib": peak,
         "state_gib": state_gib,
@@ -3802,16 +3834,17 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def mesh_lm_run(b: int, s: int) -> dict:
-    """tinyllama-1.1b through ``torchrun --standalone --nproc-per-node 1
-    -m repro_torch.launch.train --mesh single`` at ``TRAIN_STEPS`` steps
-    of b x s tokens, ``--ckpt-every 0``: its ``train_report`` (a process of
-    its own, so B6's and B6-bwd's counts start at 0 in it)."""
+def mesh_lm_run(b: int, s: int, arch: str = LM_ARCH, steps: int = TRAIN_STEPS,
+                extra=()) -> dict:
+    """``arch`` through ``torchrun --standalone --nproc-per-node 1 -m
+    repro_torch.launch.train --mesh single`` at ``steps`` steps of b x s
+    tokens, ``--ckpt-every 0`` (and ``extra``): its ``train_report`` (a
+    process of its own, so B6's and B6-bwd's counts start at 0 in it)."""
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
-            "--arch", LM_ARCH, "--mesh", "single", "--steps",
-            str(TRAIN_STEPS), "--batch", str(b), "--seq", str(s),
-            "--ckpt-every", "0"]
+            "--arch", arch, "--mesh", "single", "--steps",
+            str(steps), "--batch", str(b), "--seq", str(s),
+            "--ckpt-every", "0", *extra]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
@@ -3830,35 +3863,41 @@ def mesh_lm_run(b: int, s: int) -> dict:
     return report_of(lines, "train_report", " ".join(argv[3:]))
 
 
-def check_b6_tp_slices(device) -> list:
+def check_b6_tp_slices(device, cases=None) -> list:
     """B6, and B6 + B6-bwd under grad, at the heads one rank of a tp mesh
-    holds: for each dense arch at tp 2 and 4 (heads padded by
-    ``padded_heads(tp)``), random bf16 q, k, v of 1 x ``TP_SEQ`` tokens run
-    once over all the heads and once per rank's slice in turn; the slices'
-    outputs (and dq, dk, dv) concatenated must equal the one launch's bit
-    for bit: heads are independent and a slice holds whole GQA groups."""
+    holds: for each case (default: each dense arch, causal over
+    ``TP_SEQ``) at tp 2 and 4 (heads padded by ``padded_heads(tp)``),
+    random bf16 q, k, v of 1 x Sq (k, v 1 x Sk) tokens run once over all
+    the heads and once per rank's slice in turn; the slices' outputs (and
+    dq, dk, dv) concatenated must equal the one launch's bit for bit:
+    heads are independent and a slice holds whole GQA groups.  A case is
+    (label, arch, Sq, Sk, causal, window)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn.ops import flash_attention
 
+    if cases is None:
+        cases = [(arch, arch, TP_SEQ, TP_SEQ, True, 0) for arch in TP_ARCHS]
     gen = torch.Generator(device=device).manual_seed(41)
     out = []
-    for arch in TP_ARCHS:
+    for label, arch, sq, sk, causal, window in cases:
         cfg = get_config(arch)
+        attend = lambda q, k, v: flash_attention(  # noqa: E731
+            q, k, v, causal=causal, window=window)
         for tp in TP_DEGREES:
             hq, hkv = cfg.padded_heads(tp)
             dh = cfg.head_dim
-            q, k, v = (torch.randn((1, TP_SEQ, h, dh), generator=gen,
+            q, k, v = (torch.randn((1, n, h, dh), generator=gen,
                                    device=device).to(torch.bfloat16)
-                       for h in (hq, hkv, hkv))
-            dout = torch.randn((1, TP_SEQ, hq, dh), generator=gen,
+                       for n, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+            dout = torch.randn((1, sq, hq, dh), generator=gen,
                                device=device).to(torch.bfloat16)
 
             def run(qs, ks, vs, dos):
                 leaves = [t.detach().requires_grad_(True)
                           for t in (qs, ks, vs)]
                 with torch.no_grad():
-                    fwd = flash_attention(*leaves)
-                o = flash_attention(*leaves)
+                    fwd = attend(*leaves)
+                o = attend(*leaves)
                 grads = torch.autograd.grad(o, leaves, dos)
                 return [fwd, o.detach(), *grads]
 
@@ -3872,15 +3911,20 @@ def check_b6_tp_slices(device) -> list:
                                       "dv")):
                 joined = torch.cat([p[i] for p in parts], dim=2)
                 if not torch.equal(joined, whole[i]):
-                    fail(f"{arch} tp {tp}: {what} over the ranks' heads "
+                    fail(f"{label} tp {tp}: {what} over the ranks' heads "
                          f"({lq}, {lkv}) differs from one launch over "
                          f"({hq}, {hkv})")
-            out.append({"arch": arch, "tp": tp, "heads": [hq, hkv],
-                        "local_heads": [lq, lkv], "group": lq // lkv})
-            log(f"B6 and B6 + B6-bwd at {arch}'s tp-{tp} local heads "
+            out.append({"case": label, "arch": arch, "tp": tp,
+                        "heads": [hq, hkv], "local_heads": [lq, lkv],
+                        "group": lq // lkv, "sq": sq, "sk": sk,
+                        "causal": causal, "window": window})
+            masks = ("causal" + (f", window {window}" if window else "")
+                     if causal else "unmasked")
+            log(f"B6 and B6 + B6-bwd at {label}'s tp-{tp} local heads "
                 f"(Hq, Hkv) = ({lq}, {lkv}) (group {lq // lkv}, dh {dh}, "
-                f"1 x {TP_SEQ}): the {tp} ranks' slices concatenated == one "
-                f"launch over ({hq}, {hkv}), bit for bit")
+                f"1 x {sq} over {sk}, {masks}): the {tp} ranks' slices "
+                f"concatenated == one launch over ({hq}, {hkv}), bit for "
+                f"bit")
     return out
 
 
@@ -4028,6 +4072,96 @@ def mesh_phase(device, smi: str, record_4i: dict, b: int = 8,
     return record, launches
 
 
+# phase 4l: the attention shapes of the families trained under the mesh
+# whose heads a tp mesh splits per rank — (label, arch, Sq, Sk, causal,
+# window): hymba's window and global layers, deepseek's, seamless's decoder
+# self- and cross-attention (its encoder's 512 frames at seamless's heads)
+MESH_FAMILY_CASES = (
+    ("hymba-1.5b window", HYBRID_ARCH, TP_SEQ, TP_SEQ, True, 1024),
+    ("hymba-1.5b global", HYBRID_ARCH, TP_SEQ, TP_SEQ, True, 0),
+    ("deepseek-moe-16b", MOE_ARCH, TP_SEQ, TP_SEQ, True, 0),
+    ("seamless-m4t-large-v2 self", ENCDEC_ARCH, TP_SEQ, TP_SEQ, True, 0),
+    ("seamless-m4t-large-v2 cross", ENCDEC_ARCH, TP_SEQ, 512, False, 0),
+)
+
+
+def mesh_family_phase(device, smi: str, records_4j: list) -> tuple:
+    """Phase 4l, the other families on the sharded path: each of phase
+    4j's non-QAT entries (mamba2-1.3b, hymba-1.5b, deepseek-moe-16b at its
+    4j depth, seamless-m4t-large-v2) through ``torchrun ... --mesh single``
+    with 4j's run A's arguments (:func:`mesh_lm_run`; the depth as
+    ``--layers``): every state leaf a DTensor on the (1, 1) mesh — the
+    experts and SSM heads placed over ``model``, the MoE block and the
+    SSM mixer's scan in ``local_map``, B6 and B6-bwd per rank —; every
+    loss and the params digest equal to 4j's run A bit for bit; B6's and
+    B6-bwd's launches :func:`train_launches`' a step.  Then B6 and B6 +
+    B6-bwd at these families' tp-2 and tp-4 local heads
+    (``MESH_FAMILY_CASES``, :func:`check_b6_tp_slices`).  Returns (its
+    record, the launches of its runs by kernel)."""
+    from repro_torch.configs import get_config
+
+    runs, launches = [], {"flash_attn": 0, "flash_attn_bwd": 0}
+    for a in (r for r in records_4j if not r["quant"]):
+        arch = a["arch"]
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=a["layers"])
+        extra = (["--layers", str(a["layers"])]
+                 if a["layers"] != full.n_layers else [])
+        t0 = time.perf_counter()
+        rep = mesh_lm_run(a["batch"], a["seq"], arch, a["steps"], extra)
+        seconds = time.perf_counter() - t0
+        per_step = train_launches(cfg)
+        name = arch + (f" ({a['layers']} of {full.n_layers} layers)"
+                       if extra else "")
+        if rep["mesh"] != {"data": 1, "model": 1} or \
+                rep["dtensor_leaves"] != rep["state_leaves"] or \
+                rep["state_leaves"] <= 0:
+            fail(f"{name} --mesh single: the state is not DTensors on the "
+                 f"(1, 1) mesh: { {k: rep.get(k) for k in ('mesh', 'dtensor_leaves', 'state_leaves')} }")
+        if rep["train_step_calls"] != a["steps"] or \
+                (rep["flash_attn_launches"], rep["flash_attn_bwd_launches"]) \
+                != (per_step[0] * a["steps"], per_step[1] * a["steps"]):
+            fail(f"{name} --mesh single: {rep['train_step_calls']} steps, "
+                 f"launches {rep['flash_attn_launches']} / "
+                 f"{rep['flash_attn_bwd_launches']}, not {per_step} a step")
+        if rep["losses"] != a["losses"] or \
+                rep["params_digest"] != a["params_digest"]:
+            fail(f"{name} --mesh single differs from phase 4j's mesh-less "
+                 f"run A: losses {rep['losses']} vs {a['losses']}, digest "
+                 f"{rep['params_digest']} vs {a['params_digest']}")
+        launches["flash_attn"] += rep["flash_attn_launches"]
+        launches["flash_attn_bwd"] += rep["flash_attn_bwd_launches"]
+        rec = {"arch": arch, "layers": a["layers"], "batch": a["batch"],
+               "seq": a["seq"], "steps": a["steps"], "mesh": rep["mesh"],
+               "losses": rep["losses"], "params_digest": rep["params_digest"],
+               "bit_equal_4j": True, "dtensor_leaves": rep["dtensor_leaves"],
+               "ms_per_step": rep["ms_per_step"], "step_ms": rep["step_ms"],
+               "ms_per_step_4j": a["ms_per_step"],
+               "tokens_per_s": rep["tokens_per_s"],
+               "tokens_per_s_4j": a["tokens_per_s"],
+               "peak_device_gib": rep["peak_device_gib"],
+               "peak_device_gib_4j": a["peak_device_gib"],
+               "balance_loss": rep["balance_loss"],
+               "launches_per_step": {"flash_attn": per_step[0],
+                                     "flash_attn_bwd": per_step[1]},
+               "wall_s": rep["wall_s"], "seconds": seconds, "smi": smi}
+        runs.append(rec)
+        log(f"{name} under torchrun --mesh single at {a['batch']} x "
+            f"{a['seq']} tokens ({rep['state_leaves']} DTensor leaves on the "
+            f"(1, 1) mesh): losses and digest == phase 4j's mesh-less run A "
+            f"bit for bit; {rep['ms_per_step']:.1f} ms a step against 4j's "
+            f"{a['ms_per_step']:.1f}, {rep['tokens_per_s']:.0f} tokens/s "
+            f"against {a['tokens_per_s']:.0f}, peak "
+            f"{rep['peak_device_gib']:.2f} GiB against "
+            f"{a['peak_device_gib']:.2f}; launches a step B6 {per_step[0]}, "
+            f"B6-bwd {per_step[1]}; {seconds:.1f} s  [{smi}]")
+        free_device()
+    slices = check_b6_tp_slices(device, MESH_FAMILY_CASES)
+    for rec in runs:
+        log("mesh_family_run " + json.dumps(rec))
+    return {"runs": runs, "b6_tp_slices": slices, "smi": smi}, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4146,7 +4280,7 @@ def main() -> int:
     rows.append(bwd_row)
     log(f"LM training phase (4i): {time.perf_counter() - t_4i:.1f} s")
     t_4j = time.perf_counter()
-    _, fam_counts, fam_bwd = family_train_phase(device, smi)
+    fam_records, fam_counts, fam_bwd = family_train_phase(device, smi)
     flash_row["launches"] += fam_counts["flash_attn"]
     bwd_row["launches"] += fam_counts["flash_attn_bwd"]
     bwd_row.update(fam_bwd)
@@ -4158,6 +4292,18 @@ def main() -> int:
     for r in rows:  # B6, B6-bwd, B2, B4, B5 launched on the sharded path
         r["launches"] += mesh_launches.get(r["name"], 0)
     log(f"the sharded path's phase (4k): {time.perf_counter() - t_4k:.1f} s")
+    free_device()
+    free, total = torch.cuda.mem_get_info()
+    log(f"before phase 4l this process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+        f"GiB in PyTorch's cache; the card has {free / 2 ** 30:.2f} of "
+        f"{total / 2 ** 30:.2f} GiB free")
+    t_4l = time.perf_counter()
+    mesh_family_record, mesh_family_launches = mesh_family_phase(
+        device, smi, fam_records)
+    for r in rows:  # B6 and B6-bwd launched on the other families' runs
+        r["launches"] += mesh_family_launches.get(r["name"], 0)
+    log(f"the other families on the sharded path (4l): "
+        f"{time.perf_counter() - t_4l:.1f} s")
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "

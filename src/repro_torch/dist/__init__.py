@@ -5,10 +5,11 @@ re-exported here."""
 from repro_torch.dist.sharding import (MULTI_POD_RULES, SINGLE_POD_RULES,
                                        AxisRules, Layout, axes_to_placements,
                                        current_rules, distribute_tree,
-                                       full_tree, is_axes,
+                                       full_tree, grad_placements, is_axes,
                                        layout_of, make_mesh,
                                        map_axes, param_placements,
-                                       placed_like, replicated_like, shard,
+                                       placed_like, replicated_like,
+                                       rules_placements, shard,
                                        use_rules, with_overrides)
 
 __all__ = [
@@ -20,6 +21,7 @@ __all__ = [
     "current_rules",
     "distribute_tree",
     "full_tree",
+    "grad_placements",
     "is_axes",
     "layout_of",
     "make_mesh",
@@ -27,6 +29,7 @@ __all__ = [
     "param_placements",
     "placed_like",
     "replicated_like",
+    "rules_placements",
     "shard",
     "use_rules",
     "with_overrides",

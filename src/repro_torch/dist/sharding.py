@@ -32,6 +32,9 @@ tuple becomes one placement per mesh dim (:func:`axes_to_placements`),
 - :func:`replicated_like` states a constant's placement (a RoPE table, a
   mask made from ``arange``) next to a DTensor it meets; DTensor refuses to
   mix the two otherwise.
+- :func:`rules_placements` / :func:`grad_placements`: where a block run
+  per rank in ``local_map`` takes its inputs (the ambient rules on the
+  block's mesh), and where their gradients come back from it.
 - :func:`make_mesh`: every mesh of the port comes from here
   (``init_device_mesh``).
 """
@@ -42,7 +45,7 @@ import dataclasses
 from typing import Any, Mapping, Sequence
 
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 #: what a logical axis maps to: one mesh dim, several (the tensor dim is
@@ -215,6 +218,32 @@ def placed_like(t, ref):
     if tuple(t.placements) == tuple(ref.placements):
         return t
     return t.redistribute(ref.device_mesh, ref.placements)
+
+
+def rules_placements(axes: Sequence[str | None], ref) -> tuple:
+    """The placements ``axes`` imply under the ambient rules on ``ref``'s
+    mesh (a DTensor's): where a block run per rank in ``local_map`` takes
+    its inputs.  Raises without ambient rules bound to that mesh: the
+    block's placements are the rules', never guessed."""
+    rules = current_rules()
+    if rules is None or rules.mesh != ref.device_mesh:
+        raise ValueError(
+            f"placing {tuple(axes)} per rank needs the ambient rules of the "
+            f"tensor's mesh (use_rules(launch.mesh.rules_for(mesh, ...)))")
+    return axes_to_placements(axes, rules)
+
+
+def grad_placements(in_placements: Sequence, *out_placements) -> list:
+    """Where the gradient of a ``local_map`` input placed by
+    ``in_placements`` comes back, the block's outputs placed by
+    ``out_placements``: ``Partial()`` on each mesh dim over which an output
+    is split (``Shard``, or ``Partial``) while the input is replicated —
+    each rank then holds only its share of the input's gradient, the sum of
+    the ranks' is the whole —, the input's own placement elsewhere."""
+    split = {i for out in out_placements for i, p in enumerate(out)
+             if isinstance(p, (Shard, Partial))}
+    return [Partial() if i in split and isinstance(p, Replicate) else p
+            for i, p in enumerate(in_placements)]
 
 
 # --------------------------------------------------------------------------

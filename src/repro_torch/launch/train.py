@@ -55,14 +55,19 @@ padded for the mesh's ``model`` size), and each batch by
 ``input_specs.batch_axes``: every rank draws the step's global batch and
 keeps the rows of its data coordinate, so the data ranks' rows together
 are the mesh-less batch (the reference instead folds the process index
-into the data key).  The MRF nets run data-parallel (``float``,
-``qat-int8``) or, for ``fused``, the kernel on the whole batch on every
-rank (``train.engine``).  Without a process group, or with ``--device
-cuda`` and no card, ``--mesh`` raises; the MoE, SSM, hybrid,
-encoder-decoder and VLM families are refused (not held multi-rank yet,
-ROADMAP.md §A 4).  ``torchrun --standalone --nproc-per-node 1 -m
-repro_torch.launch.train --mesh single`` is the ``(data=1, model=1)``
-mesh: the same DTensor path, with no collective crossing a card.
+into the data key).  Every LM family runs under the mesh: the MoE's
+experts over ``model`` (``models.moe``), the SSM and hybrid mixers' heads
+over ``model`` (``models.ssm``), the encoder-decoder's encoder, self- and
+cross-attention and the VLM's prefix per rank; ``--grad-compress`` too
+(the int8 scale of each leaf is the whole leaf's; ``TrainState.
+ef_residual`` is placed as the params).  The MRF nets run data-parallel
+(``float``, ``qat-int8``) or, for ``fused``, the kernel on the whole
+batch on every rank (``train.engine``).  Without a process group, or with
+``--device cuda`` and no card, ``--mesh`` raises.  ``torchrun --standalone
+--nproc-per-node 1 -m repro_torch.launch.train --mesh single`` is the
+``(data=1, model=1)`` mesh: the same DTensor path, with no collective
+crossing a card, and the mesh-less run's bits.  ``--layers N`` trains an
+LM's first N layers at full width (a depth cut).
 """
 
 from __future__ import annotations
@@ -90,11 +95,9 @@ CUBLAS_DETERMINISTIC = ":4096:8"
 #: segments fragment under a step's large activations of changing shapes
 #: (the MoE dispatch, a 256k-column head) until a step no longer fits
 ALLOC_CONF = "expandable_segments:True"
-#: the LM families the sharded path holds (the rest: ROADMAP.md §A 4)
-MESH_FAMILIES = ("dense", "mrf")
 
 
-def mesh_rules(args, cfg, device):
+def mesh_rules(args, device):
     """The run's mesh-bound rules, or None for ``--mesh none``: the process
     group from ``torchrun``'s environment when none exists, the production
     mesh over it, ``rules_for`` at the global batch."""
@@ -103,15 +106,6 @@ def mesh_rules(args, cfg, device):
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_production_mesh, rules_for
-    if cfg.family not in MESH_FAMILIES:
-        raise SystemExit(
-            f"--mesh {args.mesh}: the {cfg.family} family is not held "
-            f"multi-rank yet (ROADMAP.md §A 4: the MoE, SSM, hybrid, "
-            f"encoder-decoder and VLM families under --mesh come after the "
-            f"dense family); run it with --mesh none")
-    if args.grad_compress:
-        raise SystemExit("--grad-compress under --mesh is not held yet "
-                         "(ROADMAP.md §A 4); drop one of the flags")
     if not dist.is_initialized():
         if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
             raise RuntimeError(
@@ -122,6 +116,9 @@ def mesh_rules(args, cfg, device):
             "nccl" if device.type == "cuda" else "gloo")
     if device.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        # NCCL sets its communicator up now, on an empty card: at a
+        # full-width step's peak memory there is no room left for it
+        dist.barrier(device_ids=[torch.cuda.current_device()])
     mesh = make_production_mesh(multi_pod=args.mesh == "multi",
                                 device_type=device.type)
     return rules_for(mesh, global_batch=args.batch)
@@ -183,7 +180,7 @@ def train_mrf(args, cfg) -> int:
         print(f"resuming from checkpoint step {resume} in {ckpt_dir}")
 
     fns = build_mrf(cfg)
-    rules = mesh_rules(args, cfg, device)
+    rules = mesh_rules(args, device)
     ecfg = engine.EngineConfig(
         backend=backend, lr=args.lr, optimizer=optimizer,
         microbatches=args.microbatches, grad_compress=args.grad_compress,
@@ -305,6 +302,16 @@ def params_digest(params) -> int:
     return total
 
 
+def warm_backward(device) -> None:
+    """One small product differentiated on ``device`` before a run: the
+    autograd engine's device thread creates its cuBLAS handle and
+    workspace now, on an empty card.  A fresh process otherwise creates
+    them in its first step's backward, at the step's peak memory, where a
+    full-width step may leave no room (``cublasCreate`` fails)."""
+    a = torch.ones((8, 8), device=device, requires_grad=True)
+    torch.autograd.grad(torch.matmul(a, a).sum(), a)
+
+
 def train_lm(args, cfg) -> int:
     """The LM branch: the reference's ``main`` past its MRF dispatch."""
     from repro_torch.configs.base import param_count
@@ -336,7 +343,7 @@ def train_lm(args, cfg) -> int:
     resume = latest_step(ckpt_dir) if args.ckpt_every > 0 else None
     if resume:
         print(f"resuming from checkpoint step {resume} in {ckpt_dir}")
-    rules = mesh_rules(args, cfg, device)
+    rules = mesh_rules(args, device)
     tp = 1 if rules is None else int(rules.mesh["model"].size())
     with deterministic(), use_rules_of(rules):
         fns = registry.build(cfg, tp)
@@ -385,6 +392,7 @@ def train_lm(args, cfg) -> int:
             batches = _placed_lm_batches(batches, batch_axes(cfg), rules)
 
         if device.type == "cuda":
+            warm_backward(device)
             torch.cuda.reset_peak_memory_stats(device)
         launches = (flash_attention_call.launches,
                     flash_attention_bwd_call.launches)
@@ -400,7 +408,7 @@ def train_lm(args, cfg) -> int:
     report = {"arch": cfg.name, "device": str(device), "steps": step,
               "batch": args.batch, "seq": args.seq,
               "microbatches": args.microbatches, "quant": cfg.quant,
-              "balance_loss": (float(terms["balance"]) if "balance" in terms
+              "balance_loss": (_value(terms["balance"]) if "balance" in terms
                                else None),
               "losses": {str(k): losses[k] for k in sorted(losses)},
               "loss_log": loss_log,
@@ -426,8 +434,8 @@ def train_lm(args, cfg) -> int:
 
 
 def parser() -> argparse.ArgumentParser:
-    """The launcher's arguments (``main``'s; a caller that trains a config
-    of its own, cut in depth, hands ``train_lm`` their parse)."""
+    """The launcher's arguments (``main``'s; ``--layers`` is the one way
+    to cut an LM in depth)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True,
                     help="mrf-fpga | mrf-original, or an LM arch of any "
@@ -439,6 +447,10 @@ def parser() -> argparse.ArgumentParser:
                     help="default: 256 (MRF), 8 (LM)")
     ap.add_argument("--seq", type=int, default=128,
                     help="LM sequence length (tokens)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="LM depth cut: the arch's first N layers (an "
+                         "encoder-decoder's first N decoder layers), every "
+                         "width kept; 0: all")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1,
                     help="gradient accumulation over M equal slices of a "
@@ -485,6 +497,11 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        if cfg.family == "mrf" or not 0 < args.layers <= cfg.n_layers:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} is an MRF "
+                             f"net or has {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if cfg.family != "mrf":
         args.batch = 8 if args.batch is None else args.batch
         return train_lm(args, cfg)

@@ -24,7 +24,9 @@ logical axes, heads on ``"tp"``.  Under a mesh q, k and v are placed
 ``("batch", None, "tp", None)`` and B6 runs in ``local_map`` on each
 rank's own batch rows and heads (:func:`attention`): heads are
 independent, and ``padded_heads(tp)`` keeps each rank's query heads a
-whole number of its kv heads' groups.  No DTensor reaches the kernel
+whole number of its kv heads' groups.  Cross-attention places k and v,
+projected from the encoder's states at their own length, as q: rows and
+heads, never the sequence, so Sq != Sk needs nothing more per rank.  No DTensor reaches the kernel
 wrapper.  Padded query heads (``init_attn(true_hq=)``) have zero ``wq``
 columns and ``wo`` rows, so they add nothing, as in the reference.
 """

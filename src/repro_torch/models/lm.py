@@ -57,7 +57,11 @@ split into a list, as ``convert.lm_params_from_numpy`` splits the weights;
 the activations are placed with ``dist.sharding.shard`` where the
 reference places them.  At ``tp > 1`` heads are padded
 (``ModelConfig.padded_heads``, padded query heads zero) and so are the SSM
-heads (:func:`ssm_heads`) and the vocab.
+heads (:func:`ssm_heads`) and the vocab.  Every family runs on a mesh: the
+MoE block expert-parallel (``models.moe``), the SSM mixer on each rank's
+heads (``models.ssm``), the hybrid's attention and mixer side by side,
+its window rings placed by :func:`lm_cache_axes`, the VLM's prefix
+embeddings written into the embedded batch's own rows (placed as it).
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import replicated_like, shard
+from repro_torch.dist.sharding import placed_like, replicated_like, shard
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -288,11 +292,14 @@ def check_prefix_len(n_prefix: int, seq: int) -> None:
 def _embed(params, tokens, prefix_embeds=None,
            axes=("batch", "act_seq", None)):
     """The tokens' embeddings in bf16, placed by ``axes``;
-    ``prefix_embeds`` (B, P, d), when given, in place of the first P."""
+    ``prefix_embeds`` (B, P, d), when given, in place of the first P (a
+    DTensor placed as the embeddings first: each rank writes its own
+    rows)."""
     h = embed_lookup(params["embed"], tokens).to(COMPUTE)
     if prefix_embeds is not None:
         check_prefix_len(prefix_embeds.shape[1], tokens.shape[1])
-        h[:, :prefix_embeds.shape[1]] = prefix_embeds.to(COMPUTE)
+        h[:, :prefix_embeds.shape[1]] = placed_like(
+            prefix_embeds.to(COMPUTE), h)
     return shard(h, *axes)
 
 
@@ -371,9 +378,12 @@ def layer_cache(cfg: ModelConfig, kv, is_global: bool, seq: int):
         return {"k": k.to(COMPUTE), "v": v.to(COMPUTE)}
     (k, v), mixer = kv
     cap = _ring_slots(cfg, is_global, seq)
-    return {"k": torch.roll(k[:, -cap:], seq % cap, 1).to(COMPUTE),
-            "v": torch.roll(v[:, -cap:], seq % cap, 1).to(COMPUTE),
-            "ssm": mixer}
+
+    def ring(t):  # placed by the caches' axes (``lm_cache_axes``)
+        return shard(torch.roll(t[:, -cap:], seq % cap, 1).to(COMPUTE),
+                     "batch", "cache_seq", None, None)
+
+    return {"k": ring(k), "v": ring(v), "ssm": mixer}
 
 
 def prefill(cfg: ModelConfig, tp: int, params, batch):

@@ -26,6 +26,11 @@ Two forms compute the same function:
   both).  At deepseek-moe-16b's prefill shape on an H100 it is the faster
   of the two (``chip_smoke.py`` times both).
 
+Under a mesh (a DTensor x) the block runs expert-parallel over ``model``
+(:func:`_moe_block_sharded`): routing per rank on its own groups, each
+rank's E/tp experts, the outputs all-gathered over ``model`` for the
+combine, the balance term's means reduced over the batch's mesh dims.
+
 No Pallas kernel backs MoE in the reference (XLA einsums); here the products
 are PyTorch matmuls.  Nothing here synchronises with the host: drops are
 masked, never filtered out.
@@ -48,8 +53,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.dist.sharding import shard
+from repro_torch.dist.sharding import grad_placements, rules_placements
 from repro_torch.models.common import normal_init
 from repro_torch.models.mlp import (MlpParams, init_mlp, mlp_axes, mlp_block,
                                     silu)
@@ -94,13 +100,6 @@ def moe_axes(n_shared, gated=True) -> MoeParams:
                      w_gate=("tp", "fsdp", None), w_in=("tp", "fsdp", None),
                      w_out=("tp", None, "fsdp"),
                      shared=mlp_axes(gated) if n_shared else None)
-
-
-def _group_axes(n_groups: int) -> tuple:
-    """Groups carry the batch's sharding when there are several; the one
-    group of a decode step keeps its tokens sharded instead (the
-    reference's)."""
-    return ("batch", None, None) if n_groups > 1 else (None, "batch", None)
 
 
 def capacity_of(group: int, top_k: int, capacity_factor: float,
@@ -191,23 +190,31 @@ def slots(r: Routing, n_experts: int) -> tuple:
     return slot, (slot < r.capacity) & (r.gates > 0)
 
 
-def _experts(p: MoeParams, expert_in: torch.Tensor) -> torch.Tensor:
+def _experts(expert_in, w_gate, w_in, w_out) -> torch.Tensor:
     """SiLU-gated expert FFNs over each expert's slots: (E, N, d) -> (E, N,
     d), one batched product over the experts, weights cast to the
     activations' dtype."""
     dt = expert_in.dtype
-    h = silu(torch.bmm(expert_in, p.w_gate.to(dt))) * torch.bmm(
-        expert_in, p.w_in.to(dt))
-    return torch.bmm(h, p.w_out.to(dt))
+    h = silu(torch.bmm(expert_in, w_gate.to(dt))) * torch.bmm(
+        expert_in, w_in.to(dt))
+    return torch.bmm(h, w_out.to(dt))
 
 
-def _finish(p: MoeParams, x, y, r: Routing, quant: str) -> tuple:
-    """Shared experts added (their projections the only ones ``quant``
-    reaches, as in the reference); the Switch load-balance loss."""
+def _balance(r: Routing) -> tuple:
+    """The Switch load-balance term's two means over the groups' tokens,
+    each (E,): the share of tokens whose first choice is each expert, and
+    the mean router probability of each."""
     n_exp = r.probs.shape[-1]
-    frac_tokens = torch.mean(_one_hot(r.idx[:, :, 0], n_exp), dim=(0, 1))
-    frac_probs = torch.mean(r.probs, dim=(0, 1))
-    aux = n_exp * torch.sum(frac_tokens * frac_probs)
+    return (torch.mean(_one_hot(r.idx[:, :, 0], n_exp), dim=(0, 1)),
+            torch.mean(r.probs, dim=(0, 1)))
+
+
+def _finish(p: MoeParams, x, y, fracs: tuple, quant: str) -> tuple:
+    """Shared experts added (their projections the only ones ``quant``
+    reaches, as in the reference); the Switch load-balance loss, ``E *
+    sum(frac_tokens * frac_probs)``: the product taken after the means."""
+    frac_tokens, frac_probs = fracs
+    aux = frac_tokens.shape[-1] * torch.sum(frac_tokens * frac_probs)
     if p.shared is not None:
         y = y + mlp_block(p.shared, x, quant=quant)
     return y, aux
@@ -225,45 +232,155 @@ def moe_block_plain(p: MoeParams, x, *, top_k: int,
     combine = dense_combine(r, n_exp)
     dispatch = (combine > 0.0).to(x.dtype)
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)
-    expert_out = _experts(p, expert_in.reshape(n_exp, -1, d)).view(
-        n_exp, n_groups, r.capacity, d)
+    expert_out = _experts(expert_in.reshape(n_exp, -1, d), p.w_gate,
+                          p.w_in, p.w_out).view(n_exp, n_groups,
+                                                r.capacity, d)
     y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
-    return _finish(p, x, y.reshape(x.shape), r, quant)
+    return _finish(p, x, y.reshape(x.shape), _balance(r), quant)
+
+
+def _dispatch(router, xg, top_k: int, capacity_factor: float) -> tuple:
+    """Routing and the expert-major buffer of the groups xg (G, gs, d):
+    (expert_in (E, G*C, d), the combine weights (G, gs, k) f32 — the gates
+    of the kept choices, 0 elsewhere —, each choice's row (G, gs, k), the
+    balance term's two means).  Each kept (token, choice) takes row
+    ``(e*G + g)*C + slot``; the buffer is gathered, not scattered: each row
+    reads the token that fills it, or a zero row past the tokens when none
+    does."""
+    n_groups, gs, d = xg.shape
+    n_tok, n_exp = n_groups * gs, router.shape[-1]
+    r = route(router, xg, top_k, capacity_factor)
+    slot, keep = slots(r, n_exp)
+    n_slots = n_exp * n_groups * r.capacity
+    group = torch.arange(n_groups, device=xg.device)[:, None, None]
+    row = torch.where(keep, (r.idx * n_groups + group) * r.capacity + slot,
+                      n_slots)                                  # (G, s, k)
+    # the token each row holds; the dropped choices all land on a spare
+    # entry past the rows, which is never read
+    token = torch.arange(n_tok, device=xg.device).view(n_groups, gs, 1)
+    src = torch.full((n_slots + 1,), n_tok, dtype=torch.int64,
+                     device=xg.device)
+    src.scatter_(0, row.reshape(-1), token.expand(-1, -1, top_k).reshape(-1))
+    tokens = torch.cat([xg.reshape(n_tok, d), xg.new_zeros((1, d))])
+    expert_in = tokens[src[:n_slots]].view(n_exp, -1, d)
+    return (expert_in, torch.where(keep, r.gates, 0.0), row,
+            *_balance(r))
+
+
+def _combine(expert_out, w, row) -> torch.Tensor:
+    """Each token's k rows of ``expert_out`` (E, G*C, d), weighted by ``w``
+    (G, gs, k) cast to the activations' dtype, as the reference casts its
+    combine tensor, and summed: (G, gs, d).  A dropped choice reads any
+    row, with weight zero."""
+    n_slots = expert_out.shape[0] * expert_out.shape[1]
+    picked = expert_out.view(n_slots, expert_out.shape[-1])[
+        torch.clamp(row, max=n_slots - 1)]
+    return torch.matmul(w.to(expert_out.dtype)[..., None, :],
+                        picked).squeeze(-2)
 
 
 def moe_block(p: MoeParams, x, *, top_k: int, capacity_factor: float = 1.25,
               group_size: int = GROUP_SIZE, quant: str = "none"):
     """x: (B, S, d) -> (y, aux).  Dropped tokens pass through the residual.
 
-    The expert buffer is expert-major: each kept (token, choice) takes row
-    ``(e*G + g)*C + slot``, so the experts are one batched product over
-    ``e`` with no transposes.  The buffer is gathered, not scattered: each
-    row reads the token that fills it, or a zero row past the tokens when
-    none does.  Back, each token gathers its k rows (a dropped choice reads
-    any row, with weight zero)."""
+    The expert buffer is expert-major (:func:`_dispatch`), so the experts
+    are one batched product over ``e`` with no transposes; back, each
+    token gathers its k rows (:func:`_combine`).  A DTensor ``x`` runs
+    expert-parallel (:func:`_moe_block_sharded`)."""
+    if isinstance(x, DTensor):
+        return _moe_block_sharded(p, x, top_k=top_k,
+                                  capacity_factor=capacity_factor,
+                                  group_size=group_size, quant=quant)
     xg = _groups(x, group_size)
-    n_groups, gs, d = xg.shape
-    xg = shard(xg, *_group_axes(n_groups))
-    n_tok, n_exp = n_groups * gs, p.router.shape[-1]
-    r = route(p.router, xg, top_k, capacity_factor)
-    slot, keep = slots(r, n_exp)
-    n_slots = n_exp * n_groups * r.capacity
-    group = torch.arange(n_groups, device=x.device)[:, None, None]
-    row = torch.where(keep, (r.idx * n_groups + group) * r.capacity + slot,
-                      n_slots)                                  # (G, s, k)
-    # the token each row holds; the dropped choices all land on a spare
-    # entry past the rows, which is never read
-    token = torch.arange(n_tok, device=x.device).view(n_groups, gs, 1)
-    src = torch.full((n_slots + 1,), n_tok, dtype=torch.int64,
-                     device=x.device)
-    src.scatter_(0, row.reshape(-1), token.expand(-1, -1, top_k).reshape(-1))
-    tokens = torch.cat([xg.reshape(n_tok, d), xg.new_zeros((1, d))])
-    expert_in = shard(tokens[src[:n_slots]].view(n_exp, -1, d),
-                      "tp", None, None)
-    expert_out = shard(_experts(p, expert_in), "tp", None, None)
-    # the combine weights cast to the activations' dtype, as the reference
-    # casts its combine tensor; each token's k products summed
-    w = torch.where(keep, r.gates, 0.0).to(x.dtype)
-    picked = expert_out.view(n_slots, d)[torch.clamp(row, max=n_slots - 1)]
-    y = torch.matmul(w[..., None, :], picked).squeeze(-2)       # (G, s, d)
-    return _finish(p, x, y.reshape(x.shape), r, quant)
+    expert_in, w, row, *fracs = _dispatch(p.router, xg, top_k,
+                                          capacity_factor)
+    y = _combine(_experts(expert_in, p.w_gate, p.w_in, p.w_out), w, row)
+    return _finish(p, x, y.reshape(x.shape), fracs, quant)
+
+
+def _moe_block_sharded(p: MoeParams, x, *, top_k: int,
+                       capacity_factor: float, group_size: int, quant: str):
+    """:func:`moe_block` of a DTensor x, expert-parallel, in three
+    ``local_map`` blocks; no index op meets DTensor's propagation (its
+    ``index_put`` backward fails on the card in torch 2.11).
+
+    * Routing, slots and the buffer run per rank on the rank's own groups
+      — the groups carry the batch's mesh dims under the ambient rules, the
+      reference's ``("batch", None, None)`` —: the capacity is a group's,
+      so this is the reference's function.  The rows split evenly over the
+      batch ranks and each rank's rows whole groups, or else (a decode
+      step's one group spans the batch; fewer rows than batch ranks, as a
+      microbatch of one row) the tokens are gathered over the batch dims
+      first: a token's slot counts the earlier tokens of its whole group,
+      whichever rank holds them, every rank routes every group, and no
+      rank routes none.
+    * The buffer (E, G*C, d) is placed ``("tp", "batch", None)``: the
+      reference's ``("batch", "tp", None, None)`` in expert-major order.
+      Each ``model`` rank computes its E/tp experts' products only, the
+      experts' weights gathered over ``fsdp``'s dims and never over
+      ``model``.
+    * The combine needs every expert's output for the rank's tokens: the
+      outputs are **all-gathered over ``model``** (backward: each rank keeps
+      its experts' slice of the gradient).  Then each token sums its k
+      products in one product, in the one-process order; a partial sum of
+      each rank's experts, reduced over ``model``, would move fewer bytes
+      but add the k products in another order.
+    * The balance term's two means are each reduced over the batch's mesh
+      dims (an all-reduce of two E-vectors) before their product: the
+      means of every group, not a mean of per-rank terms.
+
+    At world 1 every redistribution is local and each block runs the
+    mesh-less ops on the whole tensors: the same bits."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    gs = group_of(b * s, group_size)
+    n_groups = b * s // gs
+    batch = split_rows = [i for i, pl in enumerate(
+        rules_placements(("batch", None, None), x)) if pl == Shard(0)]
+    n_split = math.prod(mesh.size(i) for i in batch)
+    if b % n_split or n_groups % n_split:  # not whole groups a rank
+        batch, n_split = [], 1
+    experts = [i for i, pl in enumerate(p.w_gate.placements)
+               if pl == Shard(0)]
+    if set(experts) & set(batch):
+        raise ValueError("moe_block: the experts and the batch share a "
+                         "mesh dim")
+
+    def on(dims, pl):
+        return [pl if i in dims else Replicate() for i in range(mesh.ndim)]
+
+    rows, fracs = on(batch, Shard(0)), on(batch, Partial())
+    buf = on(batch, Shard(1))
+    buf_ep = [Shard(0) if i in experts else pl for i, pl in enumerate(buf)]
+    w_pl = on(experts, Shard(0))
+    whole = [Replicate()] * mesh.ndim
+
+    def dispatch(x_loc, router):
+        xg = x_loc.reshape(-1, gs, d)
+        expert_in, w, row, ft, fp = _dispatch(router, xg, top_k,
+                                              capacity_factor)
+        if n_split > 1:  # this rank's share of the means over all groups
+            ft, fp = ft / n_split, fp / n_split
+        return expert_in, w, row, ft, fp
+
+    expert_in, w, row, ft, fp = local_map(
+        dispatch, out_placements=(buf, rows, rows, fracs, fracs),
+        in_placements=(rows, whole),
+        in_grad_placements=(rows, grad_placements(whole, buf, rows)),
+        device_mesh=mesh, redistribute_inputs=True)(x, p.router)
+    products = local_map(
+        _experts, out_placements=buf_ep,
+        in_placements=(buf_ep, w_pl, w_pl, w_pl),
+        in_grad_placements=(buf_ep, *[grad_placements(w_pl, buf_ep)] * 3),
+        device_mesh=mesh, redistribute_inputs=True)
+    expert_out = products(expert_in.redistribute(mesh, buf_ep), p.w_gate,
+                          p.w_in, p.w_out).redistribute(mesh, buf)
+    y = local_map(
+        lambda out, w_loc, row_loc: _combine(out, w_loc, row_loc).reshape(
+            -1, s, d),
+        out_placements=rows, in_placements=(buf, rows, rows),
+        device_mesh=mesh)(expert_out, w, row)
+    y = y.redistribute(mesh, on(split_rows, Shard(0)))
+    ft, fp = (t.redistribute(mesh, whole) for t in (ft, fp))
+    return _finish(p, x, y, (ft, fp), quant)

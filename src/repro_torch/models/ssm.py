@@ -27,12 +27,15 @@ reference's prefill would hand decode a tail too short to extend.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.dist.sharding import shard
+from repro_torch.dist.sharding import (grad_placements, rules_placements,
+                                       shard)
 from repro_torch.models.common import COMPUTE, dense, normal_init, rms_norm
 from repro_torch.models.mlp import silu
 
@@ -211,9 +214,42 @@ def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int):
     return y.reshape(b, length, h, p), state
 
 
+def _mixer_core(x_raw, bm_raw, cm_raw, dt_raw, conv_x, conv_B, conv_C,
+                dt_bias, A_log, D, *, head_dim: int, chunk: int):
+    """The mixer between its input projections and its gate: the causal
+    convs and SiLU, dt, the chunked scan over the heads of ``x_raw`` (B, L,
+    H*P), the skip ``D``.  Returns (y (B, L, H*P) in ``x_raw``'s dtype, the
+    final state (B, H, P, N)).  Each head is independent, so the block runs
+    per rank on a rank's own heads (:func:`ssm_block`)."""
+    b, length, _ = x_raw.shape
+    x = silu(_causal_conv(x_raw, conv_x.to(x_raw.dtype)))
+    bm = silu(_causal_conv(bm_raw, conv_B.to(bm_raw.dtype)))
+    cm = silu(_causal_conv(cm_raw, conv_C.to(cm_raw.dtype)))
+    dt = softplus(dt_raw.float() + dt_bias)
+    a = -torch.exp(A_log.float())
+    # the sequence padded to a chunk multiple; dt = 0 on the padding gives
+    # decay 1 and no update, so the final state is the unpadded one
+    pad = (-length) % min(chunk, max(length, 1))
+    if pad:
+        x, bm, cm, dt = (F.pad(t, (0, 0, 0, pad)) for t in (x, bm, cm, dt))
+        dt = dt * (torch.arange(length + pad, device=x.device)
+                   < length)[None, :, None]
+    xh = x.reshape(b, length + pad, -1, head_dim).float()
+    y, state = ssd_chunked(xh, dt, a, bm.float(), cm.float(), chunk)
+    y = y + D[None, None, :, None] * xh
+    return y.reshape(b, length + pad, -1)[:, :length].to(x_raw.dtype), state
+
+
 def ssm_block(p: Mamba2Params, u, *, n_heads, head_dim, n_state, chunk,
               quant="none", return_cache=False):
-    """The mamba2 mixer. u: (B, L, d) -> (B, L, d) [, Mamba2Cache]."""
+    """The mamba2 mixer. u: (B, L, d) -> (B, L, d) [, Mamba2Cache].
+
+    A DTensor ``u`` runs the projections as DTensor ops, the convs and the
+    scan (:func:`_mixer_core`) per rank in ``local_map`` on the rank's rows
+    and heads (``("batch", None, "tp")``), and the gate norm again as
+    DTensor ops: its mean is over the whole inner width, which ``model``
+    splits, so it is reduced over ``model`` (a per-rank norm of each slice
+    would be another function)."""
     b, length, _ = u.shape
     if return_cache:
         check_prompt_len(length)
@@ -222,33 +258,46 @@ def ssm_block(p: Mamba2Params, u, *, n_heads, head_dim, n_state, chunk,
     bm_raw = dense(u, p.wB)
     cm_raw = dense(u, p.wC)
     dt_raw = dense(u, p.wdt)
-    x = silu(_causal_conv(x_raw, p.conv_x.to(x_raw.dtype)))
-    bm = silu(_causal_conv(bm_raw, p.conv_B.to(bm_raw.dtype)))
-    cm = silu(_causal_conv(cm_raw, p.conv_C.to(cm_raw.dtype)))
-    dt = softplus(dt_raw.float() + p.dt_bias)
-    a = -torch.exp(p.A_log.float())
-    # the sequence padded to a chunk multiple; dt = 0 on the padding gives
-    # decay 1 and no update, so the final state is the unpadded one
-    pad = (-length) % min(chunk, max(length, 1))
-    if pad:
-        x, bm, cm, dt = (F.pad(t, (0, 0, 0, pad)) for t in (x, bm, cm, dt))
-        dt = dt * (torch.arange(length + pad, device=u.device)
-                   < length)[None, :, None]
-    xh = shard(x.reshape(b, length + pad, n_heads, head_dim).float(),
-               "batch", None, "tp", None)
-    y, state = ssd_chunked(xh, dt, a, bm.float(), cm.float(), chunk)
-    y = y + p.D[None, None, :, None] * xh
-    y = y.reshape(b, length + pad, -1)[:, :length].to(u.dtype)
+    core = partial(_mixer_core, head_dim=head_dim, chunk=chunk)
+    args = (x_raw, bm_raw, cm_raw, dt_raw, p.conv_x, p.conv_B, p.conv_C,
+            p.dt_bias, p.A_log, p.D)
+    if isinstance(u, DTensor):
+        core = _per_rank_heads(core, u)
+    y, state = core(*args)
     y = rms_norm(y * silu(z), p.gate_norm)
     out = dense(y, p.wo, quant=quant)
     if not return_cache:
         return out
 
-    def tail(t):  # from the unpadded projections
-        return t[:, length - (CONV_TAPS - 1):].to(COMPUTE, copy=True)
+    def tail(t, axes):  # from the unpadded projections, placed by axes
+        return shard(t[:, length - (CONV_TAPS - 1):].to(COMPUTE, copy=True),
+                     *axes)
 
-    return out, Mamba2Cache(state=state, conv_x=tail(x_raw),
-                            conv_B=tail(bm_raw), conv_C=tail(cm_raw))
+    ax = cache_axes()
+    return out, Mamba2Cache(state=state, conv_x=tail(x_raw, ax.conv_x),
+                            conv_B=tail(bm_raw, ax.conv_B),
+                            conv_C=tail(cm_raw, ax.conv_C))
+
+
+def _per_rank_heads(core, ref):
+    """``core`` (:func:`_mixer_core`) in ``local_map`` on ``ref``'s mesh:
+    the rows over the batch's dims, the heads (and the inner width) over
+    ``tp``'s, placed by the ambient rules; B, C and the gradients of what
+    every head reads summed over the heads' ranks."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def pl(*axes):
+        return rules_placements(axes, ref)
+
+    inner, rows, heads = pl("batch", None, "tp"), pl("batch", None, None), \
+        pl("tp")
+    taps_x, taps = pl(None, "tp"), pl(None, None)
+    state = pl("batch", "tp", None, None)
+    ins = (inner, rows, rows, inner, taps_x, taps, taps, heads, heads, heads)
+    return local_map(core, out_placements=(inner, state), in_placements=ins,
+                     in_grad_placements=tuple(grad_placements(i, inner, state)
+                                              for i in ins),
+                     device_mesh=ref.device_mesh, redistribute_inputs=True)
 
 
 def _conv_step(cache, new, w):

@@ -10,6 +10,13 @@ The operations and their order are the reference's: ``max |g| / 127 +
 [-127, 127], multiply back.  ``int8_roundtrip`` is the reference's
 ``int8_compress_decompress``, renamed: the reference's dead-exports
 allowlist holds that name.
+
+A DTensor gradient (``launch.train --mesh``) is compressed by DTensor's
+own ops: the max of a split leaf is reduced over its ranks, so each
+leaf's scale is the whole leaf's, as the reference's jitted step computes
+it on the global gradient (a per-shard scale would be another
+compression); the step compresses after the gradient is reduced onto its
+parameter's placements, and the residual keeps them.
 """
 
 from __future__ import annotations

@@ -29,7 +29,8 @@ Params may be DTensors (``launch/train.py --mesh``): each gradient is then
 redistributed onto its parameter's placements as autograd hands it back
 (``dist.sharding.placed_like``) — the data-parallel all-reduce, or
 reduce-scatter onto an ``fsdp`` shard, made explicit — so the clipping,
-the update and the optimizer state keep the params' layout.
+the compression (on the reduced gradient, as in the reference), the
+update, the optimizer state and ``ef_residual`` keep the params' layout.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """One rank of a multi-rank CPU run of the port over gloo, started by
-``tests/test_torch_dist_ranks.py`` as
+``tests/test_torch_dist_ranks.py`` and ``tests/test_torch_dist_families.py``
+as
 
     python tests/_torch_dist_worker.py JOB RANK WORLD INIT_FILE OUT_DIR DATA MODEL
 
@@ -20,11 +21,26 @@ Jobs:
   onto other rules.
 * ``mrf``: ``mrf-fpga`` through ``launch.train --mesh single`` with each
   backend, and the executor's maps under the mesh (B4, B5, float).
+* ``families``: the MoE, SSM, hybrid, encoder-decoder and VLM smoke
+  models (``FAMILY_ARCHS``), each on one process (plain tensors, no rules:
+  the reference the ranks are held to, its MoE routing recorded) and on
+  the mesh (MoE routing replayed: :class:`RoutingReplay`): the loss, every
+  gradient, one Adam step, prefill and two decode steps; the MoE block
+  alone at a training and a decode shape (the balance term, the slots of
+  a decode group that spans the batch); the experts' local shapes; with
+  ``DATA * MODEL == 4`` a ``--grad-compress`` step and the deepseek and
+  seamless states saved as sharded checkpoints, ``launch.train --mesh
+  multi``; with a checkpoint directory (``SRC``) those states restored on
+  this mesh and resharded, and every family through ``launch.train
+  --mesh single``.
+* ``world1``: every family through ``launch.train`` with and without
+  ``--mesh single`` on the (1, 1) mesh, to be compared bit for bit.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -229,6 +245,410 @@ def job_mrf(rank, out, data, model):
     return res
 
 
+# --------------------------------------------------------------------------
+# the MoE, SSM, hybrid, encoder-decoder and VLM families
+# --------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("deepseek-moe-16b", "mamba2-1.3b", "hymba-1.5b",
+                "seamless-m4t-large-v2", "llava-next-34b")
+MOE_SEQ = 128  # 4 x 128 tokens: two routing groups of 256, one a data rank
+LAUNCH_STEPS = 2
+
+
+def family_cfg(arch):
+    """The smoke config; hymba's at 3 layers, a window layer (a ring of 8
+    slots) between two global ones (at 2 both layers are global)."""
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=3)
+    return cfg
+
+
+def family_seq(cfg) -> int:
+    return MOE_SEQ if cfg.family == "moe" else SEQ
+
+
+def family_batch(cfg) -> dict:
+    """A fixed global batch: tokens and labels, the VLM's prefix
+    embeddings (their positions' labels -1), the encoder-decoder's
+    frames."""
+    from repro_torch.models.common import COMPUTE
+    from repro_torch.models.encdec import enc_len_for
+    rng = np.random.default_rng(7)
+    seq = family_seq(cfg)
+    batch = lm_batch(cfg) if seq == SEQ else {
+        "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                (GLOBAL_BATCH, seq))).long(),
+        "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                (GLOBAL_BATCH, seq))).long()}
+
+    def normal(rows):
+        return torch.from_numpy(0.02 * rng.standard_normal(
+            (GLOBAL_BATCH, rows, cfg.d_model)).astype(np.float32)).to(COMPUTE)
+
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = normal(cfg.n_prefix_embeds)
+        batch["labels"][:, :cfg.n_prefix_embeds] = -1
+    if cfg.family == "encdec":
+        batch["frames"] = normal(enc_len_for(seq))
+    return batch
+
+
+class RoutingReplay:
+    """MoE routing, by (phase, layer) — a layer known by its router's
+    values: ``active(replay=False)`` records the one-process run's top-k
+    experts (a remat recompute must route alike); ``active(replay=True)``
+    has the ranks compute their own routing, counts the (token, choice)
+    pairs that differ from the record (``flips`` / ``pairs``, the first
+    call of each key), then takes the recorded experts with the rank's own
+    probabilities at them, renormalised, as its gates (as
+    ``chip_smoke.RoutingReplay`` does for card vs CPU): both sides then
+    compute one function.  ``active(replay="count")`` counts and replays
+    nothing; a routing of another shape than the record's counts every
+    pair as flipped and is not replayed.  A rank holding G of the record's groups takes the
+    ``offset``-th G of them (its data coordinate)."""
+
+    def __init__(self, routers):
+        self.routers = routers
+        self.phase, self.offset = None, 0
+        self.want, self.flips, self.pairs = {}, {}, {}
+
+    def _layer(self, router) -> int:
+        for i, r in enumerate(self.routers):
+            if r.shape == router.shape and torch.equal(r, router):
+                return i
+        raise AssertionError("a router of no recorded layer")
+
+    @contextlib.contextmanager
+    def active(self, replay: bool):
+        from repro_torch.models import moe
+        route = moe.route
+
+        def patched(router, xg, top_k, cf):
+            r = route(router, xg, top_k, cf)
+            key = (self.phase, self._layer(router))
+            if not replay:
+                if key in self.want:
+                    assert torch.equal(self.want[key], r.idx), key
+                else:
+                    self.want[key] = r.idx
+                return r
+            want = self.want[key]
+            g = xg.shape[0]
+            off = 0 if g == want.shape[0] else self.offset * g
+            want = want[off:off + g]
+            if key not in self.flips:
+                self.pairs[key] = want.numel()
+                self.flips[key] = (int((r.idx != want).sum())
+                                   if r.idx.shape == want.shape
+                                   else want.numel())
+            if replay == "count" or r.idx.shape != want.shape:
+                return r
+            vals = torch.gather(r.probs, -1, want)
+            return r._replace(gates=vals / vals.sum(-1, keepdim=True),
+                              idx=want)
+
+        moe.route = patched
+        try:
+            yield
+        finally:
+            moe.route = route
+
+
+def _family_pass(cfg, fns, params, routes, rules, *, grad_compress=False):
+    """One process (``rules`` None, plain params) or the ranks (DTensor
+    params): the loss and every gradient of ``family_batch``, the MoE
+    balance term, one Adam step with clipping (``grad_compress``: int8
+    error feedback) from the initial state, prefill and two decode steps'
+    logits; every result gathered whole.  Returns (results, the stepped
+    state, the gradients, the cache)."""
+    from functools import partial
+
+    from repro_torch.dist.sharding import distribute_tree, placed_like
+    from repro_torch.launch.input_specs import batch_axes
+    from repro_torch.optim import adam
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import leaves, rebuild
+
+    def place(tree, axes):
+        return tree if rules is None else distribute_tree(tree, axes, rules)
+
+    def whole(t):
+        return t if rules is None else t.full_tensor()
+
+    batch = family_batch(cfg)
+    seq = family_seq(cfg)
+    terms, out = {}, {}
+    loss_fn = partial(fns.loss, terms=terms) if cfg.family == "moe" \
+        else fns.loss
+    with routes.active(replay=rules is not None):
+        routes.phase = "train"
+        placed = place(batch, batch_axes(cfg))
+        live = [t.detach().requires_grad_(True) for t in leaves(params)]
+        loss = loss_fn(rebuild(params, live), placed)
+        grads = [placed_like(g, p) for g, p in
+                 zip(torch.autograd.grad(loss, live), live)]
+        out["loss"] = whole(loss.detach())
+        out["grads"] = [whole(g) for g in grads]
+        if "balance" in terms:
+            out["balance"] = whole(terms["balance"])
+        opt = adam(LR)
+        step = make_train_step(fns.loss, opt, max_grad_norm=1.0,
+                               grad_compress=grad_compress)
+        new, _ = step(init_train_state(params, opt,
+                                       grad_compress=grad_compress), placed)
+        out["new_params"] = [whole(t) for t in leaves(new.params)]
+        with torch.no_grad():
+            routes.phase = "prefill"
+            prompt = {k: v for k, v in batch.items() if k != "labels"}
+            cache, logits = fns.prefill(params, place(
+                prompt, batch_axes(cfg, "prefill")))
+            out["logits"] = [whole(logits)]
+            for i, tok in enumerate(decode_tokens(cfg)):
+                routes.phase = f"decode{i}"
+                logits, cache = fns.decode(params, cache,
+                                           place(tok, ("batch",)), seq + i)
+                out["logits"].append(whole(logits))
+    return out, new, grads, cache
+
+
+def _moe_block_cases(cfg, layer, rules, routes_of) -> dict:
+    """The MoE block alone on fixed bf16 inputs, one process and the mesh:
+    y, the balance term, the gradients of x and of every param for a fixed
+    cotangent, at a training shape (4 x 128 tokens, two groups), at one
+    row of two groups (fewer rows than data ranks at (2, 2), as a
+    microbatch of one row; placed replicated, since DTensor's products
+    refuse a row split unevenly) and at a decode shape (16 x 1 tokens, one
+    group spanning the batch) at capacity factor 0.5, so that its slots
+    overflow and the choices dropped depend on the whole group's order."""
+    from repro_torch.dist.sharding import distribute_tree, use_rules
+    from repro_torch.models.common import COMPUTE
+    from repro_torch.models.moe import moe_axes, moe_block
+    from repro_torch.tree import leaves, rebuild
+
+    axes = moe_axes(cfg.n_shared_experts, cfg.gated_mlp)
+    res = {}
+    for name, shape, cf, x_axes in (
+            ("train", (GLOBAL_BATCH, MOE_SEQ), 1.25, ("batch", None, None)),
+            ("one_row", (1, 4 * MOE_SEQ), 1.25, (None, None, None)),
+            ("decode", (16, 1), 0.5, ("batch", None, None))):
+        rng = np.random.default_rng(11)
+        x = torch.from_numpy(rng.standard_normal(
+            (*shape, cfg.d_model)).astype(np.float32)).to(COMPUTE)
+        dy = torch.from_numpy(rng.standard_normal(
+            (*shape, cfg.d_model)).astype(np.float32)).to(COMPUTE)
+        routes = routes_of(layer)
+        got = {}
+        for side, ctx in (("ref", contextlib.nullcontext()),
+                          ("mesh", use_rules(rules))):
+            with ctx:
+                p, xs, dys = layer, x, dy
+                if side == "mesh":
+                    p = distribute_tree(layer, axes, rules)
+                    xs, dys = (distribute_tree(t, x_axes, rules)
+                               for t in (x, dy))
+                live = [t.detach().requires_grad_(True)
+                        for t in [xs, *leaves(p)]]
+                with routes.active(replay=side == "mesh" and "count"):
+                    routes.phase = name
+                    y, aux = moe_block(rebuild(p, live[1:]), live[0],
+                                       top_k=cfg.top_k, capacity_factor=cf)
+                    gs = torch.autograd.grad((y * dys).float().sum() + aux,
+                                             live)
+                whole = (lambda t: t) if side == "ref" else \
+                    (lambda t: t.full_tensor())
+                got[side] = {"y": whole(y.detach()),
+                             "aux": whole(aux.detach()),
+                             "grads": [whole(g) for g in gs]}
+        res[name] = {**got, "flips": sum(routes.flips.values())}
+    return res
+
+
+def _expert_shards_ok(cfg, model, params, grads, new) -> bool:
+    """Every rank's blocks of the experts' weights, their gradients and
+    Adam's moments hold E / model experts, before and after the step."""
+    from repro_torch.tree import leaves
+    ids = {id(t) for lp in params["layers"]
+           for t in (lp["moe"].w_gate, lp["moe"].w_in, lp["moe"].w_out)}
+    idx = [i for i, t in enumerate(leaves(params)) if id(t) in ids]
+    want = cfg.n_experts // model
+    trees = [leaves(params), grads, leaves(new.params),
+             leaves(new.opt_state.mu), leaves(new.opt_state.nu)]
+    return len(idx) == 3 * cfg.n_layers and all(
+        tree[i].to_local().shape[0] == want for tree in trees for i in idx)
+
+
+def _all_ranks(flag: bool) -> bool:
+    t = torch.tensor([int(flag)])
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())
+
+
+def _launch(argv) -> dict:
+    """``launch.train.main(argv)``'s ``train_report``."""
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(argv)
+    line = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("train_report ")][-1]
+    return json.loads(line[len("train_report "):])
+
+
+def launch_argv(arch: str, out) -> list:
+    """A family's smoke config through the launcher: ``LAUNCH_STEPS``
+    steps of ``GLOBAL_BATCH`` x (128 for the MoE, else ``SEQ``) tokens."""
+    from repro_torch.configs import get_smoke
+    seq = MOE_SEQ if get_smoke(arch).family == "moe" else SEQ
+    return ["--arch", arch, "--smoke", "--device", "cpu", "--steps",
+            str(LAUNCH_STEPS), "--batch", str(GLOBAL_BATCH), "--seq",
+            str(seq), "--ckpt-every", "0", "--ckpt-dir", str(out / arch)]
+
+
+def job_families(rank, out, data, model, src=None):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.dist.sharding import (axes_to_placements,
+                                           distribute_tree, full_tree,
+                                           layout_of, make_mesh, map_axes,
+                                           use_rules, with_overrides)
+    from repro_torch.ft.checkpoint import restore_state, save_state
+    from repro_torch.ft.elastic import reshard_state
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import registry
+    from repro_torch.optim import adam
+    from repro_torch.optim.grad_compression import error_feedback_compress
+    from repro_torch.train.step import init_train_state
+    from repro_torch.tree import leaves, tree_map
+
+    mesh = make_mesh((data, model), ("data", "model"), "cpu")
+    rules = rules_for(mesh, global_batch=GLOBAL_BATCH)
+    res = {}
+    for arch in FAMILY_ARCHS:
+        cfg = family_cfg(arch)
+        fns = registry.build(cfg, model)
+        params = fns.init(0, device="cpu")
+
+        def routes_of(tree):
+            layers = tree["layers"] if isinstance(tree, dict) else [
+                {"moe": tree}]
+            replay = RoutingReplay([lp["moe"].router for lp in layers])
+            replay.offset = mesh.get_coordinate()[0]
+            return replay
+
+        moe = cfg.family == "moe"
+        routes = routes_of(params) if moe else RoutingReplay([])
+        ref, _, _, _ = _family_pass(cfg, fns, params, routes, None)
+        compress = moe and data * model == 4  # --grad-compress on (2, 2)
+        if compress:
+            ref_c = _family_pass(cfg, fns, params, routes, None,
+                                 grad_compress=True)[0]
+        routes.offset = mesh.get_coordinate()[0]
+        with use_rules(rules):
+            dparams = distribute_tree(params, fns.param_axes(), rules)
+            got, new, grads, cache = _family_pass(cfg, fns, dparams, routes,
+                                                  rules)
+            cache_ok = []
+            map_axes(lambda ax, t: cache_ok.append(
+                isinstance(t, DTensor) and tuple(t.placements)
+                == axes_to_placements(ax, rules)),
+                registry.cache_axes(cfg), cache)
+            got["cache_placed_by_axes"] = all(cache_ok) and bool(cache_ok)
+            got["grad_placements_match"] = all(
+                tuple(g.placements) == tuple(p.placements)
+                for g, p in zip(grads, leaves(dparams)))
+            got["state_all_dtensor"] = all(isinstance(t, DTensor)
+                                           for t in leaves(new))
+            flips = [dict(routes.flips), dict(routes.pairs)]
+            shares = [None] * dist.get_world_size()
+            dist.all_gather_object(shares, flips)
+            got["routing"] = shares
+            if moe:
+                got["experts_split"] = _all_ranks(_expert_shards_ok(
+                    cfg, model, dparams, grads, new))
+            if compress:
+                got_c, new_c, grads_c, _ = _family_pass(
+                    cfg, fns, dparams, routes, rules, grad_compress=True)
+                comp, resid = error_feedback_compress(grads_c, None)
+                want = error_feedback_compress([g.full_tensor()
+                                                for g in grads_c], None)
+                got["compress"] = {
+                    "ref_params": ref_c["new_params"],
+                    "new_params": got_c["new_params"],
+                    "residual_placed_as_params": all(
+                        isinstance(r, DTensor) and tuple(r.placements)
+                        == tuple(p.placements) for r, p in
+                        zip(leaves(new_c.ef_residual), leaves(dparams))),
+                    "roundtrip_bit_equal": all(
+                        torch.equal(a.full_tensor(), b)
+                        for a, b in zip(comp + resid, want[0] + want[1]))}
+                new = new_c
+            if data * model == 4 and arch in ("deepseek-moe-16b",
+                                               "seamless-m4t-large-v2"):
+                save_state(new, out / f"ckpt-{arch}", 1, async_io=False)
+                whole = full_tree(new)  # a collective: every rank
+                if rank == 0:
+                    torch.save(whole, out / f"ckpt-{arch}.pt")
+            if src is not None and arch in ("deepseek-moe-16b",
+                                             "seamless-m4t-large-v2"):
+                src_fns = registry.build(cfg, 2)  # saved at model 2
+                axes = src_fns.param_axes()
+                like = init_train_state(
+                    distribute_tree(src_fns.init(0, device="cpu"), axes,
+                                    rules), adam(LR), grad_compress=moe)
+                restored = restore_state(
+                    like, src / f"ckpt-{arch}", device="cpu",
+                    placements=tree_map(layout_of, like))
+                want = torch.load(src / f"ckpt-{arch}.pt",
+                                  weights_only=False)
+                moved = reshard_state(restored.params, axes,
+                                      with_overrides(rules, fsdp=None))
+                lp = (moved["layers"] if moe else moved["dec"]["layers"])[0]
+                probe = lp["moe"].w_gate if moe else lp["cross"].wq
+                got["restore"] = {
+                    "bit_equal": all(torch.equal(a, b) for a, b in zip(
+                        leaves(full_tree(restored)), leaves(want))),
+                    "all_dtensor": all(isinstance(t, DTensor)
+                                       for t in leaves(restored)),
+                    "resharded_bit_equal": all(
+                        torch.equal(a, b) for a, b in zip(
+                            leaves(full_tree(moved)), leaves(want.params))),
+                    "resharded_placements": tuple(probe.placements) == (
+                        (Replicate(), Shard(0)) if moe
+                        else (Replicate(), Shard(1)))}
+        if moe:  # one process's side without the ambient rules
+            got["block"] = _moe_block_cases(
+                cfg, params["layers"][0]["moe"], rules, routes_of)
+        res[arch] = {"ref": ref, "mesh": got}
+    if src is not None:  # every family through the launcher, (1, 2)
+        res["launcher"] = {arch: _launch(launch_argv(arch, out)
+                                         + ["--mesh", "single"])
+                           for arch in FAMILY_ARCHS}
+        res["launcher"]["compress"] = _launch(
+            launch_argv("deepseek-moe-16b", out / "c")
+            + ["--mesh", "single", "--grad-compress"])
+    if data * model == 4:
+        res["launcher_multi"] = _launch(
+            launch_argv("mamba2-1.3b", out / "m")
+            + ["--mesh", "multi", "--grad-compress"])
+    return res
+
+
+def job_world1(rank, out):
+    """Every family, and the MoE with ``--grad-compress``, through the
+    launcher with and without ``--mesh single`` on one rank."""
+    runs = [(arch, []) for arch in FAMILY_ARCHS] + [
+        ("deepseek-moe-16b", ["--grad-compress"])]
+    res = []
+    for arch, extra in runs:
+        argv = launch_argv(arch, out / "none") + extra
+        res.append((arch, extra, _launch(argv),
+                    _launch(launch_argv(arch, out / "mesh") + extra
+                            + ["--mesh", "single"])))
+    return res
+
+
 def main(argv) -> int:
     job, rank, world, init_file, out = argv[:5]
     data, model = int(argv[5]), int(argv[6])
@@ -241,6 +661,11 @@ def main(argv) -> int:
             res = job_lm(rank, out, data, model)
         elif job == "restore":
             res = job_restore(rank, out, data, model, pathlib.Path(argv[7]))
+        elif job == "families":
+            res = job_families(rank, out, data, model, pathlib.Path(argv[7])
+                               if len(argv) > 7 else None)
+        elif job == "world1":
+            res = job_world1(rank, out)
         else:
             res = job_mrf(rank, out, data, model)
         if rank == 0:
