@@ -83,7 +83,8 @@ final result line):
    mrf-original — each with its launch counts and a falling loss; chunked == stepwise and crash + restart ==
    uninterrupted (``engine.train``), bit for bit; and the paper's
    per-sample stream (``fused_train_step`` at tile 1);
-4c. train, then serve: the serve launcher QAT-trains mrf-fpga (600 steps),
+4c. train, then serve: the serve launcher QAT-trains mrf-fpga
+   (``SERVE_TRAIN_STEPS`` steps),
    exports and serves it through B4 bit-exact against the CPU oracle, and
    trains and serves a float net;
 4d. token serving through the launcher at full width: tinyllama-1.1b (all
@@ -166,16 +167,16 @@ final result line):
    breakdown in an ``lm_train_run {json}`` line;
 4j. the other families' training and LM QAT (``family_train_phase``),
    after 4i and its timings: each entry of ``FAMILY_TRAIN`` — mamba2-1.3b
-   at 24 of 48 layers (a depth cut for the time limit) at 8 x 2,048 tokens,
-   hymba-1.5b whole at 1 x 2,048 (no remat),
+   at 12 of 48 layers (a depth cut for the time limit) at 8 x 2,048 tokens,
+   hymba-1.5b whole at 2 x 2,048 (no remat),
    deepseek-moe-16b at 4 of 28 layers at 8 x 2,048, seamless-m4t-large-v2
-   whole at 3 x 2,048 beside 512 frames a sequence, tinyllama-1.1b with
+   whole at 5 x 2,048 beside 512 frames a sequence, tinyllama-1.1b with
    ``--quant qat-int8`` at 8 x 2,048 — through the launcher,
    ``FAMILY_STEPS`` steps, twice: the loss falls; B6 and B6-bwd counted
    from 0 just before each run, ``train_launches`` a step (0 and 0, 32 and
    32, 8 and 4, 144 and 72, 44 and 22); the second run repeats the first's
    losses and params digest bit for bit — for mamba2 with its step-0
-   checkpoint (9.9 GB at 24 layers) and a crash at step 2, restarted;
+   checkpoint (~5 GB at 12 layers) and a crash at step 2, restarted;
    the first runs write no checkpoint (``--ckpt-every 0``); each cut
    printed beside the run, with
    the memory a batch one larger would take; the first 2 layers of the
@@ -282,6 +283,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # the card's peaks (bytes/s, FLOP/s, SMs): ``repro_torch.analysis.roofline.H100``
 REPS = 30
 MARKER = "FillFunctor<short>"  # device_ms's marker, a one-element int16 fill_
+DEVICE_EVENT_TRIES = 5      # profiler sessions before device_ms takes events
+LEAD_S = 0.025              # device_events' lead: 25 ms of host time, x4 a retry
+EVENT_TIMED = []            # device_ms's labels timed between CUDA events
 TRAIN_REPS = 20             # training kernels: ms-long launches
 BUCKETS = (128, 256, 512, 1024)
 WAVE_VOXELS = 281_600       # a wave of 8 phantom slices of 256 x 256
@@ -346,8 +350,8 @@ FAMILY_GRAD_ULPS = 8
 FAMILY_STEPS = 3
 FAMILY_SEQ = 2048
 FAMILY_TRAIN = (
-    (SSM_ARCH, 24, 8, None,
-     "24 of 48 layers: the script's time limit, which phase 4l (this "
+    (SSM_ARCH, 12, 8, None,
+     "12 of 48 layers: the script's time limit, which phase 4l (this "
      "entry's run again under torchrun, at this depth) would pass with "
      "all 48"),
     (HYBRID_ARCH, 0, 2, None,
@@ -357,7 +361,7 @@ FAMILY_TRAIN = (
     (MOE_ARCH, 4, 8, None,
      "4 of 28 layers: 16 bytes a parameter (f32 masters, grads, Adam's "
      "moments) are 270 GB for 28"),
-    (ENCDEC_ARCH, 0, 4, None,
+    (ENCDEC_ARCH, 0, 5, None,
      "the 256,206-column logits (bf16, f32 and their gradients) grow with "
      "the batch"),
     (LM_ARCH, 0, 8, "qat-int8", "none"),
@@ -390,6 +394,15 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+@contextlib.contextmanager
+def took(what: str):
+    """Log the host seconds the block took, as ``took: <what> <s> s``: the
+    script's time limit is spent by part."""
+    t0 = time.perf_counter()
+    yield
+    log(f"took: {what} {time.perf_counter() - t0:.1f} s")
 
 
 def device_facts() -> tuple:
@@ -1174,22 +1187,29 @@ def train_phase(tmp: pathlib.Path, device) -> tuple:
     return launches, reports
 
 
+# phase 4c's training before it serves (the launcher's default is 600): the
+# served maps are held against the oracle of whatever net was trained
+SERVE_TRAIN_STEPS = 200
+
+
 def train_then_serve(device) -> int:
     """Phase 4c: the serve launcher trains its own nets and serves them;
     returns B4's launches."""
     base = ["--arch", "mrf-fpga", "--device", "cuda", "--phantom-n", "256",
-            "--requests", "8"]
+            "--requests", "8", "--train-steps", str(SERVE_TRAIN_STEPS)]
     rep = serve([*base, "--backend", "int8"])
     if rep["launches"] != {"fused_forward": rep["tiles"], "qat_dense": 0}:
         fail(f"train+serve int8: launches {rep['launches']} for "
              f"{rep['tiles']} tiles")
-    log(f"train+serve int8 (600 QAT steps): {rep['voxels_per_s']} voxels/s, "
+    log(f"train+serve int8 ({SERVE_TRAIN_STEPS} QAT steps): "
+        f"{rep['voxels_per_s']} voxels/s, "
         f"p50 {rep['p50_ms']} ms, launches {rep['launches']}")
     rep_f = serve([*base, "--backend", "float"],
                   expect="float engine == mrf_net.forward oracle")
     if rep_f["launches"] != {"fused_forward": 0, "qat_dense": 0}:
         fail(f"train+serve float launched int8 kernels: {rep_f['launches']}")
-    log(f"train+serve float (600 steps): {rep_f['voxels_per_s']} voxels/s, "
+    log(f"train+serve float ({SERVE_TRAIN_STEPS} steps): "
+        f"{rep_f['voxels_per_s']} voxels/s, "
         f"p50 {rep_f['p50_ms']} ms")
     return rep["launches"]["fused_forward"]
 
@@ -1484,7 +1504,8 @@ def event_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def device_events(run, lead=None, label: str = "device_events") -> tuple:
+def device_events(run, lead=None, label: str = "device_events",
+                  must: bool = True) -> tuple:
     """One profiler session of ``run()``: the device activity it recorded,
     sorted by start, and what ``run`` returned.
 
@@ -1493,21 +1514,29 @@ def device_events(run, lead=None, label: str = "device_events") -> tuple:
     the only launch of a one-launch session, 1 of 30 launches of B5 —
     whatever idle time or lead-in kernel opened the session, in this
     process or a new one — later in a long process up to 11 of 20 launches
-    of the training kernel, and once every record of a session (the
-    per-sample plain version's ~150,000 small kernels).  So with ``lead``
-    the session first calls ``lead()``, whose records absorb that loss,
-    then a one-element int16 ``fill_`` as a marker, and keeps only the
-    activity after the marker.  A session that kept nothing is taken again,
-    at most twice (``label`` names it in the log); fails when none kept
-    anything."""
+    of the training kernel (~180 ms of device time), and once every record
+    of a session (the per-sample plain version's ~150,000 small kernels).
+    So with ``lead`` the session first calls ``lead()``, whose records
+    absorb that loss, then a one-element int16 ``fill_`` as a marker, and
+    keeps only the activity after the marker.  A session that kept nothing
+    is taken again, up to ``DEVICE_EVENT_TRIES`` sessions in all (``label``
+    names it in the log).  ``lead()`` is repeated for at least ``LEAD_S``
+    s x 4 ** (session - 1) of host time: a lead of five 0.08 ms launches
+    did not outlast the loss, three sessions running.  When none kept
+    anything, fails, or (``must`` False) returns an empty list."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     marker = torch.zeros((1,), dtype=torch.int16, device="cuda")
-    for _ in range(3):
+    for attempt in range(DEVICE_EVENT_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             if lead is not None:
                 lead()
+                torch.cuda.synchronize()
+                until = time.perf_counter() + LEAD_S * 4 ** attempt
+                while time.perf_counter() < until:
+                    lead()
+                    torch.cuda.synchronize()
                 marker.fill_(1)
                 torch.cuda.synchronize()
             ret = run()
@@ -1521,9 +1550,12 @@ def device_events(run, lead=None, label: str = "device_events") -> tuple:
         if evs:
             return evs, ret
         log(f"  {label}: the profiler recorded no device activity"
-            f"{' after the marker' if lead else ''}; session taken again")
-    fail(f"{label}: the profiler recorded no device activity: no device "
-         f"time")
+            f"{' after the marker' if lead else ''} (session "
+            f"{attempt + 1} of {DEVICE_EVENT_TRIES})")
+    if must:
+        fail(f"{label}: the profiler recorded no device activity: no device "
+             f"time")
+    return [], ret
 
 
 def sum_by_class(evs) -> tuple:
@@ -1552,45 +1584,75 @@ def device_ms(fn, kernel: str | None, reps: int = REPS, warmup: int = 3,
     """Device time per call from the profiler's CUDA activity
     (:func:`device_events`): the median duration of the launches of
     ``kernel`` it recorded, or (``kernel=None``) the summed duration of
-    every device activity over ``reps`` calls, per call.  Fails when the
-    profiler records no device activity, or fewer than half the launches of
-    ``kernel``: wall time between CUDA events (:func:`event_ms`) is
-    reported beside it, never in its place.
+    every device activity over ``reps`` calls, per call.
 
     A session timing ``kernel`` makes ``2 * reps`` launches, the first
     ``reps`` to absorb the records the profiler drops, and keeps the last
     ``reps`` records of ``kernel``; a short count is logged (``label``
     names the call), not fatal.  A sum over ``kernel=None`` may read low,
-    unless ``lead`` calls open the session before its marker."""
+    unless ``lead`` calls open the session before its marker (and its
+    retries: :func:`device_events`).  Fails when the profiler records more
+    launches of ``kernel`` than were made.  When every session kept no
+    activity, or fewer than half the launches of ``kernel``, the time is
+    taken between CUDA events instead (:func:`event_span_ms`: ``reps``
+    calls back to back, per call), logged, and its label listed in
+    ``EVENT_TIMED``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    label = label or "device_ms"
 
     def calls(n):
         for _ in range(n):
             fn()
 
     if kernel is not None:
-        evs, _ = device_events(lambda: calls(2 * reps),
-                               label=label or "device_ms")
+        evs, _ = device_events(lambda: calls(2 * reps), label=label,
+                               must=False)
     else:
         evs, _ = device_events(lambda: calls(reps),
                                (lambda: calls(lead)) if lead else None,
-                               label=label or "device_ms")
+                               label=label, must=False)
     if kernel is None:
-        return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+        if evs:
+            return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+        return events_instead(fn, reps, label, "no device activity")
     recorded = [e.time_range.elapsed_us() for e in evs if kernel in e.name]
     if len(recorded) > 2 * reps:
         fail(f"{label}: profiler saw {len(recorded)} launches of {kernel} "
              f"in {2 * reps} calls")
     durs = recorded[-reps:]
     if len(durs) < reps // 2:
-        fail(f"{label}: profiler saw {len(durs)} launches of {kernel} in "
-             f"{reps}")
+        return events_instead(fn, reps, label, f"{len(durs)} launches of "
+                              f"{kernel} in {reps}")
     if len(durs) < reps:
         log(f"  {label}: the profiler recorded {len(durs)} of {reps} "
             f"launches of {kernel}; median of those")
     return statistics.median(durs) / 1e3
+
+
+def event_span_ms(fn, reps: int) -> float:
+    """``reps`` calls of ``fn`` back to back between two CUDA events, per
+    call: the device time when the host launches faster than the card
+    runs, with any gap the host leaves between launches counted in it."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def events_instead(fn, reps: int, label: str, why: str) -> float:
+    """:func:`event_span_ms` where the profiler kept too little (``why``):
+    logged, and ``label`` listed in ``EVENT_TIMED``."""
+    ms = event_span_ms(fn, reps)
+    EVENT_TIMED.append(label)
+    log(f"  {label}: the profiler kept {why}; timed between CUDA events "
+        f"instead: {ms:.6f} ms a call over {reps} calls back to back")
+    return ms
 
 
 def launch_floor_ms() -> float:
@@ -2851,22 +2913,26 @@ def encdec_vlm_phase(device) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launcher
 
-    n_ed, reports = token_runs(
-        ENCDEC_ARCH, get_config(ENCDEC_ARCH),
-        lambda: launcher.main(launcher_argv(ENCDEC_ARCH)), 2)
-    fns, params = lm_model(device, ENCDEC_ARCH)
-    encdec_vs_cpu(fns, params, device)
-    lm_breakdown(fns, params, device)
+    with took(f"token_runs {ENCDEC_ARCH}"):
+        n_ed, reports = token_runs(
+            ENCDEC_ARCH, get_config(ENCDEC_ARCH),
+            lambda: launcher.main(launcher_argv(ENCDEC_ARCH)), 2)
+    with took(f"encdec_vs_cpu and lm_breakdown {ENCDEC_ARCH}"):
+        fns, params = lm_model(device, ENCDEC_ARCH)
+        encdec_vs_cpu(fns, params, device)
+        lm_breakdown(fns, params, device)
     del params
     free_device()
-    n_vlm, vlm_reports = token_runs(
-        VLM_ARCH, get_config(VLM_ARCH),
-        lambda: launcher.main(launcher_argv(VLM_ARCH, 4, VLM_PROMPT)), 1,
-        requests=4)
+    with took(f"token_runs {VLM_ARCH}"):
+        n_vlm, vlm_reports = token_runs(
+            VLM_ARCH, get_config(VLM_ARCH),
+            lambda: launcher.main(launcher_argv(VLM_ARCH, 4, VLM_PROMPT)), 1,
+            requests=4)
     free_device()
-    fns, params = lm_model(device, VLM_ARCH)
-    layers_vs_cpu(fns, params, device, [0, 1], VLM_PROMPT)
-    lm_breakdown(fns, params, device, 4, VLM_PROMPT)
+    with took(f"layers_vs_cpu and lm_breakdown {VLM_ARCH}"):
+        fns, params = lm_model(device, VLM_ARCH)
+        layers_vs_cpu(fns, params, device, [0, 1], VLM_PROMPT)
+        lm_breakdown(fns, params, device, 4, VLM_PROMPT)
     del params
     free_device()
     return n_ed + n_vlm, reports + vlm_reports
@@ -3166,7 +3232,8 @@ def b6_bwd_time(err: float, device) -> dict:
 
 
 def lm_train_vs_cpu(device, arch: str = LM_ARCH, n_layers: int = 2,
-                    seq: int = 512, grad_ulps: int = TRAIN_GRAD_ULPS) -> dict:
+                    seq: int = 512, grad_ulps: int = TRAIN_GRAD_ULPS,
+                    lever: dict | None = None) -> dict:
     """Phases 4i and 4j: ``arch`` at full width, its first ``n_layers``
     layers (an encoder-decoder's first ``n_layers`` encoder and decoder
     layers), one batch of 1 x ``seq`` tokens from ``TextPipeline`` (made on
@@ -3179,7 +3246,8 @@ def lm_train_vs_cpu(device, arch: str = LM_ARCH, n_layers: int = 2,
     recompute must repeat the card's routing, the CPU's own choices may
     differ from the card's in at most ``MOE_FLIP_SHARE`` of a layer's
     (token, choice) pairs, and the CPU copy then trains on the card's
-    routing, so that both sides compute one function.  Returns the
+    routing, so that both sides compute one function.  ``lever``: config
+    fields set on both sides (phase 4m's ``parallel_block``).  Returns the
     readings."""
     import dataclasses
 
@@ -3190,7 +3258,8 @@ def lm_train_vs_cpu(device, arch: str = LM_ARCH, n_layers: int = 2,
     from repro_torch.models import registry
     from repro_torch.tree import leaves, rebuild, tree_map
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              **(lever or {}))
     if cfg.family == "encdec":
         cfg = dataclasses.replace(cfg, n_enc_layers=n_layers)
     fns = registry.build(cfg)
@@ -3199,7 +3268,8 @@ def lm_train_vs_cpu(device, arch: str = LM_ARCH, n_layers: int = 2,
     def loss_and_grads(params, batch):
         live = [p.detach().requires_grad_(True) for p in leaves(params)]
         loss = fns.loss(rebuild(params, live), batch)
-        return loss.detach(), torch.autograd.grad(loss, live)
+        return loss.detach(), torch.autograd.grad(loss, live,
+                                                  materialize_grads=True)
 
     fwd, bwd = kernel.flash_attention_call, kernel.flash_attention_bwd_call
     saved = fwd.launches, bwd.launches
@@ -3237,6 +3307,7 @@ def lm_train_vs_cpu(device, arch: str = LM_ARCH, n_layers: int = 2,
         fail(f"{arch} card vs CPU training: loss {float(loss_g)} vs "
              f"{float(loss_c)} ({loss_gap:.3g} > {TRAIN_LOSS_RTOL})")
     out = {"arch": arch, "layers": n_layers, "tokens": seq,
+           "lever": lever or {},
            "loss_card": float(loss_g), "loss_cpu": float(loss_c),
            "loss_rel_gap": loss_gap, "worst_grad_ulps": worst,
            "leaves": len(grads_g), "launches": counts,
@@ -3349,9 +3420,12 @@ def lm_step_work(cfg, b: int, s: int) -> dict:
     encoder layers and cross K/V projections over its ``enc_len_for(s)``
     frames —; the backward twice that; the blocks' forward again where
     they are recomputed (every family but the hybrid; the head is outside
-    the blocks).  Attention: 4 B Hq dh a kept pair (causal, within a
-    hybrid's window, unmasked over the frames) forward, again in a
-    recompute, 10 in B6-bwd (S, dP, dV, dK, dQ).  An SSM's scan products
+    the blocks), less each block's last product (:func:`recompute_skip`:
+    torch's checkpoint stops its recompute once the backward's saved
+    tensors are back, and nothing saved comes after it).  Attention: 4 B
+    Hq dh a kept pair (causal, within a hybrid's window, unmasked over the
+    frames) forward, again in a recompute, 10 in B6-bwd (S, dP, dV, dK,
+    dQ).  An SSM's scan products
     (``analysis.roofline.ssd_flops``, f32 at the f32 peak): forward,
     backward twice, and again in a recompute.  Bytes: Adam's update reads
     params, grads and both moments and writes params and moments, f32 (28
@@ -3363,7 +3437,8 @@ def lm_step_work(cfg, b: int, s: int) -> dict:
     remat = cfg.family != "hybrid"
     head = 2 * cfg.d_model * cfg.padded_vocab(1) * b * s
     attn = work["attention_ops"] // 4 * (18 if remat else 14)
-    flops = (4 if remat else 3) * work["block_ops"] + 3 * head + attn
+    flops = (4 if remat else 3) * work["block_ops"] + 3 * head + attn \
+        - (recompute_skip(cfg, b, s) if remat else 0)
     scan = (4 if remat else 3) * ssd_flops(cfg, b, s)
     nbytes = 28 * param_count(cfg)
     t_ops = (flops / H100["peak_bf16_flops"]
@@ -3372,6 +3447,27 @@ def lm_step_work(cfg, b: int, s: int) -> dict:
     return {"flops": flops, "scan_flops": scan, "attention_flops": attn,
             "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def recompute_skip(cfg, b: int, s: int) -> int:
+    """The products a training step's recompute leaves out: each
+    checkpointed block's last product, whose output the backward does not
+    need (its inputs are saved before it) — the FFN's output projection
+    (an MoE block's shared experts' one; with none, the routed experts'
+    combine saves last and nothing is left out), an SSM block's out
+    projection, over every decoder layer and an encoder-decoder's encoder
+    layers over its frames."""
+    from repro_torch.models.encdec import enc_len_for
+
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return 2 * cfg.d_inner * d * b * s * cfg.n_layers
+    width = cfg.n_shared_experts * cfg.d_ff if cfg.family == "moe" \
+        else cfg.d_ff
+    tokens = b * s * cfg.n_layers
+    if cfg.family == "encdec":
+        tokens += b * enc_len_for(s) * cfg.n_enc_layers
+    return 2 * width * d * tokens
 
 
 def train_launches(cfg) -> tuple:
@@ -3485,12 +3581,13 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
     (``check_flash_attention_bwd``), the card against the CPU
     (``lm_train_vs_cpu``), then tinyllama-1.1b whole (22 layers, random
     weights from seed 0) through ``repro_torch.launch.train`` at 8 x 2,048
-    tokens a step, twice from fresh checkpoint directories:
+    tokens a step, twice:
 
-    * run A, ``TRAIN_STEPS`` steps uninterrupted: the loss falls; B6 and
-      B6-bwd counted from 0 just before the run, 44 and 22 launches a step
-      (phase 4k repeats it on the mesh);
-    * run B, the same with a crash injected at step 3: its steps before the
+    * run A, ``TRAIN_STEPS`` steps uninterrupted, no checkpoint: the loss
+      falls; B6 and B6-bwd counted from 0 just before the run, 44 and 22
+      launches a step (phase 4k repeats it on the mesh);
+    * run B, the same from a fresh checkpoint directory with a crash
+      injected at step 3: its steps before the
       crash repeat A's losses bit for bit (a rerun), and after the restart
       from the step-0 checkpoint (12 bytes a parameter: params and Adam's
       moments) its losses and params digest equal A's (crash + restart ==
@@ -3498,20 +3595,24 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
 
     Returns (B6-bwd's kernel readings, the phase's record, the main path's
     launch counts of run A)."""
-    held = check_flash_attention_bwd(device)
-    vs_cpu = lm_train_vs_cpu(device)
+    with took("check_flash_attention_bwd"):
+        held = check_flash_attention_bwd(device)
+    with took("lm_train_vs_cpu"):
+        vs_cpu = lm_train_vs_cpu(device)
     from repro_torch.configs import get_config
 
     cfg = get_config(LM_ARCH)
     steps = TRAIN_STEPS
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
         base = ["--arch", LM_ARCH, "--steps", str(steps), "--batch", str(b),
-                "--seq", str(s), "--ckpt-every", "1000", "--device",
-                device.type]
-        rep_a, counts = lm_train(base + ["--ckpt-dir", f"{tmp}/a"])
-        shutil.rmtree(f"{tmp}/a")
-        rep_b, counts_b = lm_train(base + ["--ckpt-dir", f"{tmp}/b",
-                                           "--inject-fault-at", "3"])
+                "--seq", str(s), "--device", device.type]
+        with took("4i run A"):
+            rep_a, counts = lm_train(base + ["--ckpt-every", "0",
+                                             "--ckpt-dir", f"{tmp}/a"])
+        with took("4i run B"):
+            rep_b, counts_b = lm_train(base + [
+                "--ckpt-every", "1000", "--ckpt-dir", f"{tmp}/b",
+                "--inject-fault-at", "3"])
     per_step = train_launches(cfg)
     if (counts["flash_attn"], counts["flash_attn_bwd"]) != \
             (per_step[0] * steps, per_step[1] * steps) or \
@@ -3536,7 +3637,8 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
              f"uninterrupted: {rep_b['losses']} vs {rep_a['losses']}, "
              f"digest {rep_b['params_digest']} vs {rep_a['params_digest']}")
     work = lm_step_work(cfg, b, s)
-    breakdown = lm_train_breakdown_fresh(b, s)
+    with took("lm_train_breakdown_fresh"):
+        breakdown = lm_train_breakdown_fresh(b, s)
     steps_s = sum(rep_a["step_ms"]) / 1e3
     record = {
         "arch": LM_ARCH, "batch": b, "seq": s, "steps": steps,
@@ -3549,7 +3651,7 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
                               "flash_attn_bwd": counts["flash_attn_bwd"]
                               / steps},
         "runner_wall_s": rep_a["wall_s"],
-        "checkpoint_and_setup_s": rep_a["wall_s"] - steps_s,
+        "setup_s": rep_a["wall_s"] - steps_s,
         "restart_run_wall_s": rep_b["wall_s"],
         "rerun_bit_equal_steps": 3, "restart_bit_equal": True,
         "params_digest": rep_a["params_digest"],
@@ -3560,8 +3662,8 @@ def lm_train_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
         f"{work['bound_ms']:.1f} ms ({work['bound_by']}: "
         f"{work['flops']:.4g} FLOP), peak {record['peak_device_gib']:.2f} "
         f"GiB; the runner's wall {rep_a['wall_s']:.1f} s of which "
-        f"{record['checkpoint_and_setup_s']:.1f} s outside the steps (the "
-        f"step-0 checkpoint); with the crash {rep_b['wall_s']:.1f} s; "
+        f"{record['setup_s']:.1f} s outside the steps; with the step-0 "
+        f"checkpoint and the crash {rep_b['wall_s']:.1f} s; "
         f"launches a step B6 {per_step[0]}, B6-bwd {per_step[1]}  [{smi}]")
     return held, record, counts
 
@@ -3789,8 +3891,8 @@ def family_train_phase(device, smi: str) -> tuple:
     (an encoder-decoder's 2 + 2) at 1 x 512 tokens for the MoE, SSM, hybrid
     and encoder-decoder families (:func:`lm_train_vs_cpu`: MoE routing
     counted first and replayed); one step of mamba2-1.3b and of
-    deepseek-moe-16b (4 layers) profiled by kernel class, each in a process
-    of its own (:func:`lm_train_breakdown_fresh`); B6-bwd timed at the
+    deepseek-moe-16b, each at its depth here, profiled by kernel class, each
+    in a process of its own (:func:`lm_train_breakdown_fresh`); B6-bwd timed at the
     training shapes (``FAMILY_BWD_SHAPES``).  Returns (the records, the
     launches of the training runs, the B6-bwd timings by key)."""
     records, launches = [], {"flash_attn": 0, "flash_attn_bwd": 0}
@@ -3801,15 +3903,17 @@ def family_train_phase(device, smi: str) -> tuple:
         records.append(rec)
         for k in launches:
             launches[k] += counts[k]
-    vs_cpu = {arch: lm_train_vs_cpu(device, arch,
-                                    grad_ulps=FAMILY_GRAD_ULPS)
-              for arch in (MOE_ARCH, SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH)}
+    with took("lm_train_vs_cpu, four families"):
+        vs_cpu = {arch: lm_train_vs_cpu(device, arch,
+                                        grad_ulps=FAMILY_GRAD_ULPS)
+                  for arch in (MOE_ARCH, SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH)}
     by_arch = {r["arch"]: r for r in records if not r["quant"]}
     for arch, out in vs_cpu.items():
         by_arch[arch]["vs_cpu"] = out
-    for arch, layers in ((SSM_ARCH, 0), (MOE_ARCH, 4)):
-        by_arch[arch]["breakdown"] = lm_train_breakdown_fresh(
-            8, FAMILY_SEQ, arch, layers)
+    for arch in (SSM_ARCH, MOE_ARCH):
+        with took(f"lm_train_breakdown_fresh {arch}"):
+            by_arch[arch]["breakdown"] = lm_train_breakdown_fresh(
+                8, FAMILY_SEQ, arch, by_arch[arch]["layers"])
     bwd_times = {}
     batch_of = {r["arch"]: r["batch"] for r in records if not r["quant"]}
     for key, arch, (label, *shape), per_step in FAMILY_BWD_SHAPES:
@@ -4156,10 +4260,254 @@ def mesh_family_phase(device, smi: str, records_4j: list) -> tuple:
             f"{a['peak_device_gib']:.2f}; launches a step B6 {per_step[0]}, "
             f"B6-bwd {per_step[1]}; {seconds:.1f} s  [{smi}]")
         free_device()
-    slices = check_b6_tp_slices(device, MESH_FAMILY_CASES)
+    with took("check_b6_tp_slices, 4l"):
+        slices = check_b6_tp_slices(device, MESH_FAMILY_CASES)
     for rec in runs:
         log("mesh_family_run " + json.dumps(rec))
     return {"runs": runs, "b6_tp_slices": slices, "smi": smi}, launches
+
+
+LEVER_STEPS = 3
+INT8_LOSS_SHARE = 0.1       # the reference's test_int8_hlo_close_to_float
+COUNTER_RTOL = 0.01         # the counter against lm_step_work's FLOP
+INT8_DENSE_SHAPES = ((8, 256, 2048, 5632), (1, 8, 2048, 2048))
+
+
+def lever_run(cfg, b: int, s: int, device, count: bool = False) -> dict:
+    """One run of the port's train step (``train/step.py``, Adam at the
+    launcher's 3e-4, global norm clipped to 1.0, deterministic algorithms)
+    on ``cfg`` at full width, random weights from seed 0, the launcher's
+    batches (``lm_batches``, steps 0..LEVER_STEPS-1): the losses, ms a
+    step (host clock around a step that ends in reading its loss; the
+    median of the steps after the first), the peak of
+    ``torch.cuda.max_memory_allocated`` from the initial state on, B6 and
+    B6-bwd launches a step, the params digest.  ``count``: one more step
+    under ``analysis.cost.StepCounter`` (its record under ``cost``)."""
+    from repro_torch.analysis.cost import StepCounter
+    from repro_torch.data.lm_text import TextPipeline
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.launch.train import (deterministic, lm_batches,
+                                          params_digest, warm_backward)
+    from repro_torch.models import registry
+    from repro_torch.optim import adam
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    fwd, bwd = kernel.flash_attention_call, kernel.flash_attention_bwd_call
+    free_device()
+    out = {"losses": [], "step_ms": []}
+    with deterministic():
+        fns = registry.build(cfg)
+        opt = adam(3e-4)
+        step = make_train_step(fns.loss, opt, max_grad_norm=1.0)
+        pipe = TextPipeline(seq_len=s, batch_size=b,
+                            vocab_size=min(cfg.vocab_size, 256))
+        batches = lm_batches(cfg, pipe, device)
+        warm_backward(device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        state = init_train_state(fns.init(0, device=device), opt)
+        before = fwd.launches, bwd.launches
+        for i in range(LEVER_STEPS):
+            batch = batches(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            out["losses"].append(float(metrics["loss"]))
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches_per_step"] = [
+            (fwd.launches - before[0]) / LEVER_STEPS,
+            (bwd.launches - before[1]) / LEVER_STEPS]
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        out["ms_per_step"] = statistics.median(out["step_ms"][1:])
+        out["params_digest"] = params_digest(state.params)
+        # the activations one forward keeps for its backward (the step's
+        # peak is Adam's update, where they are gone)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        live = tree_map(lambda p: p.detach().requires_grad_(True),
+                        state.params)
+        loss = fns.loss(live, batches(0))
+        torch.cuda.synchronize()
+        out["forward_kept_gib"] = (torch.cuda.memory_allocated(device)
+                                   - base) / 2 ** 30
+        del loss, live
+        if count:
+            batch = batches(LEVER_STEPS)
+            counter = StepCounter((state, batch))
+            with counter:
+                new = step(state, batch)
+            torch.cuda.synchronize()
+            out["cost"] = counter.result()
+            del new
+    del state, batch
+    free_device()
+    return out
+
+
+def int8_dense_vs_cpu(device) -> list:
+    """``dense(quant="int8-hlo")`` (``torch._int_mm`` on the card) against
+    the CPU on the same x and f32 w, bf16 and f32, at an MLP product of
+    phase 4m's step and at a decode step's 8 rows (padded to 17 for the
+    card's operator): bit for bit."""
+    from repro_torch.models.common import dense
+
+    rows = []
+    gen = torch.Generator().manual_seed(11)
+    for b, sq, k, n in INT8_DENSE_SHAPES:
+        w = 0.02 * torch.randn((k, n), generator=gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((b, sq, k), generator=gen).to(dtype)
+            got = dense(x.to(device), w.to(device), quant="int8-hlo").cpu()
+            want = dense(x, w, quant="int8-hlo")
+            if not torch.equal(got, want):
+                fail(f"int8-hlo dense {(b, sq, k, n)} {dtype}: card != CPU, "
+                     f"{float((got.float() - want.float()).abs().max()):.3g}"
+                     f" off")
+            rows.append({"shape": [b, sq, k, n], "dtype": str(dtype),
+                         "bit_equal": True})
+    return rows
+
+
+def int8_product_times(device, m: int = 16384, k: int = 2048,
+                       n: int = 5632) -> dict:
+    """int8-hlo's product alone at tinyllama's widest MLP product (8 x
+    2,048 tokens): ``torch._int_mm`` with its second operand row-major (as
+    ``models.common.int8_product`` passes it) and column-major, beside the
+    bf16 product of the float step; ms between CUDA events
+    (:func:`event_ms`).  Both layouts give the same int32 sums."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=device,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=device,
+                      dtype=torch.int8)
+    b_cols = b.t().contiguous().t()
+    if not torch.equal(torch._int_mm(a, b), torch._int_mm(a, b_cols)):
+        fail("_int_mm: a column-major operand gives other sums")
+    xb = torch.randn((m, k), generator=gen, device=device).bfloat16()
+    wb = torch.randn((k, n), generator=gen, device=device).bfloat16()
+    out = {"shape": [m, k, n],
+           "int_mm_row_major_ms": event_ms(lambda: torch._int_mm(a, b)),
+           "int_mm_col_major_ms": event_ms(lambda: torch._int_mm(a, b_cols)),
+           "bf16_mm_ms": event_ms(lambda: torch.matmul(xb, wb))}
+    del a, b, b_cols, xb, wb
+    return out
+
+
+def lever_phase(device, smi: str, b: int = 8, s: int = 2048) -> tuple:
+    """Phase 4m: the dry-run slice's levers and its cost counter on the
+    card, tinyllama-1.1b whole (22 layers) at 4i's 8 x 2,048 tokens, the
+    launcher's batches, 3 steps a run (:func:`lever_run`):
+
+    1. ``remat="full"``: ms a step, peak GiB, B6 / B6-bwd launches a step
+       (44 / 22), and one more step under ``analysis.cost.StepCounter``:
+       its products' and attention's FLOP within ``COUNTER_RTOL`` of
+       ``lm_step_work``; the dry-run's fake trace of the same step at
+       world 1 (``launch.dryrun.trace_cell``, no mesh) counts the same
+       FLOP, its memory peak printed beside the card's as a ratio;
+    2. ``remat="save_attn"``: losses and params digest bit-equal to run 1,
+       the same launches, its peak and a forward's kept activations beside
+       run 1's (the step's peak is Adam's update, after the backward);
+    3. ``parallel_block``: losses finite and the first loss within 10% of
+       run 1's; its first 2 layers card vs CPU (``lm_train_vs_cpu``);
+    4. ``quant="int8-hlo"``: ``dense`` card vs CPU bit for bit
+       (:func:`int8_dense_vs_cpu`); the first loss within
+       ``INT8_LOSS_SHARE`` of run 1's; ms a step beside run 1's; its
+       product alone beside bf16's (:func:`int8_product_times`).
+
+    Returns (the ``dryrun_run`` record, B6's and B6-bwd's launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.launch import dryrun
+
+    fwd, bwd = kernel.flash_attention_call, kernel.flash_attention_bwd_call
+    fwd.launches = bwd.launches = 0
+    cfg = get_config(LM_ARCH)
+    runs = {"full": lever_run(cfg, b, s, device, count=True)}
+    for name, lever in (("save_attn", dict(remat="save_attn")),
+                        ("parallel_block", dict(parallel_block=True)),
+                        ("int8-hlo", dict(quant="int8-hlo"))):
+        runs[name] = lever_run(dataclasses.replace(cfg, **lever), b, s,
+                               device)
+    launches = {"flash_attn": fwd.launches,
+                "flash_attn_bwd": bwd.launches}
+    full, saved = runs["full"], runs["save_attn"]
+    want = [float(n) for n in train_launches(cfg)]
+    for name, run in runs.items():
+        if run["launches_per_step"] != want:
+            fail(f"4m {name}: B6 / B6-bwd launches a step "
+                 f"{run['launches_per_step']}, not {want}")
+        if not all(map(math.isfinite, run["losses"])):
+            fail(f"4m {name}: losses {run['losses']}")
+    if saved["losses"] != full["losses"] or \
+            saved["params_digest"] != full["params_digest"]:
+        fail(f"4m save_attn differs from full: {saved['losses']} vs "
+             f"{full['losses']}, digest {saved['params_digest']} vs "
+             f"{full['params_digest']}")
+    first = full["losses"][0]
+    for name in ("parallel_block", "int8-hlo"):
+        gap = abs(runs[name]["losses"][0] - first) / first
+        runs[name]["first_loss_gap"] = gap
+        if not gap < INT8_LOSS_SHARE:
+            fail(f"4m {name}: first loss {runs[name]['losses'][0]} vs "
+                 f"full's {first} ({gap:.3g} >= {INT8_LOSS_SHARE})")
+    pb_vs_cpu = lm_train_vs_cpu(device, lever=dict(parallel_block=True))
+    int8_rows = int8_dense_vs_cpu(device)
+    int8_times = int8_product_times(device)
+
+    cost = full.pop("cost")
+    work = lm_step_work(cfg, b, s)
+    counter_gap = cost["flops"] / work["flops"] - 1
+    if not abs(counter_gap) <= COUNTER_RTOL:
+        fail(f"4m counter: {cost['flops']:.6g} FLOP against lm_step_work's "
+             f"{work['flops']:.6g} ({counter_gap:+.3g})")
+    t0 = time.perf_counter()
+    fake = dryrun.trace_cell(cfg, ShapeCell("phase_4m", s, b, "train"))
+    trace_s = time.perf_counter() - t0
+    if fake["flops"] != cost["flops"] or \
+            fake["flops_by_op"] != cost["flops_by_op"]:
+        fail(f"4m: the fake trace counts {fake['flops_by_op']}, the card's "
+             f"step {cost['flops_by_op']}")
+    fake_peak = fake["memory"]["peak_per_device_bytes"] / 2 ** 30
+    record = {
+        "arch": LM_ARCH, "batch": b, "seq": s, "steps": LEVER_STEPS,
+        "runs": runs, "save_attn_peak_gib_over_full":
+            saved["peak_gib"] - full["peak_gib"],
+        "save_attn_predicted_gib": cfg.n_layers * b * s * cfg.d_model * 2
+            / 2 ** 30,
+        "save_attn_forward_kept_gib_over_full":
+            saved["forward_kept_gib"] - full["forward_kept_gib"],
+        "parallel_block_vs_cpu": pb_vs_cpu, "int8_dense_vs_cpu": int8_rows,
+        "int8_product_times": int8_times,
+        "counter": {"flops": cost["flops"], "flops_by_op": cost["flops_by_op"],
+                    "hbm_bytes": cost["hbm_bytes"], "ops": cost["ops"],
+                    "memory": cost["memory"],
+                    "lm_step_work_flops": work["flops"],
+                    "gap": counter_gap},
+        "fake_trace": {"flops": fake["flops"], "trace_s": trace_s,
+                       "peak_gib": fake_peak,
+                       "peak_over_card_peak": fake_peak / full["peak_gib"],
+                       "memory": fake["memory"]},
+        "launches": launches, "smi": smi}
+    log(f"4m {LM_ARCH} at {b} x {s}, {LEVER_STEPS} steps a run: full "
+        f"{full['ms_per_step']:.1f} ms a step, peak {full['peak_gib']:.2f} "
+        f"GiB; save_attn bit-equal, peak {saved['peak_gib']:.2f} GiB "
+        f"(+{record['save_attn_peak_gib_over_full']:.3f}, predicted "
+        f"+{record['save_attn_predicted_gib']:.3f}), a forward's kept "
+        f"activations {saved['forward_kept_gib']:.3f} against "
+        f"{full['forward_kept_gib']:.3f} GiB; parallel_block first "
+        f"loss {runs['parallel_block']['losses'][0]:.6f}; int8-hlo "
+        f"{runs['int8-hlo']['ms_per_step']:.1f} ms a step, first loss "
+        f"{runs['int8-hlo']['losses'][0]:.6f} vs {first:.6f}, _int_mm "
+        f"{int8_times['int_mm_row_major_ms']:.3f} ms (column-major "
+        f"{int8_times['int_mm_col_major_ms']:.3f}) against bf16 "
+        f"{int8_times['bf16_mm_ms']:.3f} at {int8_times['shape']}; counter "
+        f"{cost['flops']:.6g} FLOP ({counter_gap:+.2e} of lm_step_work), "
+        f"the fake trace the same in {trace_s:.1f} s, its peak "
+        f"{fake_peak:.2f} GiB = {record['fake_trace']['peak_over_card_peak']:.4f}"
+        f" of the card's  [{smi}]")
+    return record, launches
 
 
 def main() -> int:
@@ -4191,30 +4539,43 @@ def main() -> int:
                                      "arning")):
                 log(f"  ptxas {kname}: {ln.strip()}")
 
-    check_sass(build)
+    with took("check_sass"):
+        check_sass(build)
 
+    t_checks = time.perf_counter()
     from repro_torch.core import mrf_net
     layers = {arch: calibrated_net(hidden, 1, device)
               for arch, hidden in (("mrf-fpga", mrf_net.ADAPTED_HIDDEN),
                                    ("mrf-original", mrf_net.ORIGINAL_HIDDEN),
                                    ("wide (256, 256, 32)", (256, 256, 32)))}
     nets = {arch: ops.prepad_int_layers(ls) for arch, ls in layers.items()}
-    errs = check_kernels(nets, device)
-    check_training_data(device)
-    errs.update(check_training_kernels(device))
-    errs["flash_attn"] = check_flash_attention(device)
-    flash_row = flash_attention_timing(errs["flash_attn"], device)
+    with took("check_kernels"):
+        errs = check_kernels(nets, device)
+    with took("check_training_data"):
+        check_training_data(device)
+    with took("check_training_kernels"):
+        errs.update(check_training_kernels(device))
+    with took("check_flash_attention"):
+        errs["flash_attn"] = check_flash_attention(device)
+    with took("flash_attention_timing"):
+        flash_row = flash_attention_timing(errs["flash_attn"], device)
+    log(f"kernel checks and B6's timing: "
+        f"{time.perf_counter() - t_checks:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t_serve = time.perf_counter()
         launches = serve_phase(pathlib.Path(tmp), device)
+        log(f"serving phase: {time.perf_counter() - t_serve:.1f} s")
         t_chaos = time.perf_counter()
         chaos = chaos_phase(pathlib.Path(tmp), device)
         for kname, n in chaos["launches"].items():
             launches[kname] += n
         log(f"chaos phase: {time.perf_counter() - t_chaos:.1f} s")
         t_train = time.perf_counter()
-        train_launches, reports = train_phase(pathlib.Path(tmp), device)
-        launches["fused_forward"] += train_then_serve(device)
+        with took("train_phase"):
+            train_launches, reports = train_phase(pathlib.Path(tmp), device)
+        with took("train_then_serve"):
+            launches["fused_forward"] += train_then_serve(device)
         log(f"training phases: {time.perf_counter() - t_train:.1f} s")
     launches.update(train_launches)
     t_paper = time.perf_counter()
@@ -4248,11 +4609,16 @@ def main() -> int:
         if n <= 0:
             fail(f"kernel {kname} was never launched on the main path")
 
-    rows = timing_phase(nets["mrf-fpga"], layers["mrf-fpga"], launches, errs,
-                        device)
-    rows += training_timing(launches, errs, device)
+    t_timing = time.perf_counter()
+    with took("timing_phase"):
+        rows = timing_phase(nets["mrf-fpga"], layers["mrf-fpga"], launches,
+                            errs, device)
+    with took("training_timing"):
+        rows += training_timing(launches, errs, device)
     flash_row["launches"] = launches["flash_attn"]
     rows.append(flash_row)
+    log(f"kernel timings (5): {time.perf_counter() - t_timing:.1f} s")
+    t_breakdown = time.perf_counter()
     # last: its profiler sessions come after every kernel's timing
     lm_breakdown(fns, lm_params, device)
     lm_breakdown(moe_fns, moe_params, device)
@@ -4266,6 +4632,7 @@ def main() -> int:
     lm_breakdown(hyb_fns, hyb_params, device)
     del ssm_params, hyb_params
     free_device()
+    log(f"serving breakdowns: {time.perf_counter() - t_breakdown:.1f} s")
     t_4h = time.perf_counter()
     n_4h, encdec_vlm_reports = encdec_vlm_phase(device)
     flash_row["launches"] += n_4h
@@ -4275,7 +4642,8 @@ def main() -> int:
     t_4i = time.perf_counter()
     bwd_held, lm_train_record, lm_counts = lm_train_phase(device, smi)
     flash_row["launches"] += lm_counts["flash_attn"]
-    bwd_row = b6_bwd_time(bwd_held["max_abs_err"], device)
+    with took("b6_bwd_time"):
+        bwd_row = b6_bwd_time(bwd_held["max_abs_err"], device)
     bwd_row["launches"] = lm_counts["flash_attn_bwd"]
     rows.append(bwd_row)
     log(f"LM training phase (4i): {time.perf_counter() - t_4i:.1f} s")
@@ -4304,6 +4672,13 @@ def main() -> int:
         r["launches"] += mesh_family_launches.get(r["name"], 0)
     log(f"the other families on the sharded path (4l): "
         f"{time.perf_counter() - t_4l:.1f} s")
+    free_device()
+    t_4m = time.perf_counter()
+    lever_record, lever_launches = lever_phase(device, smi)
+    for r in rows:  # B6 and B6-bwd launched on the levers' runs
+        r["launches"] += lever_launches.get(r["name"], 0)
+    log(f"the levers and the counter (4m): "
+        f"{time.perf_counter() - t_4m:.1f} s")
     for r in rows:
         log(f"time {r['name']} ({r['shape']}): {r['ms']:.6f} ms on the "
             f"device, {r['wall_ms']:.6f} ms per call, plain "
@@ -4367,8 +4742,11 @@ def main() -> int:
         f"forward under grad {f['library_ms']:.6f} ms  [{smi}]")
     log("lm_train_run " + json.dumps(lm_train_record))
     log("mesh_run " + json.dumps(mesh_record))
+    log("dryrun_run " + json.dumps(lever_record))
     log("chaos_run " + json.dumps(chaos))
     log("eq3_run " + json.dumps(eq3_summary(eq3_runs, rows, name, smi)))
+    log("timed between CUDA events, the profiler having kept too little: "
+        + (json.dumps(EVENT_TIMED) if EVENT_TIMED else "none"))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -6,7 +6,7 @@ from repro_torch.configs import (deepseek_moe_16b, granite_8b, hymba_1_5b,
                                  mrf_fpga, mrf_original, phi35_moe_42b,
                                  qwen2_5_14b, seamless_m4t_large_v2,
                                  tinyllama_1_1b)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, cells_for
 
 ARCHS = {m.CONFIG.name: m for m in (
     phi35_moe_42b, deepseek_moe_16b, tinyllama_1_1b, granite_8b,
@@ -26,3 +26,9 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _module(name).smoke()
+
+
+def lm_archs() -> list:
+    """The LM archs (every one but the MRF nets), sorted: the dry-run's
+    default sweep."""
+    return sorted(n for n, m in ARCHS.items() if m.CONFIG.family != "mrf")

@@ -12,6 +12,8 @@ import math
 
 PORTED_FAMILIES = ("mrf", "dense", "moe", "ssm", "hybrid", "encdec",
                    "vlm")
+QUANT_MODES = ("none", "qat-int8", "int8-hlo")
+REMAT_MODES = ("full", "save_attn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,11 +33,12 @@ class ModelConfig:
     gated_mlp: bool = True    # SwiGLU (llama family); False -> squared ReLU
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
-    quant: str = "none"       # "none" or "qat-int8" (fake-quant QAT);
-                              # "int8-hlo" refused (ROADMAP §A 5)
-    parallel_block: bool = False  # PaLM-style attn || mlp: refused (§A 5)
+    quant: str = "none"       # "none", "qat-int8" (fake-quant QAT) or
+                              # "int8-hlo" (true int8 forward products)
+    parallel_block: bool = False  # PaLM-style attn || FFN on one input
     remat: str = "full"       # "full": each block's activations recomputed
-                              # in the backward; "save_attn" refused (§A 5)
+                              # in the backward; "save_attn": its attention
+                              # output kept, the rest recomputed
     decode_unroll: bool = False  # per-layer decode caches (else stacked)
     # --- MoE (family == "moe") ---
     n_experts: int = 0        # routed experts
@@ -61,6 +64,12 @@ class ModelConfig:
         if self.d_head:
             return self.d_head
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the ``long_500k`` decode cell (a bounded state a
+        token: the SSM and hybrid families)."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def d_inner(self) -> int:  # SSM inner width
@@ -109,22 +118,12 @@ class ModelConfig:
         if self.family == "moe" and (self.n_experts <= 0 or self.top_k <= 0):
             raise ValueError(f"{self.name}: MoE configs need experts and a "
                              f"positive top_k")
-        if self.quant not in ("none", "qat-int8"):
-            raise NotImplementedError(
-                f"{self.name}: quant={self.quant!r} (int8 dots) is not ported "
-                f"yet; the reference reaches it only through its dry-run "
-                f"(ROADMAP.md §A 5). quant='qat-int8' trains")
-        if self.parallel_block:
-            raise NotImplementedError(
-                f"{self.name}: parallel_block is not ported yet; the "
-                f"reference reaches it only through its dry-run (ROADMAP.md "
-                f"§A 5)")
-        if self.remat != "full":
-            raise NotImplementedError(
-                f"{self.name}: remat={self.remat!r}; the port checkpoints "
-                f"whole blocks (\"full\"), \"save_attn\" waits for the "
-                f"dry-run, its only entry point in the reference (ROADMAP.md "
-                f"§A 5)")
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"{self.name}: quant={self.quant!r} not in "
+                             f"{QUANT_MODES}")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"{self.name}: remat={self.remat!r} not in "
+                             f"{REMAT_MODES}")
         return self
 
     def _validate_attention(self) -> None:
@@ -140,6 +139,34 @@ class ModelConfig:
             raise ValueError(f"{self.name}: heads do not cover d_model")
         if self.head_dim % 2:
             raise ValueError(f"{self.name}: RoPE needs an even head dim")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One shape of the dry-run's sweep (the reference's ``ShapeCell``):
+    ``global_batch`` sequences of ``seq_len`` tokens, trained, prefilled,
+    or decoded one token a sequence against a cache of ``seq_len``."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train", "prefill" or "decode"
+
+
+# the reference's TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K and
+# ALL_CELLS; renamed, as its dead-exports allowlist holds those names
+CELL_TRAIN_4K = ShapeCell("train_4k", 4_096, 256, "train")
+CELL_PREFILL_32K = ShapeCell("prefill_32k", 32_768, 32, "prefill")
+CELL_DECODE_32K = ShapeCell("decode_32k", 32_768, 128, "decode")
+CELL_LONG_500K = ShapeCell("long_500k", 524_288, 1, "decode")
+SHAPE_CELLS = (CELL_TRAIN_4K, CELL_PREFILL_32K, CELL_DECODE_32K,
+               CELL_LONG_500K)
+
+
+def cells_for(cfg: ModelConfig) -> list:
+    """The cells an LM arch runs: every one, but ``long_500k`` only for a
+    sub-quadratic arch (the reference's rule)."""
+    return [c for c in SHAPE_CELLS
+            if c.name != "long_500k" or cfg.sub_quadratic]
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -246,6 +246,47 @@ def grad_placements(in_placements: Sequence, *out_placements) -> list:
             for i, p in enumerate(in_placements)]
 
 
+class _GradPlacedAsInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if isinstance(p, Partial) else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if any(isinstance(p, Partial) for p in g.placements):
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_placed_as(x):
+    """``x`` (the identity in the forward) whose gradient, where it comes
+    back with pending sums, is redistributed to ``x``'s own placements (a
+    pending ``x`` to replicated): the shares of the gradient that the
+    tensor-parallel products reading ``x`` leave on each ``model`` rank
+    are reduced there, as Megatron reduces a column-parallel input's
+    gradient and GSPMD places it in the reference.  Left pending, DTensor
+    carries the pending sum into the ops before and runs their backward
+    products at full width.  The identity for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    return _GradPlacedAsInput.apply(x)
+
+
+def local_block(shape, mesh, placements) -> tuple:
+    """(local shape, global offset) of this rank's block of a tensor of
+    ``shape`` placed by ``placements`` on ``mesh``, as ints (DTensor's
+    helper; the dry-run runs it outside its fake mode,
+    ``launch.dryrun.dtensor_metadata_outside_fake``)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    local, offset = compute_local_shape_and_global_offset(shape, mesh,
+                                                          placements)
+    return tuple(local), tuple(int(o) for o in offset)
+
+
 # --------------------------------------------------------------------------
 # trees
 # --------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Shared LM components (counterpart of ``repro.models.common``): RMSNorm,
 the dense projection with the paper's int8 QAT (``quant="qat-int8"``:
-:func:`fake_quantize_int8` on both operands), RoPE and the normal init.
+:func:`fake_quantize_int8` on both operands) and its deployment form
+(``quant="int8-hlo"``: a true int8 product, :class:`DenseInt8`), RoPE and
+the normal init.
 
 Activations run in bf16 (``COMPUTE`` dtype) from the embedding on; params
 are fp32 masters.  ``dense`` casts a weight to the activation's dtype at
@@ -20,19 +22,23 @@ import torch
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.dist.sharding import replicated_like
+from repro_torch.dist.sharding import (grad_placed_as, grad_placements,
+                                       local_block, replicated_like)
 
 COMPUTE = torch.bfloat16
 
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5):
     """RMSNorm in f32, rounded to x's dtype before the gain, as the
-    reference: ``(x32 * scale).astype(dt) * gain.astype(dt)``."""
+    reference: ``(x32 * scale).astype(dt) * gain.astype(dt)``.  On a
+    DTensor its gradient comes back placed as its output
+    (``dist.sharding.grad_placed_as``): the projections that read a normed
+    input reduce their shares of its gradient there."""
     dt = x.dtype
     x32 = x.float()
     scale = torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True)
                         + eps)
-    return (x32 * scale).to(dt) * gain.to(dt)
+    return grad_placed_as((x32 * scale).to(dt) * gain.to(dt))
 
 
 def fake_quantize_int8(x: torch.Tensor) -> torch.Tensor:
@@ -51,17 +57,113 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
           quant: str = "none") -> torch.Tensor:
     """``x @ w (+ b)`` in x's dtype, w in the ``(in, out)`` layout.
     ``quant="qat-int8"`` fake-quantizes x and w (w in its own dtype, the
-    f32 master, before its cast) first."""
-    if quant == "qat-int8":
-        x, w = fake_quantize_int8(x), fake_quantize_int8(w)
-    elif quant != "none":
-        raise NotImplementedError(
-            f"quant={quant!r} (int8 dots) waits for the dry-run slice, its "
-            f"only entry point in the reference (ROADMAP.md §A 5)")
-    y = torch.matmul(x, w.to(x.dtype))
+    f32 master, before its cast) first; ``quant="int8-hlo"`` computes the
+    product in int8 (:func:`dense_int8`)."""
+    if quant == "int8-hlo":
+        y = dense_int8(x, w.float())
+    else:
+        if quant == "qat-int8":
+            x, w = fake_quantize_int8(x), fake_quantize_int8(w)
+        elif quant != "none":
+            raise ValueError(f"quant={quant!r}: 'none', 'qat-int8' or "
+                             f"'int8-hlo'")
+        y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def int8_scales(x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """The reference's dynamic symmetric scales of ``_dense_int8_core``:
+    ``sx = max|x| / 127 + 1e-12`` in x's dtype (0-d) and ``sw``, the same
+    per output column of the f32 ``w`` (1, N); each divides by a device
+    tensor (on CUDA a division by a Python scalar is a reciprocal
+    multiply)."""
+    def n127(ref):
+        return replicated_like(torch.full((), 127.0, dtype=ref.dtype,
+                                          device=ref.device), ref)
+    ax = torch.max(torch.abs(x))
+    aw = torch.amax(torch.abs(w), dim=0, keepdim=True)
+    return ax / n127(ax) + 1e-12, aw / n127(aw) + 1e-12
+
+
+def _quantize(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(t / s), -127, 127).to(torch.int8)
+
+
+def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32 through ``torch._int_mm``
+    (cuBLASLt's int8 path on the card), zero-padded where the card's
+    operator refuses the shape — M up to 17, K and N to multiples of 8 —
+    on every device alike: zeros add nothing to an integer sum, so the
+    product is exact."""
+    m, k = xq.shape
+    n = wq.shape[1]
+    pm, pk, pn = max(17 - m, 0), -k % 8, -n % 8
+    if pm or pk:
+        xq = torch.nn.functional.pad(xq, (0, pk, 0, pm))
+    if pk or pn:
+        wq = torch.nn.functional.pad(wq, (0, pn, 0, pk))
+    # w column-major: cuBLASLt's int8 path takes it ~5x faster than
+    # row-major on an H100 (``chip_smoke.int8_product_times``)
+    acc = torch._int_mm(xq.contiguous(), wq.t().contiguous().t())
+    return acc[:m, :n] if pm or pn else acc
+
+
+class DenseInt8(torch.autograd.Function):
+    """The reference's ``_dense_int8_core`` given its scales: x (..., K) in
+    its dtype and f32 w (K, N) quantized (true division, ``torch.round``
+    half to even, the clip to [-127, 127]), the int8 product, its int32
+    sums to f32 times ``sx * sw`` (f32), cast to x's dtype.  The backward
+    is the straight-through estimator in the upstream gradient g's dtype:
+    ``dx = g w^T``, ``dw = x^T g`` over every leading dim, cast to x's and
+    w's dtypes.  The scales take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, sx, sw):
+        ctx.save_for_backward(x, w)
+        acc = int8_product(_quantize(x, sx).reshape(-1, x.shape[-1]),
+                           _quantize(w, sw))
+        y = acc.float() * (sx * sw)
+        return y.reshape(*x.shape[:-1], w.shape[1]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = torch.matmul(g, w.to(g.dtype).t())
+        dw = torch.matmul(x.to(g.dtype).reshape(-1, x.shape[-1]).t(),
+                          g.reshape(-1, g.shape[-1]))
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
+
+
+def dense_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` as a true int8 product (``quant="int8-hlo"``), w f32.
+    DTensors: the scales are DTensor reductions over the whole tensors (as
+    the reference's SPMD program reduces them), then :class:`DenseInt8`
+    runs per rank in ``local_map`` on x's rows (its features gathered) and
+    w's output columns (its rows gathered); x's rows are gathered over a
+    mesh dim that splits w's columns too."""
+    with torch.no_grad():
+        sx, sw = int8_scales(x.detach(), w.detach())
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return DenseInt8.apply(x, w, sx, sw)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    x, w = replicated_like(x, w), replicated_like(w, x)
+    sx, sw = replicated_like(sx, w), replicated_like(sw, x)
+    last = x.dim() - 1
+    cols = [isinstance(p, Shard) and p.dim == 1 for p in w.placements]
+    xp = [p if isinstance(p, Shard) and p.dim < last and not c
+          else Replicate() for p, c in zip(x.placements, cols)]
+    wp = [Shard(1) if c else Replicate() for c in cols]
+    rep = [Replicate()] * mesh.ndim
+    out = [Shard(last) if c else p for p, c in zip(xp, cols)]
+    fn = local_map(DenseInt8.apply, out_placements=out,
+                   in_placements=(xp, wp, rep, wp),
+                   in_grad_placements=(grad_placements(xp, out),
+                                       grad_placements(wp, out), rep, wp),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, w, sx, sw)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -76,8 +178,6 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     under deterministic algorithms."""
     if not isinstance(table, DTensor):
         return table[tokens]
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
     mesh = table.device_mesh
     vocab = [i for i, p in enumerate(table.placements)
@@ -92,8 +192,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     grad = [Shard(0) if i in vocab else
             Partial() if isinstance(p, Shard) else Replicate()
             for i, p in enumerate(rows)]
-    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, tab)
-    lookup = local_map(partial(_rows_of, offset=int(offset[0])),
+    _, offset = local_block(table.shape, mesh, tab)
+    lookup = local_map(partial(_rows_of, offset=offset[0]),
                        out_placements=out, in_placements=(tab, rows),
                        in_grad_placements=(grad, rows), device_mesh=mesh)
     h = lookup(table.redistribute(mesh, tab), tokens.redistribute(mesh, rows))

@@ -37,7 +37,8 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (COMPUTE, embed_lookup, normal_init,
                                       rms_norm)
-from repro_torch.models.lm import ModelFns, _heads, _logits, cross_entropy
+from repro_torch.models.lm import (ModelFns, _heads, _logits, _residual,
+                                  cross_entropy)
 from repro_torch.models.mlp import init_mlp, mlp_axes, mlp_block
 from repro_torch.tree import tree_map
 
@@ -125,9 +126,9 @@ def _enc_block(cfg: ModelConfig, tp: int, h, lp):
     """One encoder layer over h (B, Se, d): unmasked self-attention with
     RoPE, then the MLP."""
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    h = h + attn.attn_block(lp["attn"], x, cfg_heads=_heads(cfg, tp),
-                            rope_theta=cfg.rope_theta, causal=False,
-                            quant=cfg.quant)
+    h = _residual(h + attn.attn_block(lp["attn"], x, cfg_heads=_heads(cfg, tp),
+                                      rope_theta=cfg.rope_theta,
+                                      causal=False, quant=cfg.quant))
     return h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
                          quant=cfg.quant)
 
@@ -135,9 +136,9 @@ def _enc_block(cfg: ModelConfig, tp: int, h, lp):
 def _remat(cfg: ModelConfig) -> bool:
     """Checkpoint each block (encoder and decoder) under grad, as the
     reference's ``jax.checkpoint`` of both scanned bodies: its activations
-    are recomputed in the backward (``cfg.remat == "full"``, the only
-    setting the port takes)."""
-    return torch.is_grad_enabled() and cfg.remat == "full"
+    are recomputed in the backward, whatever ``cfg.remat`` says (the
+    reference's encoder-decoder reads neither it nor ``parallel_block``)."""
+    return torch.is_grad_enabled()
 
 
 def encode(cfg: ModelConfig, tp: int, params, frames):
@@ -164,14 +165,14 @@ def _dec_block(cfg: ModelConfig, tp: int, h, lp, enc_out, *,
                         rope_theta=cfg.rope_theta, causal=True,
                         quant=cfg.quant, return_kv=return_kv)
     a, kv = a if return_kv else (a, None)
-    h = h + a
+    h = _residual(h + a)
     xc = rms_norm(h, lp["ln_cross"], cfg.norm_eps)
     c = attn.attn_block(lp["cross"], xc, cfg_heads=heads,
                         rope_theta=cfg.rope_theta, causal=False,
                         quant=cfg.quant, return_kv=return_kv,
                         kv_source=enc_out)
     c, ckv = c if return_kv else (c, None)
-    h = h + c
+    h = _residual(h + c)
     h = h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
                       quant=cfg.quant)
     return h, ((kv, ckv) if return_kv else None)
@@ -236,13 +237,13 @@ def _decode_block(cfg: ModelConfig, tp: int, h1, lp, layer, cache_len: int):
     a, _, _ = attn.decode_attn_block(
         lp["attn"], x, layer["k"], layer["v"], cache_len, cfg_heads=heads,
         rope_theta=cfg.rope_theta, quant=cfg.quant)
-    h1 = h1 + a
+    h1 = _residual(h1 + a)
     xc = rms_norm(h1, lp["ln_cross"], cfg.norm_eps)
     c, _, _ = attn.decode_attn_block(
         lp["cross"], xc, layer["k"], layer["v"], cache_len, cfg_heads=heads,
         rope_theta=cfg.rope_theta, quant=cfg.quant,
         cross_kv=(layer["cross_k"], layer["cross_v"]))
-    h1 = h1 + c
+    h1 = _residual(h1 + c)
     return h1 + mlp_block(lp["mlp"], rms_norm(h1, lp["ln2"], cfg.norm_eps),
                           quant=cfg.quant)
 

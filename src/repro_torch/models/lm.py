@@ -35,13 +35,19 @@ writes into the caches in place and returns the same cache object.
 Training: :func:`next_token_loss` (``build_lm(...).loss``) is the reference's
 next-token cross entropy (:func:`cross_entropy`) over the stack's logits,
 plus ``MOE_LOSS_COEF * aux / n_layers`` for the MoE family.  With
-``cfg.remat == "full"`` (the only setting the port takes) and grad enabled,
-each block of a non-hybrid stack runs under
-``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: its activations
-are recomputed in the backward, as the reference's ``jax.checkpoint`` of
-the scanned block does (the reference's unrolled hybrid stack has no
-checkpoint, nor has the port's).  The recompute repeats the block's bits,
-an MoE block's routing and an SSM block's scan included.  Attention's
+``cfg.remat == "full"`` and grad enabled, each block of a non-hybrid stack
+runs under ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: its
+activations are recomputed in the backward, as the reference's
+``jax.checkpoint`` of the scanned block does (the reference's unrolled
+hybrid stack has no checkpoint, nor has the port's).  ``"save_attn"``
+(the reference's ``save_only_these_names("attn_out")`` policy) keeps each
+attention block's output and recomputes the rest, the same ops in two
+checkpoints; an SSM stack has no attention and checkpoints whole blocks.
+``cfg.parallel_block`` (dense, MoE, VLM) adds the attention's and the
+FFN's outputs of one normed input to the residual; the hybrid and SSM
+blocks ignore it, as the reference's do (its decode step too).  The
+recompute repeats the block's bits, an MoE block's routing and an SSM
+block's scan included.  Attention's
 gradient is B6-bwd on the card (``kernels.flash_attn.ops.FlashAttention``):
 a step of tinyllama launches B6 twice a layer (forward and recompute) and
 B6-bwd once; of hymba (no remat) once each.  ``cfg.quant == "qat-int8"``
@@ -75,7 +81,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import placed_like, replicated_like, shard
+from repro_torch.dist.sharding import (local_block, placed_like,
+                                       replicated_like, shard)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -257,11 +264,7 @@ def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool,
         out = _mixer(cfg, tp, lp, x, return_kv)
         return (h + out[0], out[1], _zero(h)) if return_kv else \
             (h + out, None, _zero(h))
-    window = None if is_global else (cfg.swa_window or None)
-    a_out = attn.attn_block(lp["attn"], x, cfg_heads=_heads(cfg, tp),
-                            rope_theta=cfg.rope_theta, causal=True,
-                            window=window, quant=cfg.quant,
-                            return_kv=return_kv)
+    a_out = _attention(cfg, tp, lp, x, return_kv, is_global)
     kv = None
     if return_kv:
         a_out, kv = a_out
@@ -273,9 +276,65 @@ def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool,
         h = h + 0.5 * (a_out + s_out)
         return h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
                              quant=cfg.quant), kv, _zero(h)
-    h = h + a_out
+    h, aux = _after_attention(cfg, lp, h, a_out, x)
+    return h, kv, aux
+
+
+def _attention(cfg: ModelConfig, tp: int, lp, x, return_kv: bool,
+               is_global: bool):
+    """The layer's attention on its normed input x [, its (k, v)]."""
+    window = None if is_global else (cfg.swa_window or None)
+    return attn.attn_block(lp["attn"], x, cfg_heads=_heads(cfg, tp),
+                           rope_theta=cfg.rope_theta, causal=True,
+                           window=window, quant=cfg.quant,
+                           return_kv=return_kv)
+
+
+def _after_attention(cfg: ModelConfig, lp, h, a_out, x):
+    """An attention family's block after its attention (h the block's
+    input, x its normed input): (h out, aux).  Sequential, ``h + a_out``
+    then its FFN on ``rms_norm(·, ln2)``; ``cfg.parallel_block`` (PaLM
+    style, the dense, MoE and VLM families), ``h + a_out + FFN(x)``, the
+    FFN on the same normed input as the attention, ``ln2`` unused."""
+    if cfg.parallel_block:
+        y, aux = _ffn(cfg, lp, x)
+        return h + a_out + y, aux
+    h = _residual(h + a_out)
     y, aux = _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
-    return h + y, kv, aux
+    return h + y, aux
+
+
+def _residual(h):
+    """The residual stream inside a block placed as between blocks
+    (``("batch", "act_seq", None)``; a decode step's ``("batch", None)``),
+    so that an attention's pending tensor-parallel sums are reduced (under
+    sequence parallelism scattered over the sequence) before the next
+    norm, as GSPMD places them in the reference.  Left pending, DTensor
+    propagates the pending sum through the norm and runs the FFN's
+    products at full width on every ``model`` rank.  The identity without
+    a mesh.  The hybrid block keeps its sum pending: placed, one Adam step
+    of hymba's smoke model on the (2, 2) gloo mesh moves a leaf's
+    well-conditioned elements past the mesh tests' tolerance (the sums'
+    order; not investigated further)."""
+    return shard(h, "batch", "act_seq", None) if h.dim() == 3 else \
+        shard(h, "batch", None)
+
+
+def _save_attn_block(cfg: ModelConfig, tp: int, lp, is_global: bool, h):
+    """``cfg.remat == "save_attn"``: one block as two checkpoints with the
+    attention's output at their boundary, so the backward keeps it (one
+    (B, S, d) tensor more a layer than ``"full"``; with
+    ``parallel_block`` the normed input too) and recomputes the rest.  The
+    ops are ``_block``'s: the loss and gradients are ``"full"``'s bits."""
+    def attention_part(h):
+        x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        a_out = _attention(cfg, tp, lp, x, False, is_global)
+        return (a_out, x) if cfg.parallel_block else (a_out, None)
+
+    a_out, x = checkpoint(attention_part, h, use_reentrant=False)
+    h, aux = checkpoint(partial(_after_attention, cfg, lp), h, a_out, x,
+                        use_reentrant=False)
+    return h, None, aux
 
 
 def check_prefix_len(n_prefix: int, seq: int) -> None:
@@ -292,14 +351,16 @@ def check_prefix_len(n_prefix: int, seq: int) -> None:
 def _embed(params, tokens, prefix_embeds=None,
            axes=("batch", "act_seq", None)):
     """The tokens' embeddings in bf16, placed by ``axes``;
-    ``prefix_embeds`` (B, P, d), when given, in place of the first P (a
-    DTensor placed as the embeddings first: each rank writes its own
-    rows)."""
+    ``prefix_embeds`` (B, P, d), when given, in place of the first P,
+    concatenated with the rest (a DTensor placed as the embeddings first;
+    an in-place write into the slice has a backward that DTensor cannot
+    place once the residual stream is placed inside the blocks)."""
     h = embed_lookup(params["embed"], tokens).to(COMPUTE)
     if prefix_embeds is not None:
         check_prefix_len(prefix_embeds.shape[1], tokens.shape[1])
-        h[:, :prefix_embeds.shape[1]] = placed_like(
-            prefix_embeds.to(COMPUTE), h)
+        n = prefix_embeds.shape[1]
+        h = torch.cat([placed_like(prefix_embeds.to(COMPUTE), h), h[:, n:]],
+                      dim=1)
     return shard(h, *axes)
 
 
@@ -308,14 +369,19 @@ def _stack_forward(cfg: ModelConfig, tp: int, params, h, *,
     """Runs the layer stack. Returns (h, [each layer's kv (``_block``)] or
     None, the sum of the blocks' aux terms in layer order).  Under grad,
     without ``collect_kv``, each block of a non-hybrid stack is
-    checkpointed (``cfg.remat == "full"``; module docstring)."""
+    checkpointed (module docstring): whole (``cfg.remat == "full"``, and
+    an SSM stack, which has no attention), or in two around the attention's
+    output (``"save_attn"``, :func:`_save_attn_block`)."""
     remat = torch.is_grad_enabled() and not collect_kv \
-        and cfg.family != "hybrid" and cfg.remat == "full"
+        and cfg.family != "hybrid"
+    split = remat and cfg.remat == "save_attn" and cfg.family != "ssm"
     kvs, aux_total = [], _zero(h)
     for lp, is_global in zip(params["layers"], global_flags(cfg)):
         block = partial(_block, cfg, tp, lp=lp, return_kv=collect_kv,
                         is_global=is_global)
-        if remat:
+        if split:
+            h, kv, aux = _save_attn_block(cfg, tp, lp, is_global, h)
+        elif remat:
             h, kv, aux = checkpoint(block, h, use_reentrant=False)
         else:
             h, kv, aux = block(h)
@@ -433,7 +499,7 @@ def _decode_block(cfg: ModelConfig, tp: int, h1, lp, layer, cache_len):
         return h1 + mlp_block(lp["mlp"],
                               rms_norm(h1, lp["ln2"], cfg.norm_eps),
                               quant=cfg.quant)
-    h1 = h1 + a_out
+    h1 = _residual(h1 + a_out)
     x2 = rms_norm(h1, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":  # the B tokens route as one group of (B, 1)
         return h1 + _ffn(cfg, lp, x2[:, None, :])[0][:, 0, :]
@@ -493,8 +559,6 @@ def _split_vocab_terms(lg, labels, true_vocab: int):
     """:func:`_vocab_terms` of a DTensor's logits in ``local_map``: the rows
     as the logits are placed, the vocab split over at most one mesh dim
     (a group only where that dim has more than one rank)."""
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
     mesh, last = lg.device_mesh, lg.dim() - 1
     vocab = [i for i, p in enumerate(lg.placements)
@@ -504,12 +568,11 @@ def _split_vocab_terms(lg, labels, true_vocab: int):
                          f"the vocab {tuple(lg.placements)}")
     rows = [Replicate() if i in vocab else p
             for i, p in enumerate(lg.placements)]
-    _, offset = compute_local_shape_and_global_offset(lg.shape, mesh,
-                                                      lg.placements)
+    _, offset = local_block(lg.shape, mesh, lg.placements)
     group = (mesh.get_group(vocab[0])
              if vocab and mesh.size(vocab[0]) > 1 else None)
     terms = local_map(partial(_vocab_terms, true_vocab=true_vocab,
-                              offset=int(offset[-1]), group=group),
+                              offset=offset[-1], group=group),
                       out_placements=(rows, rows),
                       in_placements=(lg.placements, rows), device_mesh=mesh)
     return terms(lg, labels.redistribute(mesh, rows))

@@ -7,6 +7,7 @@ parallel), as the reference's steps place them."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.dist.sharding import shard
 
@@ -15,11 +16,25 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return shard(t, "batch", *(None,) * (t.dim() - 1))
 
 
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the vocab (the last dim).  A DTensor's vocab is
+    gathered first: DTensor's own argmax over a split dim gathers each
+    rank's (value, index) pairs into a view that fails where a rank holds
+    one row (a prefill of one prompt a data rank, ``long_500k``'s batch
+    of 1)."""
+    if isinstance(logits, DTensor):
+        last = logits.dim() - 1
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == last else p
+            for p in logits.placements])
+    return torch.argmax(logits, dim=-1)
+
+
 def make_prefill_step(fns):
     def prefill_step(params, batch):
         cache, logits = fns.prefill(params, {k: _rows(v)
                                              for k, v in batch.items()})
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = greedy(logits).to(torch.int32)
         return cache, next_tok, logits
 
     return prefill_step
@@ -37,7 +52,7 @@ def make_serve_step(fns, *, temperature: float = 0.0):
             probs = torch.softmax(logits.float() / temperature, dim=-1)
             next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
         else:
-            next_tok = torch.argmax(logits, dim=-1)
+            next_tok = greedy(logits)
         return next_tok.to(torch.int32), cache
 
     return serve_step

@@ -105,8 +105,12 @@ def make_train_step(loss_fn, opt: Optimizer, *, microbatches: int = 1,
             new_aux = tree_map(torch.Tensor.detach, new_aux)
         else:
             loss, new_aux = loss_fn(live, batch), aux
+        # a param the loss does not reach (``ln2`` under parallel_block)
+        # gets a zero gradient, as ``jax.grad`` gives it
         grads = [placed_like(g, p) for g, p in
-                 zip(torch.autograd.grad(loss, leaves(live)), leaves(live))]
+                 zip(torch.autograd.grad(loss, leaves(live),
+                                         materialize_grads=True),
+                     leaves(live))]
         return loss.detach(), rebuild(params, grads), new_aux
 
     def train_step(state: TrainState, batch):

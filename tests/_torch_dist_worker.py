@@ -15,7 +15,9 @@ Jobs:
   bits must repeat), the cross entropy of fixed logits whose vocab (with
   padded columns) the mesh splits, prefill and two decode steps on fixed
   tokens; the
-  ``shard`` refusals under a mesh of more than one device; with
+  ``shard`` refusals under a mesh of more than one device; the loss and
+  every gradient again under sequence parallelism, with the residual
+  stream's placements; with
   ``DATA * MODEL == 4`` the stepped state saved as a sharded checkpoint.
 * ``restore``: that checkpoint restored onto this mesh, then resharded
   onto other rules.
@@ -129,6 +131,7 @@ def job_lm(rank, out, data, model):
                                                rules), CE_VOCAB)
         res["ce"] = (ce.detach().full_tensor(),
                      torch.autograd.grad(ce, lg)[0].full_tensor())
+        res.update(_sequence_parallel(mesh, fns, params, batch))
         res["rerun_bit_equal"] = all(
             torch.equal(a.full_tensor(), b.full_tensor())
             for a, b in zip(leaves(new), leaves(again)))
@@ -156,6 +159,42 @@ def job_lm(rank, out, data, model):
         if rank == 0:
             torch.save(whole, out / "ckpt_expected.pt")
     return res
+
+
+def _sequence_parallel(mesh, fns, params, batch) -> dict:
+    """The loss and every gradient under ``rules_for(...,
+    sequence_parallel=True)`` (``act_seq`` on ``model``), and the
+    placements of the residual stream where the model places it (the
+    embeddings and each block's output)."""
+    from repro_torch.dist.sharding import distribute_tree, placed_like, \
+        use_rules
+    from repro_torch.launch.input_specs import batch_axes
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, rebuild
+
+    rules = rules_for(mesh, global_batch=GLOBAL_BATCH, sequence_parallel=True)
+    seen, shard = [], lm.shard
+
+    def recording(x, *axes):
+        y = shard(x, *axes)
+        if axes == ("batch", "act_seq", None):
+            seen.append(str(tuple(y.placements)))
+        return y
+
+    lm.shard = recording
+    try:
+        with use_rules(rules):
+            placed = distribute_tree(batch, batch_axes(fns.cfg), rules)
+            live = [t.detach().requires_grad_(True) for t in leaves(params)]
+            loss = fns.loss(rebuild(params, live), placed)
+            grads = [placed_like(g, p) for g, p in
+                     zip(torch.autograd.grad(loss, live), live)]
+    finally:
+        lm.shard = shard
+    return {"sp_loss": loss.detach().full_tensor(),
+            "sp_grads": [g.full_tensor() for g in grads],
+            "sp_residual": seen, "sp_rule": rules.rules["act_seq"]}
 
 
 def job_restore(rank, out, data, model, src):

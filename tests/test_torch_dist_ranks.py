@@ -6,8 +6,9 @@ with its own join timeout), held against the single-process port.
 * The smoke tinyllama on ``(data 2, model 2)`` and ``(data 1, model 2)``
   (heads split over ``model``, params and moments sharded over ``data``
   by ``fsdp``, B6 on each rank's local heads): the loss, every gradient,
-  one Adam step's params, prefill and two decode steps.  A rerun of the
-  step repeats its bits.  The cross entropy alone over a split vocab.
+  one Adam step's params, prefill and two decode steps, and the loss and
+  gradients again under sequence parallelism.  A rerun of the step
+  repeats its bits.  The cross entropy alone over a split vocab.
 * A checkpoint saved on the 4 ranks restores on 2 ranks and on one
   process bit for bit, then reshards onto other rules.
 * ``mrf-fpga`` on ``(data 2)`` through ``launch.train --mesh single``:
@@ -160,6 +161,26 @@ def test_lm_step_matches_one_process(runs, single, mesh):
         assert float(gap.max()) <= 2 * LR * (1 + 1e-3)
         assert float((gap <= 1e-6).float().mean()) >= 0.95
     assert got["rerun_bit_equal"]
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x2"])
+def test_sequence_parallel_matches_one_process(runs, single, mesh):
+    """``rules_for(sequence_parallel=True)``: the residual stream between
+    blocks (and the embeddings) is split over the sequence on ``model``
+    (``Shard(1)``, the batch on ``data``), attention gathers the sequence
+    before B6; the loss and every gradient match one process within the
+    mesh's tolerances (the port's counterpart of the reference's
+    ``test_sequence_parallel_lowers_act_seq_to_model``)."""
+    got = runs[mesh]
+    assert got["sp_rule"] == "model"
+    n_layers = get_smoke("tinyllama-1.1b").n_layers
+    # the embeddings; each block's residual after its attention (again in
+    # the block's recompute) and its output
+    assert got["sp_residual"] == ["(Shard(dim=0), Shard(dim=1))"] * (
+        3 * n_layers + 1)
+    np.testing.assert_allclose(float(got["sp_loss"]), float(single["loss"]),
+                               rtol=LOSS_RTOL)
+    assert _grads_within(got["sp_grads"], single["grads"])
 
 
 @pytest.mark.parametrize("mesh", ["2x2", "1x2"])

@@ -102,8 +102,9 @@ def test_dense_configs_match_jax(arch):
 def test_config_refusals():
     """Every family of the reference validates, and LM QAT; tp > 1 pads
     the heads (``tests/test_torch_dist_sharding.py`` holds every arch
-    against the reference); what the port still lacks (the int8 dots) and
-    an unknown family or arch are refused."""
+    against the reference); the dry-run's levers (``int8-hlo``,
+    ``save_attn``, ``parallel_block``) validate; an unknown family, quant,
+    remat or arch is refused."""
     cfg = pconfigs.get_config("tinyllama-1.1b")
     assert cfg.head_dim == 64 and pbase.param_count(cfg) == 1_100_048_384
     assert cfg.padded_heads(2) == (32, 4) and cfg.padded_heads(3) == (33, 3)
@@ -116,8 +117,13 @@ def test_config_refusals():
         dataclasses.replace(cfg, family="rnn").validate()
     assert dataclasses.replace(cfg, quant="qat-int8").validate().quant == \
         "qat-int8"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        dataclasses.replace(cfg, quant="int8-hlo").validate()
+    lever = dataclasses.replace(cfg, quant="int8-hlo", remat="save_attn",
+                                parallel_block=True)
+    assert lever.validate() is lever
+    with pytest.raises(ValueError, match="quant='int4'"):
+        dataclasses.replace(cfg, quant="int4").validate()
+    with pytest.raises(ValueError, match="remat='dots'"):
+        dataclasses.replace(cfg, remat="dots").validate()
     with pytest.raises(KeyError, match="unknown arch"):
         pconfigs.get_config("gpt-17")
     assert pconfigs.get_config("seamless-m4t-large-v2").family == "encdec"

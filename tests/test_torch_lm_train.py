@@ -111,9 +111,12 @@ def _batch(cfg, seed, b=2, s=32):
 
 
 def _grads(loss_fn, params, batch):
+    """The loss and every gradient leaf; a param the loss does not reach
+    (``ln2`` under parallel_block) gets zeros, as ``jax.grad`` gives."""
     live = [p.detach().requires_grad_(True) for p in leaves(params)]
     loss = loss_fn(rebuild(params, live), batch)
-    return loss.detach(), torch.autograd.grad(loss, live)
+    return loss.detach(), torch.autograd.grad(loss, live,
+                                              materialize_grads=True)
 
 
 def _bf16_ulp(x) -> float:
@@ -211,9 +214,9 @@ def test_registry_losses():
     """Every LM family trains: the decoder-only families' loss is
     ``next_token_loss``, the encoder-decoder's ``seq2seq_loss`` (each
     checked against the reference in ``test_torch_lm_train_families.py``);
-    ``qat-int8`` validates.  ``int8-hlo``, ``save_attn`` and
-    ``parallel_block`` still wait for the dry-run slice (ROADMAP.md
-    §A 5)."""
+    ``qat-int8`` validates, and so do the dry-run's levers ``int8-hlo``,
+    ``save_attn`` and ``parallel_block``, whose losses train (held against
+    the reference in ``test_torch_perf_levers.py``)."""
     for arch in ("tinyllama-1.1b", "llava-next-34b", "deepseek-moe-16b",
                  "mamba2-1.3b", "hymba-1.5b"):
         assert pregistry.build(pconfigs.get_smoke(arch)).loss.func is \
@@ -222,12 +225,11 @@ def test_registry_losses():
         "seamless-m4t-large-v2")).loss.func is pencdec.seq2seq_loss
     cfg = pconfigs.get_smoke("tinyllama-1.1b")
     assert dataclasses.replace(cfg, quant="qat-int8").validate()
-    for bad, what in ((dict(remat="save_attn"), "save_attn"),
-                      (dict(parallel_block=True), "parallel_block"),
-                      (dict(quant="int8-hlo"), "int8-hlo")):
-        with pytest.raises(NotImplementedError, match=what) as e:
-            dataclasses.replace(cfg, **bad).validate()
-        assert "ROADMAP.md §A 5" in str(e.value)
+    for lever in (dict(remat="save_attn"), dict(parallel_block=True),
+                  dict(quant="int8-hlo")):
+        fns = pregistry.build(dataclasses.replace(cfg, **lever))
+        assert fns.loss.func is plm.next_token_loss
+        assert dataclasses.asdict(fns.cfg).items() >= lever.items()
 
 
 # --------------------------------------------------------------------------

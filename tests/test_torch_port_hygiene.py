@@ -238,10 +238,16 @@ def test_port_identifiers_leave_the_dead_exports_gate_alone():
             # sharding: the port's reshard_state, survivor_rules,
             # tree_nbytes, MeshDims, lm_axes, encdec_axes and mrf_axes
             "MeshAxes", "reshard_tree", "survivor_mesh", "tree_bytes",
-            "lm_param_axes", "encdec_param_axes", "mrf_param_axes"} <= allow
+            "lm_param_axes", "encdec_param_axes", "mrf_param_axes",
+            # the dry-run: the port's CELL_TRAIN_4K, CELL_PREFILL_32K,
+            # CELL_DECODE_32K, CELL_LONG_500K, SHAPE_CELLS, RECORD_DIR,
+            # trace_cell and sweep_cells
+            "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
+            "ALL_CELLS", "OUT_DIR", "lower_cell", "run_cells"} <= allow
     files = sorted(PORT.rglob("*.py")) + _examples() + sorted(
         (ROOT / "tests").glob("test_torch_*.py")) + sorted(
-        (ROOT / "tests").glob("_torch_*.py"))
+        (ROOT / "tests").glob("_torch_*.py")) + sorted(
+        (ROOT / "experiments").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
     hits = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
