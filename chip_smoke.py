@@ -3119,7 +3119,7 @@ def check_flash_attention_bwd(device) -> dict:
     from repro_torch.kernels.flash_attn.ops import flash_attention
     try:
         flash_attention(x, x, x)
-    except RuntimeError as e:
+    except RuntimeError as e:  # torchlint: disable=FALLBACK -- the call must raise: the handler logs the refusal, else fails
         log(f"B6 float32 under grad refused: {str(e)[:80]}...")
     else:
         fail("B6 float32 under grad on the card did not raise")

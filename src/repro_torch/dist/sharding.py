@@ -248,20 +248,23 @@ def grad_placements(in_placements: Sequence, *out_placements) -> list:
 
 class _GradPlacedAsInput(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, target):
         ctx.mesh = x.device_mesh
-        ctx.placements = tuple(Replicate() if isinstance(p, Partial) else p
-                               for p in x.placements)
+        ctx.placements = target or tuple(
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements)
+        ctx.always = target is not None
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        if any(isinstance(p, Partial) for p in g.placements):
+        if (ctx.always and tuple(g.placements) != ctx.placements) or any(
+                isinstance(p, Partial) for p in g.placements):
             g = g.redistribute(ctx.mesh, ctx.placements)
-        return g
+        return g, None
 
 
-def grad_placed_as(x):
+def grad_placed_as(x, placements=None):
     """``x`` (the identity in the forward) whose gradient, where it comes
     back with pending sums, is redistributed to ``x``'s own placements (a
     pending ``x`` to replicated): the shares of the gradient that the
@@ -269,10 +272,13 @@ def grad_placed_as(x):
     are reduced there, as Megatron reduces a column-parallel input's
     gradient and GSPMD places it in the reference.  Left pending, DTensor
     carries the pending sum into the ops before and runs their backward
-    products at full width.  The identity for a plain tensor."""
+    products at full width.  With ``placements`` the gradient is always
+    redistributed to them (the SSM gate's, ``models.ssm.ssm_block``).
+    The identity for a plain tensor."""
     if not isinstance(x, DTensor):
         return x
-    return _GradPlacedAsInput.apply(x)
+    return _GradPlacedAsInput.apply(
+        x, None if placements is None else tuple(placements))
 
 
 def local_block(shape, mesh, placements) -> tuple:

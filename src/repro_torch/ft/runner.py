@@ -81,7 +81,7 @@ class _NoCheckpoints:
 def _wait_device(tensors) -> None:
     """Block until the device has computed ``tensors`` (a no-op on CPU)."""
     for dev in {t.device for t in tensors if t.device.type == "cuda"}:
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(dev)  # torchlint: disable=HOSTSYNC -- the runner's one wait: each step only where a caller asks for per-step metrics, and once at a loop's exit
 
 
 def run(train_step: Callable | None, init_state, batches: Callable[[int], Any],
@@ -125,7 +125,7 @@ def run(train_step: Callable | None, init_state, batches: Callable[[int], Any],
         # step-0 checkpoint: a crash before the first periodic checkpoint
         # restarts from here
         if latest_step(cfg.ckpt_dir) is None:
-            save_state(box[0], cfg.ckpt_dir, 0, async_io=False)
+            save_state(box[0], cfg.ckpt_dir, 0, async_io=False)  # torchlint: disable=HOSTSYNC -- the step-0 checkpoint is written before the loop starts; its host copy is the point
     else:  # no boundary is ever reached
         mgr = _NoCheckpoints()
         cfg = dataclasses.replace(cfg, ckpt_every=cfg.total_steps + 1)

@@ -126,7 +126,8 @@ def _enc_block(cfg: ModelConfig, tp: int, h, lp):
     """One encoder layer over h (B, Se, d): unmasked self-attention with
     RoPE, then the MLP."""
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    h = _residual(h + attn.attn_block(lp["attn"], x, cfg_heads=_heads(cfg, tp),
+    h = h + _residual(attn.attn_block(lp["attn"], x,
+                                      cfg_heads=_heads(cfg, tp),
                                       rope_theta=cfg.rope_theta,
                                       causal=False, quant=cfg.quant))
     return h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
@@ -165,14 +166,14 @@ def _dec_block(cfg: ModelConfig, tp: int, h, lp, enc_out, *,
                         rope_theta=cfg.rope_theta, causal=True,
                         quant=cfg.quant, return_kv=return_kv)
     a, kv = a if return_kv else (a, None)
-    h = _residual(h + a)
+    h = h + _residual(a)
     xc = rms_norm(h, lp["ln_cross"], cfg.norm_eps)
     c = attn.attn_block(lp["cross"], xc, cfg_heads=heads,
                         rope_theta=cfg.rope_theta, causal=False,
                         quant=cfg.quant, return_kv=return_kv,
                         kv_source=enc_out)
     c, ckv = c if return_kv else (c, None)
-    h = _residual(h + c)
+    h = h + _residual(c)
     h = h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
                       quant=cfg.quant)
     return h, ((kv, ckv) if return_kv else None)
@@ -237,13 +238,13 @@ def _decode_block(cfg: ModelConfig, tp: int, h1, lp, layer, cache_len: int):
     a, _, _ = attn.decode_attn_block(
         lp["attn"], x, layer["k"], layer["v"], cache_len, cfg_heads=heads,
         rope_theta=cfg.rope_theta, quant=cfg.quant)
-    h1 = _residual(h1 + a)
+    h1 = h1 + _residual(a)
     xc = rms_norm(h1, lp["ln_cross"], cfg.norm_eps)
     c, _, _ = attn.decode_attn_block(
         lp["cross"], xc, layer["k"], layer["v"], cache_len, cfg_heads=heads,
         rope_theta=cfg.rope_theta, quant=cfg.quant,
         cross_kv=(layer["cross_k"], layer["cross_v"]))
-    h1 = _residual(h1 + c)
+    h1 = h1 + _residual(c)
     return h1 + mlp_block(lp["mlp"], rms_norm(h1, lp["ln2"], cfg.norm_eps),
                           quant=cfg.quant)
 

@@ -273,7 +273,7 @@ def _block(cfg: ModelConfig, tp: int, h, lp, *, return_kv: bool,
         if return_kv:
             s_out, skv = s_out
             kv = (kv, skv)
-        h = h + 0.5 * (a_out + s_out)
+        h = h + _residual(0.5 * (a_out + s_out))
         return h + mlp_block(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
                              quant=cfg.quant), kv, _zero(h)
     h, aux = _after_attention(cfg, lp, h, a_out, x)
@@ -299,25 +299,29 @@ def _after_attention(cfg: ModelConfig, lp, h, a_out, x):
     if cfg.parallel_block:
         y, aux = _ffn(cfg, lp, x)
         return h + a_out + y, aux
-    h = _residual(h + a_out)
+    h = h + _residual(a_out)
     y, aux = _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
     return h + y, aux
 
 
-def _residual(h):
-    """The residual stream inside a block placed as between blocks
-    (``("batch", "act_seq", None)``; a decode step's ``("batch", None)``),
-    so that an attention's pending tensor-parallel sums are reduced (under
-    sequence parallelism scattered over the sequence) before the next
-    norm, as GSPMD places them in the reference.  Left pending, DTensor
-    propagates the pending sum through the norm and runs the FFN's
-    products at full width on every ``model`` rank.  The identity without
-    a mesh.  The hybrid block keeps its sum pending: placed, one Adam step
-    of hymba's smoke model on the (2, 2) gloo mesh moves a leaf's
-    well-conditioned elements past the mesh tests' tolerance (the sums'
-    order; not investigated further)."""
-    return shard(h, "batch", "act_seq", None) if h.dim() == 3 else \
-        shard(h, "batch", None)
+def _residual(out):
+    """A sublayer's output (attention's; the hybrid's ``0.5 * (attention +
+    mixer)``) placed as the residual stream between blocks (``("batch",
+    "act_seq", None)``; a decode step's ``("batch", None)``) before it is
+    added to the stream: the tensor-parallel products' pending sums are
+    reduced (under sequence parallelism scattered over the sequence)
+    before the next norm, as GSPMD places them in the reference.  Left
+    pending, DTensor propagates the pending sum through the norm and runs
+    the FFN's products at full width on every ``model`` rank.  The
+    output, not ``h + out``, is placed: DTensor adds a replicated ``h`` to
+    a pending sum by splitting ``h`` into ``h / n`` on each of the ``n``
+    ranks (``Partial._partition_value``), so each rank would round its
+    share of the whole stream in bf16 before the all-reduce sums them —
+    a rounding of the stream a layer that one process does not make (it
+    moved hymba's gradients past the mesh tests' bounds).  The identity
+    without a mesh."""
+    return shard(out, "batch", "act_seq", None) if out.dim() == 3 else \
+        shard(out, "batch", None)
 
 
 def _save_attn_block(cfg: ModelConfig, tp: int, lp, is_global: bool, h):
@@ -392,9 +396,45 @@ def _stack_forward(cfg: ModelConfig, tp: int, params, h, *,
 
 
 def _logits(params, h):
-    logits = torch.matmul(h, params["head"].to(h.dtype))
+    """``h @ head``.  On a mesh of more than one rank the head's ``fsdp``
+    rows are gathered for the product (:class:`_GatheredHead`); the vocab
+    stays split over ``tp``."""
+    head = params["head"].to(h.dtype)
+    if isinstance(head, DTensor) and head.device_mesh.size() > 1:
+        logits = _GatheredHead.apply(h, head)
+    else:
+        logits = torch.matmul(h, head)
     axes = ("batch", None, "tp") if logits.dim() == 3 else ("batch", "tp")
     return shard(logits, *axes)
+
+
+class _GatheredHead(torch.autograd.Function):
+    """``h @ head`` with the head placed ``(None, "tp")`` for the product,
+    its ``fsdp`` rows gathered as FSDP gathers a weight, and gathered again
+    in the backward rather than kept (a (d, vocab / tp) copy, which would
+    stay alive through the cross entropy's backward).  Left to DTensor, a
+    batch split over two mesh dims (``("pod", "data")``) made it contract
+    over the head's ``fsdp`` shard instead: the rows of a whole pod
+    gathered and their (rows, seq, vocab / tp) logits pending on every
+    rank (minitron ``train_4k``, 2 of 32 layers: 64.3 GiB a card).  The
+    backward's products are autograd's for ``torch.matmul``."""
+
+    @staticmethod
+    def forward(ctx, h, head):
+        ctx.save_for_backward(h, head)
+        return torch.matmul(h, _gathered(head))
+
+    @staticmethod
+    def backward(ctx, g):
+        h, head = ctx.saved_tensors
+        dh = torch.matmul(g, _gathered(head).t())
+        dw = torch.matmul(h.reshape(-1, h.shape[-1]).t(),
+                          g.reshape(-1, g.shape[-1]))
+        return dh, dw
+
+
+def _gathered(head):
+    return shard(head, None, "tp")
 
 
 def init_cache(cfg: ModelConfig, tp: int, batch: int, seq: int, *,
@@ -495,11 +535,12 @@ def _decode_block(cfg: ModelConfig, tp: int, h1, lp, layer, cache_len):
         lp["attn"], x, layer["k"], layer["v"], cache_len,
         cfg_heads=_heads(cfg, tp), rope_theta=cfg.rope_theta, quant=cfg.quant)
     if cfg.family == "hybrid":
-        h1 = h1 + 0.5 * (a_out + _mixer_step(cfg, tp, lp, layer["ssm"], x))
+        h1 = h1 + _residual(0.5 * (a_out + _mixer_step(cfg, tp, lp,
+                                                       layer["ssm"], x)))
         return h1 + mlp_block(lp["mlp"],
                               rms_norm(h1, lp["ln2"], cfg.norm_eps),
                               quant=cfg.quant)
-    h1 = _residual(h1 + a_out)
+    h1 = h1 + _residual(a_out)
     x2 = rms_norm(h1, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":  # the B tokens route as one group of (B, 1)
         return h1 + _ffn(cfg, lp, x2[:, None, :])[0][:, 0, :]

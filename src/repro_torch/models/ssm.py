@@ -32,10 +32,10 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
-from repro_torch.dist.sharding import (grad_placements, rules_placements,
-                                       shard)
+from repro_torch.dist.sharding import (grad_placed_as, grad_placements,
+                                       rules_placements, shard)
 from repro_torch.models.common import COMPUTE, dense, normal_init, rms_norm
 from repro_torch.models.mlp import silu
 
@@ -249,12 +249,15 @@ def ssm_block(p: Mamba2Params, u, *, n_heads, head_dim, n_state, chunk,
     and heads (``("batch", None, "tp")``), and the gate norm again as
     DTensor ops: its mean is over the whole inner width, which ``model``
     splits, so it is reduced over ``model`` (a per-rank norm of each slice
-    would be another function)."""
+    would be another function).  The gate ``z`` takes its gradient as
+    :func:`_gate_grad_placements` places it."""
     b, length, _ = u.shape
     if return_cache:
         check_prompt_len(length)
     x_raw = dense(u, p.wx, quant=quant)             # (B,L,di)
     z = dense(u, p.wz, quant=quant)
+    if isinstance(z, DTensor) and z.device_mesh.size() > 1:
+        z = grad_placed_as(z, _gate_grad_placements(z))
     bm_raw = dense(u, p.wB)
     cm_raw = dense(u, p.wC)
     dt_raw = dense(u, p.wdt)
@@ -277,6 +280,20 @@ def ssm_block(p: Mamba2Params, u, *, n_heads, head_dim, n_state, chunk,
     return out, Mamba2Cache(state=state, conv_x=tail(x_raw, ax.conv_x),
                             conv_B=tail(bm_raw, ax.conv_B),
                             conv_C=tail(cm_raw, ax.conv_C))
+
+
+def _gate_grad_placements(z) -> tuple:
+    """Where the gate ``z``'s gradient goes on a ``model`` dim: split along
+    the rank's rows, where DTensor's backward of the gate norm splits it,
+    or, where the rows do not split over ``model``, as ``z`` itself (the
+    inner width).  Left to DTensor there (4 rows a card at pod 2 x data 32
+    x model 8), the gradient came back whole and ``wz``'s weight gradient
+    ran at the full inner width on every ``model`` rank."""
+    rows = z.to_local().shape[0]
+    return tuple(
+        Shard(0) if isinstance(p, Shard) and p.dim == 2
+        and rows % z.device_mesh.size(i) == 0 else p
+        for i, p in enumerate(rules_placements(("batch", None, "tp"), z)))
 
 
 def _per_rank_heads(core, ref):

@@ -76,7 +76,7 @@ def plan_tiles(n: int, buckets: Sequence[int]) -> list:
     Full tiles use the largest bucket; the remainder uses the smallest
     bucket that fits (padded by the executor).  Covers [0, n) exactly.
     """
-    buckets = sorted(int(b) for b in buckets)
+    buckets = sorted(int(b) for b in buckets)  # torchlint: disable=HOSTSYNC -- bucket sizes are Python ints from the configuration
     if not buckets or buckets[0] <= 0:
         raise ValueError(f"buckets must be positive: {buckets}")
     bmax = buckets[-1]
@@ -192,11 +192,11 @@ class WaveExecutor:
                     else getattr(layer, f).to(self.device))
                 for f in ("w_q", "b_q", "s_in", "s_w", "s_out")})
             for layer in int_layers]
-        self.buckets = tuple(sorted(int(b) for b in buckets))
+        self.buckets = tuple(sorted(int(b) for b in buckets))  # torchlint: disable=HOSTSYNC -- bucket sizes are Python ints from the configuration
         self.int8_impl = (resolve_int8_impl(int8_impl)
                           if backend == "int8" else None)
         # weights are static: pad K/N and pack the fused image exactly once
-        self._prepadded = (prepad_int_layers(self.int_layers)
+        self._prepadded = (prepad_int_layers(self.int_layers)  # torchlint: disable=HOSTSYNC -- the weights are padded once, at construction
                            if backend == "int8" else None)
         self.in_dim = int(self.params[0]["w"].shape[0] if backend == "float"
                           else self.int_layers[0].w_q.shape[0])
@@ -236,7 +236,7 @@ class WaveExecutor:
                                   dtype=torch.float32, device=self.device)
 
             def fwd(x):
-                return int_forward_fused(pre, x, denorm_scale=dscale)
+                return int_forward_fused(pre, x, denorm_scale=dscale)  # torchlint: disable=HOSTSYNC -- pre is prepadded in __init__: the helper's prepad branch is not reached
         elif self.int8_impl == "lax":
             ints = self.int_layers
             for layer in ints:
@@ -248,7 +248,7 @@ class WaveExecutor:
             pre = self._prepadded
 
             def fwd(x):
-                return denormalize_targets(int_forward_layered(pre, x))
+                return denormalize_targets(int_forward_layered(pre, x))  # torchlint: disable=HOSTSYNC -- pre is prepadded in __init__: the helper's prepad branch is not reached
         return on_mesh(fwd)
 
     def cache_size(self) -> int:

@@ -16,7 +16,11 @@
   ``data`` counts a sixteenth of the global FLOP; the train and decode
   cells of every family's smoke config trace with FLOP > 0 and
   collective bytes > 0 (the reference's ``test_small_mesh_lower_compile``),
-  sequence parallelism and the levers too; then the command line at full
+  sequence parallelism and the levers too; on 8-rank fake (pod 2, data 2,
+  model 2) and (data 4, model 2) meshes at one row a card, the smoke
+  tinyllama, a large-vocabulary minitron, mamba2 and hymba count the same
+  FLOP and peak a card on both, an eighth of the world-1 FLOP, hymba's FFN
+  an eighth of its world-1 products; then the command line at full
   width (``tinyllama-1.1b`` ``train_4k`` on the 256-rank single mesh, every
   lever flag given) writes its record, and
   ``experiments/torch_make_tables.py`` prints it.
@@ -210,6 +214,35 @@ _SUBPROC = textwrap.dedent("""
             r = dryrun.trace_cell(cfg, cells[0], mesh, **opts)
             out[f"{arch}/t/{sorted(opts)[0]}"] = [r["flops"], r["flops_int8"],
                                                   r["collectives"]["total"]]
+    import dataclasses
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    from repro_torch.models import lm
+    ffn, mlp_block = [0], lm.mlp_block
+
+    def counted_mlp(*args, **kwargs):  # the forward FFN's products
+        mode = _get_current_dispatch_mode()
+        before = mode.flops
+        y = mlp_block(*args, **kwargs)
+        ffn[0] += mode.flops - before
+        return y
+
+    lm.mlp_block = counted_mlp
+    dryrun.fake_group(8)
+    meshes = {"single": make_mesh((4, 2), ("data", "model"), "cpu"),
+              "multi": make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu"),
+              "world1": None}
+    rows = ShapeCell("rows", 2048, 4, "train")  # one row a card on both
+    for arch in ("tinyllama-1.1b", "minitron-8b", "mamba2-1.3b",
+                 "hymba-1.5b"):
+        cfg = get_smoke(arch)
+        if arch == "minitron-8b":  # a vocab of 256 d_model
+            cfg = dataclasses.replace(cfg, vocab_size=16384)
+        for name, m in meshes.items():
+            ffn[0] = 0
+            r = dryrun.trace_cell(cfg, rows, m)
+            out[f"{arch}/rows/{name}"] = [
+                r["flops"], r["memory"]["peak_per_device_bytes"], ffn[0]]
+    lm.mlp_block = mlp_block
     tmp = sys.argv[1]
     os.environ.pop("LOCAL_WORLD_SIZE")  # an H100 node's 8 cards
     rc = dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "train_4k",
@@ -259,6 +292,39 @@ def test_every_family_traces_on_a_fake_mesh(fake_mesh_runs, arch):
     assert flops > 0 and coll > 0 and int8 == 0
     flops, int8, coll = out[f"{arch}/t/microbatches"]
     assert flops > int8 > 0 and coll > 0
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "minitron-8b",
+                                  "mamba2-1.3b", "hymba-1.5b"])
+def test_multi_mesh_card_matches_the_single_mesh_card(fake_mesh_runs, arch):
+    """One row of 2,048 tokens a card on the fake (pod 2, data 2, model 2)
+    and (data 4, model 2) meshes: FLOP a card within 1% and peak a card
+    within 5% (the multi mesh's ``fsdp`` is 2, the single's 4, so its
+    params and Adam moments take twice the bytes a card), and FLOP a card
+    on either mesh within 1% of an eighth of the world-1 trace's: every
+    product split over the 8 ranks.  minitron's smoke config at a vocab of
+    16,384 (256 x d_model): with the head's product left to DTensor one of
+    the two meshes peaked 10% higher; mamba2's and hymba's SSM gate with
+    its gradient left to DTensor counted 6.3% and 1.2% over the eighth."""
+    out, _ = fake_mesh_runs
+    (fs, ps, _), (fm, pm, _), (f1, _, _) = (
+        out[f"{arch}/rows/{m}"] for m in ("single", "multi", "world1"))
+    assert abs(fm / fs - 1) <= 0.01, (fm, fs)
+    assert abs(pm / ps - 1) <= 0.05, (pm, ps)
+    for f in (fs, fm):
+        assert abs(8 * f / f1 - 1) <= 0.01, (f, f1)
+
+
+def test_hybrid_ffn_products_split_over_model(fake_mesh_runs):
+    """hymba's FFN, after ``h + 0.5 (attention + mixer)``: its forward
+    products on a card of the (data 4, model 2) mesh are an eighth of the
+    world-1 trace's, exactly.  With that sum left pending over ``model``
+    DTensor ran them at full width on both ``model`` ranks (a quarter)."""
+    out, _ = fake_mesh_runs
+    ffn1 = out["hymba-1.5b/rows/world1"][2]
+    assert ffn1 > 0
+    for m in ("single", "multi"):
+        assert 8 * out[f"hymba-1.5b/rows/{m}"][2] == ffn1, m
 
 
 def test_command_line_writes_a_record_and_its_tables(fake_mesh_runs):
