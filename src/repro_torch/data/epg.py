@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.common import resolve_device
 
 
@@ -63,8 +64,10 @@ def simulate_fingerprints(seq: MRFSequence, t1_ms, t2_ms, *,
     t2_s = torch.as_tensor(t2_ms, dtype=f32, device=dev).reshape(-1) / 1e3
     r1 = 1.0 / torch.clamp_min(t1_s, 1e-6)
     r2 = 1.0 / torch.clamp_min(t2_s, 1e-6)
-    fas = torch.as_tensor(seq.flip_angles, dtype=f32, device=dev)
-    trs = torch.as_tensor(seq.trs, dtype=f32, device=dev)
+    # the sequence's tables from Python tuples: a copy from pageable memory
+    with obs.span("repro_torch.data.seq_tables", wait=True):
+        fas = torch.as_tensor(seq.flip_angles, dtype=f32, device=dev)
+        trs = torch.as_tensor(seq.trs, dtype=f32, device=dev)
     zero = torch.zeros_like(r1)
     mx, my = zero, zero
     if seq.inversion:

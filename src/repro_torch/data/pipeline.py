@@ -19,6 +19,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.data.epg import (MRFSequence, augment, simulate_fingerprints,
                                   to_features)
 from repro_torch.kernels.common import resolve_device
@@ -82,9 +83,11 @@ def batch_seed(seed: int, step: int) -> int:
 def batch_at(stream: MRFSampleStream, seed: int, step: int, *,
              device="cuda") -> dict:
     """The ``{"x", "y"}`` batch of global ``step``, drawn on ``device``."""
-    gen = torch.Generator(device=resolve_device(device))
-    gen.manual_seed(batch_seed(seed, int(step)))
-    x, y = sample_batch(stream, gen)
+    with obs.span("repro_torch.data.batch"):
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(batch_seed(seed, int(step)))
+        x, y = sample_batch(stream, gen)
+    obs.count("batches")
     return {"x": x, "y": y}
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch import obs
 from repro_torch.kernels.common import resolve_device
 from repro_torch.tree import leaves, leaves_like, rebuild
 
@@ -90,21 +91,23 @@ def save_state(state, directory, step: int, *, async_io: bool = True):
         _barrier()
 
     infos, work, mine = [], [], {}
-    for i, t in enumerate(leaves(state)):
-        info = {"shape": list(t.shape), "dtype": str(t.dtype)}
-        if isinstance(t, DTensor):
-            info["sharded"] = True
-            piece = _piece(t)
-            if piece is not None:
-                index, host = piece
-                fn = f"leaf_{i}/shard_{rank}.npy"
-                mine[str(i)] = {"file": fn, "index": index}
-                work.append((tmp / fn, host))
-        else:
-            info["file"] = f"leaf_{i}.npy"
-            if rank == 0:
-                work.append((tmp / info["file"], t.detach().cpu().numpy()))
-        infos.append(info)
+    with obs.span("repro_torch.ckpt.copy", wait=True):
+        for i, t in enumerate(leaves(state)):
+            info = {"shape": list(t.shape), "dtype": str(t.dtype)}
+            if isinstance(t, DTensor):
+                info["sharded"] = True
+                piece = _piece(t)
+                if piece is not None:
+                    index, host = piece
+                    fn = f"leaf_{i}/shard_{rank}.npy"
+                    mine[str(i)] = {"file": fn, "index": index}
+                    work.append((tmp / fn, host))
+            else:
+                info["file"] = f"leaf_{i}.npy"
+                if rank == 0:
+                    work.append((tmp / info["file"],
+                                 t.detach().cpu().numpy()))
+            infos.append(info)
     manifest = {"step": step, "n_leaves": len(infos), "world": world,
                 "leaves": infos}
 
@@ -263,8 +266,10 @@ class CheckpointManager:
         (eviction snapshots land wherever the straggler monitor fired)."""
         if not force and step % self.every:
             return False
-        self.wait()
-        inner = save_state(state, self.dir, step, async_io=True)
+        with obs.span("repro_torch.ckpt.save"):
+            self.wait()
+            inner = save_state(state, self.dir, step, async_io=True)
+        obs.count("ckpt_saves")
 
         def finish():  # collect old checkpoints only after the rename landed
             inner()
@@ -277,7 +282,8 @@ class CheckpointManager:
         with self._lock:
             if self._pending is not None:
                 pending, self._pending = self._pending, None
-                pending()
+                with obs.span("repro_torch.ckpt.wait", wait=True):
+                    pending()
 
     def _gc(self) -> None:
         steps = sorted(int(p.name.split("_")[1])
@@ -290,5 +296,6 @@ class CheckpointManager:
         step = latest_step(self.dir)
         if step is None:
             return None, 0
-        return restore_state(like, self.dir, step, device=device,
-                             placements=placements), step
+        with obs.span("repro_torch.ckpt.restore"):
+            return restore_state(like, self.dir, step, device=device,
+                                 placements=placements), step

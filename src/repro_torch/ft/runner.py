@@ -39,6 +39,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dist.sharding import layout_of
 from repro_torch.ft.checkpoint import CheckpointManager, latest_step, save_state
 from repro_torch.ft.straggler import StragglerMonitor
@@ -172,9 +173,12 @@ def _stepwise_loop(train_step, box, step, batches, cfg, mgr, monitor, *,
         t0 = time.perf_counter()
         if fault_live and step == cfg.inject_fault_at:
             return state, None
-        state, metrics = train_step(state, batch)
+        with obs.span("repro_torch.runner.dispatch"):
+            state, metrics = train_step(state, batch)
+        obs.count("steps")
         if on_metrics is not None:  # per-step wall time, not dispatch time
-            _wait_device([metrics["loss"]])
+            with obs.span("repro_torch.runner.retire", wait=True):
+                _wait_device([metrics["loss"]])
         dt = time.perf_counter() - t0
         if monitor.update(dt) == "checkpoint_and_evict":
             mgr.maybe_save(state, step + 1, force=True)  # snapshot pre-evict
@@ -200,7 +204,8 @@ def _chunked_loop(chunk_fn, box, step, cfg, mgr, monitor, *, on_metrics,
         nonlocal retired_at
         c_start, n, metrics, t0 = chunk
         keys = sorted(metrics)
-        host = torch.stack([metrics[k] for k in keys]).cpu()
+        with obs.span("repro_torch.runner.retire", wait=True):
+            host = torch.stack([metrics[k] for k in keys]).cpu()
         now = time.perf_counter()
         # a chunk dispatched while its predecessor still ran started only
         # when that one retired: do not count the overlap twice
@@ -223,14 +228,18 @@ def _chunked_loop(chunk_fn, box, step, cfg, mgr, monitor, *, on_metrics,
         if fault_live and step < cfg.inject_fault_at:
             n = min(n, cfg.inject_fault_at - step)
         t0 = time.perf_counter()
-        state, metrics = chunk_fn(state, step, n)
+        with obs.span("repro_torch.runner.dispatch"):
+            state, metrics = chunk_fn(state, step, n)
+        obs.count("steps", n)
+        obs.count("chunks")
         prev, inflight = inflight, (step, n, metrics, t0)
         step += n
         if prev is not None:  # chunk N computes while N-1 retires
             if retire(prev) == "checkpoint_and_evict":
                 mgr.maybe_save(state, step, force=True)  # snapshot pre-evict
         if step % cfg.ckpt_every == 0 and step < cfg.total_steps:
-            retire(inflight)
+            with obs.span("repro_torch.runner.checkpoint"):  # the drain
+                retire(inflight)
             inflight = None
             mgr.maybe_save(state, step)
     if inflight is not None:

@@ -52,6 +52,7 @@ import torch
 
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch import obs
 from repro_torch.data.epg import default_sequence
 from repro_torch.data.pipeline import (MRFSampleStream, batch_at,
                                        make_batch_factory)
@@ -204,14 +205,16 @@ def _make_fused_chunk(cfg: EngineConfig, stream: MRFSampleStream, seed: int,
     batches ``batch_at(stream, seed, start + k)`` staged back to back, then
     **one** multi-step kernel launch over all of them."""
     def chunk_step(state: TrainState, start: int, n: int):
-        staged = [batch_at(stream, seed, start + k, device=device)
-                  for k in range(n)]
-        x = torch.cat([b["x"] for b in staged])
-        y = torch.cat([b["y"] for b in staged])
-        new_params, new_opt, losses = replicated_local(
-            fused_ops.fused_train_multistep)(
-            state.params, state.opt_state, x, y, n_steps=n, lr=cfg.lr,
-            optimizer=cfg.optimizer, tile_batch=cfg.tile_batch)
+        with obs.span("repro_torch.data.stage"):
+            staged = [batch_at(stream, seed, start + k, device=device)
+                      for k in range(n)]
+            x = torch.cat([b["x"] for b in staged])
+            y = torch.cat([b["y"] for b in staged])
+        with obs.span("repro_torch.kernel.launch"):
+            new_params, new_opt, losses = replicated_local(
+                fused_ops.fused_train_multistep)(
+                state.params, state.opt_state, x, y, n_steps=n, lr=cfg.lr,
+                optimizer=cfg.optimizer, tile_batch=cfg.tile_batch)
         return TrainState(step=state.step + n, params=new_params,
                           opt_state=new_opt, ef_residual=state.ef_residual,
                           aux=state.aux), {
