@@ -46,7 +46,12 @@ final result line):
    K=4 launch against 4 single-step launches, one launch over the stream
    against one launch per row and a launch against its repeat (bit for
    bit), a ragged tile of 127 rows and tiles of 4 rows on 8 blocks; the
-   wrapper's launches at tile 128 ran on more than one block;
+   wrapper's launches at tile 128 ran on more than one block; B1 and B2 at
+   tile 1 for mrf-fpga without QAT run on the per-sample kernel (tile 1,
+   SGD, no QAT), which ``check_per_sample_path`` also holds at the stream
+   cell's shape, 4 x 4,096 samples, row by row against the plain version,
+   bit for bit across launch splits, every launch counted in
+   ``per_sample_launches`` (``train_counters()["per_sample"]``);
 3c. B6 (flash attention) against its plain version: bf16 on the Hopper
    kernel at its tiles, at the launcher's serving shape, granite-8b's dh
    128, deepseek-moe-16b's (16 query heads over 16 kv heads: group 1, dh
@@ -796,13 +801,32 @@ def chaos_phase(tmp: pathlib.Path, device) -> dict:
                 "n_done", "retries", "degraded", "n_kernel_failures")}}
 
 
+class PerSampleCount:
+    """``run_fused_train.per_sample_launches`` (the launches of the
+    per-sample kernel: tile 1, SGD, no QAT, whichever wrapper made them)
+    under the wrappers' ``launches`` name, to read and to reset."""
+
+    @property
+    def launches(self) -> int:
+        from repro_torch.kernels.fused_train import kernel
+        return kernel.run_fused_train.per_sample_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from repro_torch.kernels.fused_train import kernel
+        kernel.run_fused_train.per_sample_launches = n
+
+
 def train_counters() -> dict:
-    """The training kernel's wrappers (B1, B2, B3), each with its count."""
+    """The training kernel's wrappers (B1, B2, B3), each with its count,
+    and ``per_sample``: how many of their launches took the per-sample
+    kernel."""
     from repro_torch.kernels.fused_train import kernel, multistep
 
     return {"fused_train": kernel.fused_train_call,
             "fused_train_multistep": multistep.fused_train_multistep_call,
-            "fused_train_adam": multistep.fused_train_adam_call}
+            "fused_train_adam": multistep.fused_train_adam_call,
+            "per_sample": PerSampleCount()}
 
 
 def max_err(got, want) -> float:
@@ -986,7 +1010,7 @@ def check_training_kernels(device) -> dict:
     from repro_torch.kernels.fused_train import kernel, ops, ref
 
     counters = train_counters()
-    errs = {name: 0.0 for name in counters}
+    errs = {name: 0.0 for name in counters if name != "per_sample"}
     x, y = training_data(device, 4)
     clusters_held = {}
     for arch, hidden in (("mrf-fpga", mrf_net.ADAPTED_HIDDEN),
@@ -1060,10 +1084,75 @@ def check_training_kernels(device) -> dict:
             params, xs, ys, 512, "sgd", qat, None, tile_batch=1)
         errs["fused_train_multistep"] = max(errs["fused_train_multistep"],
                                             err)
+    errs["fused_train_multistep"] = max(errs["fused_train_multistep"],
+                                        check_per_sample_path(device))
     log(f"training kernels == plain versions within atol 1e-5 at clusters "
         f"{clusters_held} and the wrapper's own; K-step == K single-step "
         f"launches and repeats bit-exact ({errs})")
     return errs
+
+
+def check_per_sample_path(device) -> float:
+    """Phase 3b: the per-sample kernel at the stream cell's shape, mrf-fpga
+    at tile 1 (SGD, no QAT): 4 steps of 4,096 samples in one launch (B2),
+    bit for bit against 4 single-step launches, against its repeat and
+    against one launch a row; every update, taken from the kernel's own
+    net, and the two runs side by side held against the plain version
+    (``held_stream``, params and losses atol 1e-5; the plain version on a
+    CPU copy, for its pace); ``per_sample_launches`` equal to the launches
+    made.  Returns the largest error held against the limit."""
+    from repro_torch.core import mrf_net
+    from repro_torch.kernels.fused_train import kernel, multistep, ops
+
+    widths = mrf_net.layer_sizes(32)
+    if not kernel.takes_per_sample_path(widths, 1, qat=False, adam=False,
+                                        cluster=None):
+        fail(f"mrf-fpga at tile 1 does not take the per-sample kernel: "
+             f"{kernel.per_sample_schedule(tuple(widths)).why}")
+    gen = torch.Generator(device=device).manual_seed(11)
+    flat, _ = ops.pack_params(mrf_net.init_params(gen, widths))
+    x, y = training_data(device, 64, seed=12)  # 16,384 samples
+    per_step, lr = 4096, 1e-4  # the stream cell's step and rate
+    counter = train_counters()["per_sample"]
+    before = counter.launches
+
+    def launch(xs, ys, p):
+        return multistep.fused_train_multistep_call(
+            xs, ys, p, widths=widths, lr=lr, tile_batch=1)
+
+    got = launch(x, y, flat)
+    again = launch(x, y, flat)
+    p, losses = flat, []
+    for k in range(x.shape[0] // per_step):
+        sl = slice(per_step * k, per_step * (k + 1))
+        p, tile_losses = launch(x[sl], y[sl], p)
+        losses.append(tile_losses)
+    torch.cuda.synchronize()
+    bitequal(again, got, "per-sample kernel, two identical launches")
+    bitequal((p, torch.cat(losses)), got,
+             "per-sample kernel, a 4-step launch vs 4 single-step launches")
+
+    def one_row(xr, yr, p_cpu):
+        new, loss = launch(xr.to(device), yr.to(device), p_cpu.to(device))
+        return new.cpu(), loss.cpu()
+
+    div = held_stream(one_row, x.cpu(), y.cpu(), flat.cpu(), widths, lr,
+                      False, "per-sample kernel mrf-fpga 4 x 4,096 tile 1")
+    bitequal((div["params"], div["losses"]),
+             (got[0].cpu(), got[1].cpu()),
+             f"per-sample kernel: one launch vs {x.shape[0]} one-row "
+             f"launches")
+    made = 2 + x.shape[0] // per_step + x.shape[0]
+    if counter.launches != before + made:
+        fail(f"per_sample_launches advanced by {counter.launches - before}"
+             f", {made} launches made")
+    if kernel.run_fused_train.last_cluster != 1:
+        fail(f"per-sample kernel: last_cluster "
+             f"{kernel.run_fused_train.last_cluster}")
+    log(f"per-sample kernel (mrf-fpga, tile 1, 4 x 4,096 samples): max abs "
+        f"err {div['err']:.3g} vs plain, bit-equal across launch splits, "
+        f"{made} launches counted")
+    return div["err"]
 
 
 def train(argv) -> dict:
@@ -1153,10 +1242,13 @@ def train_phase(tmp: pathlib.Path, device) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     head, tail = float(losses[:256].mean()), float(losses[-256:].mean())
-    if counters["fused_train"].launches != 1 or not tail < head:
+    if counters["fused_train"].launches != 1 or \
+            counters["per_sample"].launches != 1 or not tail < head:
         fail(f"per-sample stream: {counters['fused_train'].launches} B1 "
-             f"launches, mean loss {head} -> {tail}")
+             f"launches ({counters['per_sample'].launches} per-sample), "
+             f"mean loss {head} -> {tail}")
     launches["fused_train"] += 1
+    launches["per_sample"] += 1
     log(f"train per-sample stream (fused_train_step, tile 1): 1024 samples "
         f"in {wall * 1e3:.3f} ms, mean loss {head:.6f} -> {tail:.6f}")
 
@@ -1306,7 +1398,7 @@ def paper_phase() -> tuple:
     stream = ["--mode", "stream", "--steps", "60", "--chunk-steps", "20"]
     for key, argv, want in (
             ("stream", [*stream, "--device", "cuda"],
-             {"fused_train_multistep": 3}),
+             {"fused_train_multistep": 3, "per_sample": 3}),
             ("minibatch", ["--mode", "minibatch", "--steps", "300",
                            "--device", "cuda"], {"fused_train_multistep": 300}),
             ("stream on the host CPU", [*stream, "--device", "cpu"], {})):
@@ -1451,7 +1543,7 @@ def training_timing(launches: dict, errs: dict, device) -> list:
                                       optimizer=opt or "sgd")
 
         card = bound(H100["n_sms"])
-        saved = counters[name].launches
+        saved = {k: c.launches for k, c in counters.items()}
         t = {"ms": device_ms(call, "fused_train_kernel", reps=TRAIN_REPS,
                              warmup=1, label=name),
              "wall_ms": event_ms(call, reps=TRAIN_REPS),
@@ -1469,7 +1561,8 @@ def training_timing(launches: dict, errs: dict, device) -> list:
             except (ValueError, RuntimeError) as e:
                 by_cluster.append({"cluster": c, "refused": str(e)})
         del kw["cluster"]
-        counters[name].launches = saved
+        for k, c in counters.items():
+            c.launches = saved[k]
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/fused_train.cu",
                      "replaces": replaces, "launches": launches[name],

@@ -8,7 +8,8 @@ compared in one run on one card.
 
 Shapes as ``chip_smoke.py`` phase 5: B1 over 1,024 samples at tile 1, B2
 and B3 over K=50 x 256 samples at tile 128, mrf-fpga; B2 and B3 also for
-mrf-original.  Times are CUDA events around one call (median of 10 after 2
+mrf-original.  At tile 1 with no cluster named ("default") a tree that has
+it runs the per-sample kernel; a named cluster runs the cluster kernel.  Times are CUDA events around one call (median of 10 after 2
 warm-ups, milliseconds).  A tree whose wrappers take no ``cluster`` (before
 the cluster kernel) is timed at its one launch shape.  Prints one JSON
 object a line; needs a CUDA card.

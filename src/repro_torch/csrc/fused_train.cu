@@ -14,7 +14,8 @@
 // its update rule, and the int8 weight fake-quant of QAT is a runtime flag.
 // Layer count, widths, the tile and the buffer layout are runtime values
 // (the wrapper's plan, kernels/fused_train/kernel.py), so one binary trains
-// every net.
+// every net.  A second kernel, fused_train_kernel_per_sample (the end of
+// this file), takes the per-sample stream: tile 1, SGD, no QAT.
 //
 // What bounds it on an H100: the chain of dependent tiles.  Every tile
 // needs the weights the previous tile wrote, so the tiles run one after the
@@ -64,8 +65,9 @@
 //   such tiles than threads, each sum (a dot product, or dW's sum over the
 //   rows) is split over 2-32 lanes of a warp and joined by a fixed
 //   xor-shuffle tree, so a phase is not one long FMA chain.  At tile 1 (the
-//   per-sample stream) C is 1 and each dot product is split over up to 16
-//   lanes.
+//   per-sample stream) the wrapper launches the per-sample kernel at the
+//   end of this file instead, where it can: SGD, no QAT, a net within its
+//   register budget (kernel.py: takes_per_sample_path).
 //
 // Determinism: no atomics.  Every sum (each dot's K loop and its shuffle
 // tree, dW's and db's sum over the block's rows and its tree, the
@@ -1103,5 +1105,458 @@ extern "C" int fused_train_launch(
       static_cast<const int*>(step0), static_cast<float*>(losses),
       static_cast<float*>(gws), lr, rule, qat);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ===========================================================================
+// The per-sample path: tile 1, SGD, no QAT (the paper's Eq. 3 stream).
+//
+// A second kernel, sharing no phase code with the cluster kernel above: the
+// cluster kernel spreads a tile's rows over blocks and reduces dW/db across
+// them; at one row a tile that machinery is pure overhead.  Here one block
+// of kPsThreads threads trains the net one sample after the other, and
+// what bounds it is the chain of 2L dependent phases inside a sample (each
+// layer's forward, then each layer's backward), not arithmetic: mrf-fpga's
+// 59,584 FLOP a sample are ~470 cycles of one SM's fp32 rate.  So the design
+// takes latency out of each phase:
+//
+// - A schedule built once a launch (kernel.py: per_sample_schedule).  Each
+//   layer's padded W is cut into 4 x 4 tiles, one a lane, over a few warps:
+//   a warp holds a block of gk x gn tiles (lane = kl + gk * nl), kq = (warp
+//   row) * gk + kl, nq = (warp column) * gn + nl.  A thread keeps its tile
+//   of layer l in register slot l.  The layers are unrolled at compile time
+//   (up to kPsMaxLayers), so every phase knows its slot, whether it reads x
+//   and whether it has a dh: no dispatch, few branches a phase.  The table
+//   (every phase's buffers, lane groups and barrier) sits in shared memory;
+//   each thread's descriptors are loaded once, before the sample loop.
+// - Weights stationary in registers: a thread's tiles and the biases it
+//   owns (the kq == 0 tile of a column chunk owns its 4 biases) are loaded
+//   from p_in once and stored to p_out at the end.  The one row's
+//   activations and deltas pass between phases through shared memory.
+// - Forward of layer l: each tile's 4 partial sums of z (the bias owner
+//   starts from its bias), joined over the gk lanes of its column chunk by
+//   a straight-line xor-shuffle tree; one partial row per warp row goes to
+//   shared memory.  The next layer's threads load the (at most 4) rows at
+//   once, add them in a fixed pairwise order, take the ReLU, and its nq ==
+//   0 tiles keep h for the backward.
+// - Backward of layer l, in this order: dz (the partial rows of dh of the
+//   layer above, masked by h > 0; for the last layer 2 (z - y) / d_out on
+//   the true columns, and the loss), dh = dz . W^T through the old W
+//   (joined over the gn lanes of its row chunk, one partial row per warp
+//   column), then the update of the thread's own W and b in registers,
+//   which fills the join's latency.  This keeps ref.py's train_tile_plain
+//   order: no W_l is read again in the sample.  There are no partial dW/db
+//   buffers and no owner pass.
+// - Barriers as narrow as the phases: the barrier after a phase takes the
+//   warps of that phase and of the next; one warp syncs with __syncwarp,
+//   any other set with bar.sync (all warps: id 0; else one id a phase).
+//   The tail of mrf-fpga (32-16-16-16-2) sits in one warp.  One
+//   __syncthreads ends each sample, after the x/y row of the next sample,
+//   prefetched by cp.async one sample ahead, has landed.
+//
+// Invariants as above: float32, no tensor cores, no fast math, no atomics;
+// every sum in a fixed order (a tile's 4-term FMA chains, the shuffle
+// trees, the pairwise sum of partial rows), so a K-step launch equals K
+// single-step launches bit for bit.  The update is the cluster kernel's at tile 1: g = h * dz (for
+// b, g = dz), p = p - lr * g, each operation rounded, no contraction.  The
+// forward and dh sums take another order than the cluster kernel's, so the
+// two kernels' bits differ.
+//
+// The benchmark finds the training kernels' device time by the name
+// fused_train_kernel, so this kernel's name begins with it.
+
+namespace {
+
+constexpr int kPsThreads = 256;
+constexpr int kPsWarps = kPsThreads / 32;
+constexpr int kPsMaxLayers = 7;  // = the register slots: a 4 x 4 tile each
+constexpr int kPsMaxRows = 4;    // partial rows a sum reads
+constexpr int kPsMaxGroup = 8;   // lanes a join spans, each way
+// per-slot descriptor: kq (bits 0-5), nq (6-11), its forward partial row
+// (12-14), its backward partial row (15-17), flags (18-23); an empty slot
+// has none of the flags
+constexpr int kPsValid = 1, kPsFwdWriter = 2, kPsBwdWriter = 4,
+              kPsBiasOwner = 8, kPsActWriter = 16, kPsLossOwner = 32;
+
+struct PsHeader {
+  int n_layers, n_phases, smem_floats, x[2], y[2], d_in, d_out, out_chunks;
+  int pad[6];
+};
+struct PsLayer {
+  int k, n, pw, pb;  // true widths, packed offsets of W and b
+  int pad[4];
+};
+// One phase: the forward of layer l (phases 0..L-1) or its backward
+// (phases L..2L-1, from the last layer down).  Offsets are floats of the
+// dynamic shared memory; -1 where a phase has no such buffer.
+struct __align__(16) PsPhase {
+  int warps;        // the warps that hold the layer's tiles
+  // forward: the previous layer's partial rows of z (layer 0: the x row);
+  // backward: the partial rows of dh of the layer above, or for the last
+  // layer its own rows of z
+  int in, in_rows, in_stride;
+  int act;          // forward: where h of the input is kept; backward: h of
+                    // the layer's output (the ReLU mask; -1: last layer)
+  int hin;          // backward: h of the layer's input (layer 0: x)
+  int out, out_stride;  // this phase's partial rows (-1: none)
+  int gk, gn;       // lane groups: forward joins lanes ^ 1, 2, 4 below gk,
+                    // backward lanes ^ gk, 2 gk, 4 gk below gk * gn
+  // the barrier after the phase: its warps, id and threads (one warp:
+  // __syncwarp; all: id 0)
+  int bar_warps, bar_id, bar_count;
+  int pad[3];
+};
+struct PsTable {
+  PsHeader h;
+  PsLayer layer[kPsMaxLayers];
+  PsPhase phase[2 * kPsMaxLayers];
+};
+constexpr int kPsTableInts = sizeof(PsTable) / sizeof(int);
+static_assert(kPsTableInts % 4 == 0, "table rows 16-byte aligned");
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// The sum of `rows` (<= kPsMaxRows) partial rows, stride floats apart, at
+// p: all loaded first (an absent row reads as 0), then added in one fixed
+// order, (r0 + r1) + (r2 + r3).
+__device__ __forceinline__ float4 sum_rows(const float* p, int rows,
+                                           int stride) {
+  float4 v[kPsMaxRows];
+#pragma unroll
+  for (int r = 0; r < kPsMaxRows; ++r)
+    v[r] = r < rows ? ld4(p + r * stride) : make_float4(0.f, 0.f, 0.f, 0.f);
+  return add4(add4(v[0], v[1]), add4(v[2], v[3]));
+}
+static_assert(kPsMaxRows == 4, "sum_rows adds four rows");
+
+// acc summed over the lanes lane ^ (lo << i), i = 0, 1, 2, for each i with
+// lo << i < hi: a lane group of up to kPsMaxGroup lanes.  Straight-line
+// code, a level past the group shuffling with itself and adding nothing,
+// so no branch sits between the shuffles and the update can fill their
+// latency.  Every lane of a group ends with the same bits.
+__device__ __forceinline__ void xor_join(float (&acc)[4], int lo, int hi) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int off = lo << i;
+    const bool on = off < hi;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = __shfl_xor_sync(0xffffffffu, acc[j], on ? off : 0);
+      acc[j] = on ? __fadd_rn(acc[j], v) : acc[j];
+    }
+  }
+}
+static_assert(kPsMaxGroup == 8, "xor_join takes three levels");
+
+// A thread's registers: its tile of each layer (slot l), the biases it
+// owns, its descriptors.
+struct PsRegs {
+  float w[kPsMaxLayers][16];  // W[4 kq + i][4 nq + j] at 4 i + j
+  float b[kPsMaxLayers][4];
+  int d[kPsMaxLayers];
+};
+
+__device__ __forceinline__ int ps_kq(int d) { return d & 63; }
+__device__ __forceinline__ int ps_nq(int d) { return (d >> 6) & 63; }
+__device__ __forceinline__ int ps_frow(int d) { return (d >> 12) & 7; }
+__device__ __forceinline__ int ps_brow(int d) { return (d >> 15) & 7; }
+__device__ __forceinline__ int ps_flags(int d) { return (d >> 18) & 63; }
+
+template <int L>
+__device__ __forceinline__ void ps_forward(const PsPhase& ph, PsRegs& R,
+                                           float* smem, const float* xb) {
+  const int d = R.d[L], fl = ps_flags(d);
+  const int kq = ps_kq(d), nq = ps_nq(d);
+  float4 h;
+  if (L == 0) {
+    h = ld4(xb + 4 * kq);
+  } else {
+    h = sum_rows(smem + ph.in + 4 * kq, ph.in_rows, ph.in_stride);
+    h = make_float4(fmaxf(h.x, 0.0f), fmaxf(h.y, 0.0f), fmaxf(h.z, 0.0f),
+                    fmaxf(h.w, 0.0f));
+    if (fl & kPsActWriter) st4(smem + ph.act + 4 * kq, h);
+  }
+  const bool own_b = (fl & kPsBiasOwner) != 0;
+  float acc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = own_b ? R.b[L][j] : 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float hi = lane_of(h, i);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j] = fmaf(hi, R.w[L][4 * i + j], acc[j]);
+  }
+  xor_join(acc, 1, ph.gk);
+  if (fl & kPsFwdWriter)
+    st4(smem + ph.out + ps_frow(d) * ph.out_stride + 4 * nq,
+        make_float4(acc[0], acc[1], acc[2], acc[3]));
+}
+
+// The last layer's dz = 2 (z - y) / d_out on the true columns (its z the
+// rows at zr), and, by the loss owner, the sample's loss over its columns
+// in order.
+__device__ __forceinline__ void ps_output_delta(int d, const float* zr,
+                                                int rows, int stride,
+                                                const float* yb, int d_out,
+                                                int out_chunks,
+                                                float (&dz)[4],
+                                                float* loss_out) {
+  const float denom = static_cast<float>(d_out);
+  const int n4 = 4 * ps_nq(d);
+  const float4 z = sum_rows(zr + n4, rows, stride);
+  const float4 yv = ld4(yb + n4);
+  float diff[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    diff[j] = __fsub_rn(lane_of(z, j), lane_of(yv, j));
+    dz[j] = n4 + j < d_out ? __fdiv_rn(__fmul_rn(2.0f, diff[j]), denom)
+                           : 0.0f;
+  }
+  if (!(ps_flags(d) & kPsLossOwner)) return;
+  // the loss owner holds chunk 0; the other chunks' columns are read again
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < d_out) acc = __fadd_rn(acc, __fmul_rn(diff[j], diff[j]));
+  for (int c = 1; c < out_chunks; ++c) {
+    const float4 zc = sum_rows(zr + 4 * c, rows, stride);
+    const float4 yc = ld4(yb + 4 * c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * c + j < d_out) {
+        const float e = __fsub_rn(lane_of(zc, j), lane_of(yc, j));
+        acc = __fadd_rn(acc, __fmul_rn(e, e));
+      }
+  }
+  *loss_out = __fdiv_rn(acc, denom);
+}
+
+template <int L>
+__device__ __forceinline__ void ps_backward(const PsPhase& ph, bool last,
+                                            PsRegs& R, float* smem,
+                                            const float* xb, const float* yb,
+                                            float lr, int d_out,
+                                            int out_chunks,
+                                            float* loss_out) {
+  const int d = R.d[L], fl = ps_flags(d);
+  const int kq = ps_kq(d), nq = ps_nq(d);
+  float dz[4];
+  if (last) {  // its in rows are z
+    ps_output_delta(d, smem + ph.in, ph.in_rows, ph.in_stride, yb, d_out,
+                    out_chunks, dz, loss_out);
+  } else {
+    const float4 s = sum_rows(smem + ph.in + 4 * nq, ph.in_rows,
+                              ph.in_stride);
+    const float4 hv = ld4(smem + ph.act + 4 * nq);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      dz[j] = __fmul_rn(lane_of(s, j), lane_of(hv, j) > 0.0f ? 1.0f : 0.0f);
+  }
+  const float4 h = ld4((L == 0 ? xb : smem + ph.hin) + 4 * kq);
+  if (L > 0) {  // dh through the old W, joined over the gn lanes
+    float acc[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[i] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i] = fmaf(dz[j], R.w[L][4 * i + j], acc[i]);
+    }
+    xor_join(acc, ph.gk, ph.gk * ph.gn);
+    if (fl & kPsBwdWriter)
+      st4(smem + ph.out + ps_brow(d) * ph.out_stride + 4 * kq,
+          make_float4(acc[0], acc[1], acc[2], acc[3]));
+  }
+  // the update, unconditional: a lane past the layer's tiles, or a bias it
+  // does not own, steps by 0 * g
+  const float lr_w = (fl & kPsValid) ? lr : 0.0f;
+  const float lr_b = (fl & kPsBiasOwner) ? lr : 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float hi = lane_of(h, i);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      R.w[L][4 * i + j] = __fsub_rn(R.w[L][4 * i + j],
+                                    __fmul_rn(lr_w, __fmul_rn(hi, dz[j])));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    R.b[L][j] = __fsub_rn(R.b[L][j], __fmul_rn(lr_b, dz[j]));
+}
+
+__device__ __forceinline__ void ps_barrier(const PsPhase& ph, int warp_bit) {
+  if (!(ph.bar_warps & warp_bit)) return;
+  if (ph.bar_count == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(ph.bar_id), "r"(ph.bar_count)
+                 : "memory");
+}
+
+// The x and y rows of sample t into their buffers t & 1, by cp.async.
+__device__ __forceinline__ void ps_stage(const PsHeader& H, int t,
+                                         const float* x, const float* y,
+                                         float* smem) {
+  const size_t at = static_cast<size_t>(t);
+  for (int i = threadIdx.x; i < H.d_in; i += kPsThreads)
+    cp_async4(smem + H.x[t & 1] + i, x + at * H.d_in + i);
+  for (int i = threadIdx.x; i < H.d_out; i += kPsThreads)
+    cp_async4(smem + H.y[t & 1] + i, y + at * H.d_out + i);
+  cp_async_commit();
+}
+
+// x (n, d_in), y (n, d_out): one SGD update a row, in order.  slots: the
+// schedule's kPsMaxLayers descriptors of each thread; losses (n,).
+__global__ void __launch_bounds__(kPsThreads, 1)
+fused_train_kernel_per_sample(const float* __restrict__ x,
+                              const float* __restrict__ y, int n,
+                              const __grid_constant__ PsTable table,
+                              const int* __restrict__ slots,
+                              const float* __restrict__ p_in,
+                              float* __restrict__ p_out,
+                              float* __restrict__ losses, float lr) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp_bit = 1 << (tid >> 5);
+  // zero the buffers (pads stay zero), the table in front of them
+  for (int i = kPsTableInts + tid; i < table.h.smem_floats; i += kPsThreads)
+    smem[i] = 0.0f;
+  for (int i = tid; i < kPsTableInts; i += kPsThreads)
+    reinterpret_cast<int*>(smem)[i] = reinterpret_cast<const int*>(&table)[i];
+  PsRegs R;
+#pragma unroll
+  for (int l = 0; l < kPsMaxLayers; ++l) {
+    const int d = slots[tid * kPsMaxLayers + l], fl = ps_flags(d);
+    R.d[l] = d;
+    const bool valid = l < table.h.n_layers && (fl & kPsValid);
+    const PsLayer L = valid ? table.layer[l] : PsLayer{};
+    const int k0 = 4 * ps_kq(d), n0 = 4 * ps_nq(d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        R.w[l][4 * i + j] = valid && k0 + i < L.k && n0 + j < L.n
+                                ? p_in[L.pw + (k0 + i) * L.n + n0 + j]
+                                : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      R.b[l][j] = valid && (fl & kPsBiasOwner) && n0 + j < L.n
+                      ? p_in[L.pb + n0 + j]
+                      : 0.0f;
+  }
+  __syncthreads();
+  const PsTable& T = *reinterpret_cast<const PsTable*>(smem);
+  const int n_layers = T.h.n_layers, n_phases = T.h.n_phases;
+  const int d_out = T.h.d_out, out_chunks = T.h.out_chunks;
+  if (n > 0) ps_stage(T.h, 0, x, y, smem);
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int t = 0; t < n; ++t) {
+    if (t + 1 < n) ps_stage(T.h, t + 1, x, y, smem);
+    const float* xb = smem + T.h.x[t & 1];
+    const float* yb = smem + T.h.y[t & 1];
+    // each phase: its work, the next phase's row of the table (read before
+    // the barrier), the barrier
+    PsPhase ph = T.phase[0];
+#define PS_FORWARD(L)                                                   \
+    if (L < n_layers) {                                                 \
+      const int p = L;                                                  \
+      if (ph.warps & warp_bit) ps_forward<L>(ph, R, smem, xb);          \
+      const PsPhase next = T.phase[p + 1];                              \
+      ps_barrier(ph, warp_bit);                                         \
+      ph = next;                                                        \
+    }
+#define PS_BACKWARD(L)                                                  \
+    if (L < n_layers) {                                                 \
+      const int p = n_phases - 1 - L;                                   \
+      if (ph.warps & warp_bit)                                          \
+        ps_backward<L>(ph, L == n_layers - 1, R, smem, xb, yb, lr,      \
+                       d_out, out_chunks, losses + t);                  \
+      const PsPhase next = T.phase[p + 1 < n_phases ? p + 1 : p];       \
+      ps_barrier(ph, warp_bit);                                         \
+      ph = next;                                                        \
+    }
+    PS_FORWARD(0) PS_FORWARD(1) PS_FORWARD(2) PS_FORWARD(3) PS_FORWARD(4)
+    PS_FORWARD(5) PS_FORWARD(6)
+    PS_BACKWARD(6) PS_BACKWARD(5) PS_BACKWARD(4) PS_BACKWARD(3)
+    PS_BACKWARD(2) PS_BACKWARD(1) PS_BACKWARD(0)
+#undef PS_FORWARD
+#undef PS_BACKWARD
+    cp_async_wait_all();  // the next sample's rows in, every phase done
+    __syncthreads();
+  }
+
+  // the trained net back to device memory: each thread its own entries
+#pragma unroll
+  for (int l = 0; l < kPsMaxLayers; ++l) {
+    const int d = R.d[l], fl = ps_flags(d);
+    if (l >= n_layers || !(fl & kPsValid)) continue;
+    const PsLayer L = T.layer[l];
+    const int k0 = 4 * ps_kq(d), n0 = 4 * ps_nq(d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (k0 + i < L.k && n0 + j < L.n)
+          p_out[L.pw + (k0 + i) * L.n + n0 + j] = R.w[l][4 * i + j];
+    if (fl & kPsBiasOwner)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + j < L.n) p_out[L.pb + n0 + j] = R.b[l][j];
+  }
+}
+static_assert(kPsMaxLayers == 7, "the sample loop names every layer");
+
+}  // namespace
+
+// table: kPsTableInts ints in the order of struct PsTable (kernel.py:
+// per_sample_schedule); slots: kPsThreads * kPsMaxLayers descriptors on the
+// device.  n_rows samples, one update each.  Returns the first CUDA error
+// (cudaErrorInvalidValue for a table the kernel does not take).
+extern "C" int fused_train_per_sample_launch(
+    const void* x, const void* y, int n_rows, const int* table, int table_len,
+    const void* slots, const void* p_in, void* p_out, void* losses, float lr,
+    void* stream) {
+  if (table == nullptr || table_len != kPsTableInts || slots == nullptr ||
+      n_rows < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PsTable T{};
+  std::memcpy(&T, table, sizeof(PsTable));
+  const PsHeader& H = T.h;
+  if (H.n_layers < 1 || H.n_layers > kPsMaxLayers ||
+      H.n_phases != 2 * H.n_layers || H.smem_floats < kPsTableInts ||
+      static_cast<size_t>(H.smem_floats) * sizeof(float) > kSmemLimit ||
+      H.d_in < 1 || H.d_out < 1 || H.out_chunks * 4 < H.d_out ||
+      H.d_in != T.layer[0].k || H.d_out != T.layer[H.n_layers - 1].n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int p = 0; p < H.n_phases; ++p) {
+    const PsPhase& ph = T.phase[p];
+    if (ph.in_rows < 1 || ph.in_rows > kPsMaxRows || ph.warps <= 0 ||
+        ph.gk < 1 || ph.gn < 1 || ph.gk > kPsMaxGroup ||
+        ph.gn > kPsMaxGroup || (ph.gk & (ph.gk - 1)) ||
+        (ph.gn & (ph.gn - 1)) ||
+        ph.warps >= (1 << kPsWarps) || ph.bar_warps < 0 ||
+        ph.bar_warps >= (1 << kPsWarps) || ph.bar_id < 0 ||
+        ph.bar_id > 15 || ph.bar_count != 32 * __builtin_popcount(
+                                               ph.bar_warps))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows == 0) return 0;
+  const size_t smem = static_cast<size_t>(H.smem_floats) * sizeof(float);
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_train_kernel_per_sample,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  fused_train_kernel_per_sample<<<1, kPsThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y), n_rows, T,
+      static_cast<const int*>(slots), static_cast<const float*>(p_in),
+      static_cast<float*>(p_out), static_cast<float*>(losses), lr);
   return static_cast<int>(cudaGetLastError());
 }

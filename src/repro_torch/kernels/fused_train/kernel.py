@@ -14,6 +14,14 @@ B1 is the K = 1 case of the same kernel as ``multistep.py``'s B2 and B3:
 :func:`run_fused_train` launches it for all three, and each wrapper counts
 its own launches in ``.launches``.
 
+The per-sample stream (tile 1, SGD, no QAT) has a kernel of its own in the
+same source, ``fused_train_kernel_per_sample``: one block, each thread's
+4 x 4 tiles of the weights in registers for the whole launch, the update
+fused into the backward pass.  :func:`per_sample_schedule` builds its
+schedule; :func:`run_fused_train` takes it where the schedule fits
+(``fits``) and the caller names no cluster, and counts those launches in
+``run_fused_train.per_sample_launches``.
+
 A CPU tensor runs the plain version (``ref.fused_train_plain``); a CUDA
 tensor launches the kernel or raises.  Outputs are new tensors; inputs are
 not mutated.  The launch goes on the current stream and does not
@@ -188,6 +196,238 @@ def cluster_sizes(tile: int, widths) -> tuple:
     return tuple(out)
 
 
+# The per-sample kernel (``fused_train_kernel_per_sample``): constants of
+# the .cu, and the layout of its table (struct PsTable).
+PS_THREADS = 256    # kPsThreads
+_PS_WARPS = PS_THREADS // 32
+PS_MAX_LAYERS = 7   # kPsMaxLayers: a thread keeps a 4 x 4 tile of each
+_PS_MAX_ROWS = 4    # kPsMaxRows: partial rows a sum reads
+_PS_MAX_GROUP = 8   # kPsMaxGroup: lanes a join spans, each way
+_PS_MAX_CHUNKS = 64  # 4-wide chunks a width: a descriptor's 6 bits each
+PS_HEADER_INTS, PS_LAYER_INTS, PS_PHASE_INTS = 16, 8, 16
+PS_TABLE_INTS = (PS_HEADER_INTS + PS_LAYER_INTS * PS_MAX_LAYERS
+                 + PS_PHASE_INTS * 2 * PS_MAX_LAYERS)
+# a slot's flags (kPsValid ... kPsLossOwner)
+PS_VALID, PS_FWD_WRITER, PS_BWD_WRITER = 1, 2, 4
+PS_BIAS_OWNER, PS_ACT_WRITER, PS_LOSS_OWNER = 8, 16, 32
+
+
+class Tile(NamedTuple):
+    """One 4 x 4 tile of a layer's padded W held by one lane: rows 4 kq..,
+    columns 4 nq..; the partial rows its lane group writes; ``flags`` as
+    the .cu's kPs* bits."""
+    layer: int
+    kq: int
+    nq: int
+    frow: int   # forward: its group's partial row of z
+    brow: int   # backward: its group's partial row of dh
+    flags: int
+
+
+class SampleSchedule(NamedTuple):
+    """The per-sample kernel's schedule for one net: which warps and lanes
+    hold which tiles, and every phase's buffers and barrier.
+
+    ``fits`` is False (``why`` says what does not) when the net exceeds
+    the kernel's register budget: ``PS_MAX_LAYERS`` layers (one register
+    tile each a thread), 8 warps a layer, ``_PS_MAX_ROWS`` partial rows a
+    sum.  ``slots[tid][l]`` is the :class:`Tile` of layer ``l``
+    that thread ``tid`` holds (None: none); ``table`` and ``descriptors``
+    are what the kernel reads (struct PsTable, and ``PS_MAX_LAYERS`` ints a
+    thread), only where the net fits.
+    """
+    fits: bool
+    why: str
+    lanes: tuple      # per layer (gk, gn): a warp's block, the join groups
+    warps: tuple      # per layer: its warps
+    slots: tuple
+    smem_bytes: int
+    table: tuple
+    descriptors: tuple
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _lane_groups(kq: int, nq: int) -> tuple:
+    """(gk, gn) for a layer of kq x nq tiles, each at most
+    ``_PS_MAX_GROUP``: a warp holds gk x gn tiles; the forward joins gk
+    lanes, the backward gn.  The fewest warps, then the fewest partial rows
+    (forward plus backward), then the fewest lanes a warp, then the smaller
+    forward group."""
+    best = None
+    sizes = [g for g in (1, 2, 4, 8, 16, 32) if g <= _PS_MAX_GROUP]
+    for gk in sizes:
+        for gn in sizes:
+            if gk * gn > 32 or gk > _pow2_at_least(kq) or \
+                    gn > _pow2_at_least(nq):
+                continue
+            wk, wn = -(-kq // gk), -(-nq // gn)
+            key = (wk * wn, wk + wn, gk * gn, gk)
+            if best is None or key < best[0]:
+                best = (key, (gk, gn))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def per_sample_schedule(widths) -> SampleSchedule:
+    """The per-sample kernel's schedule for a net (a function of the widths
+    alone, built once): each layer's padded W in 4 x 4 tiles, one a lane,
+    in blocks of :func:`_lane_groups` over its warps (``csrc/fused_train.cu``
+    says how); the layers of one warp in the last warp, every other layer
+    from warp 0; layer l's tile in register slot l."""
+    widths = _check_widths(widths)
+    n_layers = len(widths) - 1
+    pw = [_pad4(w) for w in widths]
+    lanes, warps, why = [], [], []
+    for l in range(n_layers):
+        kq, nq = pw[l] // 4, pw[l + 1] // 4
+        gk, gn = _lane_groups(kq, nq)
+        wk, wn = -(-kq // gk), -(-nq // gn)
+        lanes.append((gk, gn))
+        nw = wk * wn
+        warps.append(tuple(range(nw)) if nw > 1 else (_PS_WARPS - 1,))
+        if max(kq, nq) > _PS_MAX_CHUNKS:
+            why.append(f"layer {l}: {4 * max(kq, nq)} wide > "
+                       f"{4 * _PS_MAX_CHUNKS}")
+        if nw > _PS_WARPS:
+            why.append(f"layer {l}: {nw} warps > {_PS_WARPS}")
+        if max(wk, wn) > _PS_MAX_ROWS:
+            why.append(f"layer {l}: {max(wk, wn)} partial rows > "
+                       f"{_PS_MAX_ROWS}")
+    if n_layers > PS_MAX_LAYERS:
+        why.append(f"{n_layers} layers > {PS_MAX_LAYERS}")
+    slots = [[None] * max(n_layers, PS_MAX_LAYERS) for _ in range(32 * max(
+        _PS_WARPS, max(max(w) for w in warps) + 1))]
+    for l in range(n_layers):
+        kq_n, nq_n = pw[l] // 4, pw[l + 1] // 4
+        gk, gn = lanes[l]
+        wk_n = -(-kq_n // gk)
+        for wi, w in enumerate(warps[l]):
+            wk, wn = wi % wk_n, wi // wk_n
+            for lane in range(32):
+                kl, nl = lane % gk, lane // gk
+                kq, nq = wk * gk + kl, wn * gn + nl
+                flags = 0
+                if nl < gn and kq < kq_n and nq < nq_n:
+                    flags |= PS_VALID
+                    flags |= PS_FWD_WRITER if kl == 0 else 0
+                    flags |= PS_BWD_WRITER if nl == 0 and l > 0 else 0
+                    flags |= PS_BIAS_OWNER if kq == 0 else 0
+                    flags |= PS_ACT_WRITER if nq == 0 and l > 0 else 0
+                    flags |= PS_LOSS_OWNER if (
+                        l == n_layers - 1 and kq == 0 and nq == 0) else 0
+                else:  # a lane past the layer's tiles reads tile (0, 0)
+                    kq = nq = 0
+                slots[32 * w + lane][l] = Tile(l, kq, nq, wk, wn, flags)
+    fits = not why
+    table, descriptors, smem_bytes = (), (), 0
+    if fits:
+        table, smem_bytes = _per_sample_table(widths, lanes, warps)
+        descriptors = tuple(
+            _descriptor(t) for row in slots for t in row)
+    return SampleSchedule(fits, "; ".join(why), tuple(lanes), tuple(warps),
+                          tuple(tuple(r) for r in slots), smem_bytes, table,
+                          descriptors)
+
+
+def _descriptor(t) -> int:
+    if t is None:
+        return 0
+    return t.kq | t.nq << 6 | t.frow << 12 | t.brow << 15 | t.flags << 18
+
+
+def _per_sample_table(widths, lanes, warps) -> tuple:
+    """(struct PsTable as ints, shared-memory bytes): the header, each
+    layer's widths and packed offsets, and each phase's row.  Layer l's
+    forward leaves one partial row of z a row of warps (its lane groups
+    joined), its backward one partial row of dh a column of warps."""
+    n_layers = len(widths) - 1
+    pw = [_pad4(w) for w in widths]
+    at = PS_TABLE_INTS
+
+    def take(n):
+        nonlocal at
+        off, at = at, at + _pad4(n)
+        return off
+
+    xb = [take(pw[0]) for _ in range(2)]
+    yb = [take(pw[-1]) for _ in range(2)]
+    frows = [-(-pw[l] // 4 // gk) for l, (gk, _) in enumerate(lanes)]
+    brows = [-(-pw[l + 1] // 4 // gn) for l, (_, gn) in enumerate(lanes)]
+    fpart = [take(frows[l] * pw[l + 1]) for l in range(n_layers)]
+    bpart = [take(brows[l] * pw[l]) if l > 0 else -1
+             for l in range(n_layers)]
+    act = [take(pw[l + 1]) for l in range(n_layers - 1)]
+    header = [n_layers, 2 * n_layers, at, *xb, *yb, widths[0], widths[-1],
+              pw[-1] // 4]
+    table = header + [0] * (PS_HEADER_INTS - len(header))
+    packed = 0
+    for l in range(PS_MAX_LAYERS):
+        if l < n_layers:
+            k, n = widths[l], widths[l + 1]
+            table += [k, n, packed, packed + k * n]
+            packed += k * n + n
+        else:
+            table += [0] * 4
+        table += [0] * (PS_LAYER_INTS - 4)
+    masks = [sum(1 << w for w in ws) for ws in warps]
+    # phases: the forward of layers 0..L-1, then their backward, L-1..0
+    order = [(l, True) for l in range(n_layers)] + [
+        (l, False) for l in range(n_layers - 1, -1, -1)]
+    rows = []
+    for l, fwd in order:
+        if fwd:
+            src = (-1, 1, 0) if l == 0 else (fpart[l - 1], frows[l - 1],
+                                             pw[l])
+            keep = act[l - 1] if l > 0 else -1
+            row = [masks[l], *src, keep, -1, fpart[l], pw[l + 1]]
+        elif l == n_layers - 1:
+            row = [masks[l], fpart[l], frows[l], pw[l + 1], -1,
+                   act[l - 1] if l > 0 else -1, bpart[l], pw[l]]
+        else:
+            row = [masks[l], bpart[l + 1], brows[l + 1], pw[l + 1], act[l],
+                   act[l - 1] if l > 0 else -1, bpart[l], pw[l]]
+        rows.append(row + list(lanes[l]))
+    for p, row in enumerate(rows):
+        # the barrier: the warps of this phase and the next; after the last
+        # phase the sample's closing __syncthreads
+        bar_warps = row[0] | rows[p + 1][0] if p + 1 < len(rows) else 0
+        n_bar = 32 * bin(bar_warps).count("1")
+        bar_id = 0 if n_bar in (0, 32, PS_THREADS) else p + 1
+        table += row + [bar_warps, bar_id, n_bar] + [0] * (
+            PS_PHASE_INTS - len(row) - 3)
+    table += [0] * (PS_TABLE_INTS - len(table))
+    return tuple(table), 4 * at
+
+
+def takes_per_sample_path(widths, tile_batch: int, *, qat: bool,
+                          adam: bool, cluster: int | None) -> bool:
+    """Whether a launch goes to the per-sample kernel: tile 1, SGD, no QAT,
+    a net within its budget, and no cluster named by the caller (an
+    explicit cluster launches the cluster kernel at that size)."""
+    return (tile_batch == 1 and not qat and not adam and cluster is None
+            and per_sample_schedule(tuple(widths)).fits)
+
+
+@functools.lru_cache(maxsize=None)
+def _descriptors_on(widths, device) -> torch.Tensor:
+    """The schedule's per-thread descriptors on ``device``, copied once."""
+    return torch.tensor(per_sample_schedule(widths).descriptors,
+                        dtype=torch.int32).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _ps_entry():
+    fn = build.load("fused_train").fused_train_per_sample_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load("fused_train").fused_train_launch
@@ -229,6 +469,11 @@ def run_fused_train(x, y, params, widths, *, lr: float, tile_batch: int,
     ``launched`` is False on the CPU and when there are no rows.  The
     update is computed in the kernel, not by autograd: raises under grad
     for an input that requires one, on either device.
+
+    Tile 1 with SGD and no QAT, for a net within its budget and with no
+    ``cluster`` given, launches the per-sample kernel instead
+    (:func:`takes_per_sample_path`); ``last_cluster`` is then 1 and
+    ``run_fused_train.per_sample_launches`` counts the launch.
     """
     refuse_dtensor("fused_train", x, y, params, step0,
                    *(moments if moments is not None else ()))
@@ -256,8 +501,12 @@ def run_fused_train(x, y, params, widths, *, lr: float, tile_batch: int,
         _check_tensor("mu", moments[0], dev, (n,))
         _check_tensor("nu", moments[1], dev, (n,))
         _check_tensor("step0", step0, dev, (1,), torch.int32)
-    plan = train_plan(widths, tile_batch, cluster_size(tile_batch, widths)
-                      if cluster is None else cluster, qat)
+    per_sample = takes_per_sample_path(widths, tile_batch, qat=qat,
+                                       adam=moments is not None,
+                                       cluster=cluster)
+    plan = None if per_sample else train_plan(
+        widths, tile_batch, cluster_size(tile_batch, widths)
+        if cluster is None else cluster, qat)
     build.check_device(dev)
     p_out = torch.empty_like(params)
     mu_out = nu_out = None
@@ -272,6 +521,20 @@ def run_fused_train(x, y, params, widths, *, lr: float, tile_batch: int,
             mu_out.copy_(moments[0])
             nu_out.copy_(moments[1])
         return p_out, mu_out, nu_out, losses, False
+    if per_sample:
+        sched = per_sample_schedule(widths)
+        err = _ps_entry()(
+            x.data_ptr(), y.data_ptr(), rows,
+            (ctypes.c_int * len(sched.table))(*sched.table), len(sched.table),
+            _descriptors_on(widths, dev).data_ptr(), params.data_ptr(),
+            p_out.data_ptr(), losses.data_ptr(), lr,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"fused_train per-sample kernel launch failed:"
+                               f" CUDA error {err}")
+        run_fused_train.last_cluster = 1
+        run_fused_train.per_sample_launches += 1
+        return p_out, None, None, losses, True
     gws = (torch.empty((plan.cluster * plan.gws_stride,), device=dev)
            if plan.gws_stride else None)
 
@@ -295,6 +558,7 @@ def run_fused_train(x, y, params, widths, *, lr: float, tile_batch: int,
 
 
 run_fused_train.last_cluster = None
+run_fused_train.per_sample_launches = 0
 
 
 def fused_train_call(x, y, params, *, widths, lr: float, tile_batch: int,

@@ -358,15 +358,252 @@ def test_cpu_launches_count_nothing():
     params, x, y = _case(batch=8)
     pp = params_from_numpy(params, "cpu")
     from repro_torch.kernels.fused_train import multistep
-    before = (pkernel.fused_train_call.launches,
-              multistep.fused_train_multistep_call.launches,
-              multistep.fused_train_adam_call.launches)
+    def counts():
+        return (pkernel.fused_train_call.launches,
+                multistep.fused_train_multistep_call.launches,
+                multistep.fused_train_adam_call.launches,
+                pkernel.run_fused_train.per_sample_launches)
+
+    before = counts()
     pops.fused_train_step(pp, torch.from_numpy(x), torch.from_numpy(y),
                           lr=1e-2, tile_batch=4)
     pops.fused_train_multistep(pp, popt.adam(1e-3).init(pp),
                                torch.from_numpy(x), torch.from_numpy(y),
                                n_steps=2, lr=1e-3, optimizer="adam",
                                tile_batch=4)
-    assert (pkernel.fused_train_call.launches,
-            multistep.fused_train_multistep_call.launches,
-            multistep.fused_train_adam_call.launches) == before
+    # tile 1, SGD: the per-sample path's shape, on the CPU its plain version
+    pops.fused_train_multistep(pp, None, torch.from_numpy(x),
+                               torch.from_numpy(y), n_steps=2, lr=1e-3,
+                               tile_batch=1)
+    assert counts() == before
+
+
+FPGA = tuple(mrf_net.layer_sizes(32, mrf_net.ADAPTED_HIDDEN))
+ORIGINAL = tuple(mrf_net.layer_sizes(32, mrf_net.ORIGINAL_HIDDEN))
+RAGGED = (40, 24, 10, 3)  # widths that leave dummy tiles and pad columns
+
+
+def test_per_sample_path_taken_for_the_stream():
+    """mrf-fpga at tile 1, SGD, no QAT, no cluster named: the per-sample
+    kernel, its tail (32-16-16-16-2) in one warp."""
+    assert pkernel.takes_per_sample_path(FPGA, 1, qat=False, adam=False,
+                                         cluster=None)
+    sched = pkernel.per_sample_schedule(FPGA)
+    assert isinstance(sched, pkernel.SampleSchedule)
+    assert sched.fits and sched.why == ""
+    assert sched.warps[:3] == (tuple(range(8)), tuple(range(8)),
+                               (0, 1, 2, 3))
+    assert sched.warps[3:] == ((7,),) * 4
+    assert sched.lanes == ((4, 8), (4, 8), (8, 4), (8, 4), (4, 4), (4, 4),
+                           (4, 1))
+    assert len(sched.table) == pkernel.PS_TABLE_INTS
+    assert len(sched.descriptors) == (pkernel.PS_THREADS
+                                      * pkernel.PS_MAX_LAYERS)
+    assert sched.smem_bytes <= 48 * 1024
+
+
+@pytest.mark.parametrize("case", ["tile 128", "qat", "adam", "mrf-original",
+                                  "cluster named"])
+def test_per_sample_path_not_taken(case):
+    kw = dict(qat=False, adam=False, cluster=None)
+    widths, tile = FPGA, 1
+    if case == "tile 128":
+        tile = 128
+    elif case == "mrf-original":
+        widths = ORIGINAL
+        assert not pkernel.per_sample_schedule(ORIGINAL).fits
+        assert "warps" in pkernel.per_sample_schedule(ORIGINAL).why
+    elif case == "cluster named":
+        kw["cluster"] = 1
+    else:
+        kw[case] = True
+    assert not pkernel.takes_per_sample_path(widths, tile, **kw)
+
+
+def _owned_entries(sched, widths) -> list:
+    """The schedule's ownership map in packed offsets (``pack_params``
+    layout): for each thread, the W and b entries it holds and updates."""
+    starts = np.cumsum([0] + [k * n + n for k, n in zip(widths[:-1],
+                                                        widths[1:])])
+    out = []
+    for row in sched.slots:
+        mine = []
+        for t in row:
+            if t is None or not t.flags & pkernel.PS_VALID:
+                continue
+            k, n, at = widths[t.layer], widths[t.layer + 1], starts[t.layer]
+            mine += [at + i * n + j for i in range(4 * t.kq, 4 * t.kq + 4)
+                     for j in range(4 * t.nq, 4 * t.nq + 4) if i < k and j < n]
+            if t.flags & pkernel.PS_BIAS_OWNER:
+                mine += [at + k * n + j
+                         for j in range(4 * t.nq, min(4 * t.nq + 4, n))]
+        out.append(mine)
+    return out
+
+
+@pytest.mark.parametrize("widths", [FPGA, ORIGINAL, RAGGED],
+                         ids=["mrf-fpga", "mrf-original", "ragged"])
+def test_per_sample_ownership_covers_every_entry_once(widths):
+    """Every W and b entry is held by exactly one thread; no pad is held as
+    a parameter; each bias by the kq == 0 tile of its column chunk; the
+    loss by one lane."""
+    sched = pkernel.per_sample_schedule(widths)
+    flat = [int(e) for mine in _owned_entries(sched, widths) for e in mine]
+    assert sorted(flat) == list(range(pref.packed_size(widths)))
+    for row in sched.slots:
+        for t in row:
+            assert t is None or isinstance(t, pkernel.Tile)
+            if t is not None and t.flags & pkernel.PS_BIAS_OWNER:
+                assert t.kq == 0 and t.flags & pkernel.PS_VALID
+    assert sum(1 for row in sched.slots for t in row if t is not None
+               and t.flags & pkernel.PS_LOSS_OWNER) == 1
+
+
+def _fma(a, b, c):
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _emulate(widths, x, y, flat, lr):
+    """The per-sample kernel's dataflow in numpy, from its table and
+    descriptors as the .cu reads them: every phase's reads and writes,
+    every thread's registers, the sums in the kernel's order."""
+    sched = pkernel.per_sample_schedule(widths)
+    tab, f32 = sched.table, np.float32
+    n_layers, n_phases, smem_floats = tab[:3]
+    xo, yo, d_in, d_out, out_chunks = tab[3:5], tab[5:7], *tab[7:10]
+    n_max = pkernel.PS_MAX_LAYERS
+    layers = [tab[16 + 8 * l:20 + 8 * l] for l in range(n_layers)]
+    phases = [tab[16 + 8 * n_max + 16 * p:26 + 8 * n_max + 16 * p]
+              for p in range(n_phases)]
+    desc = np.array(sched.descriptors).reshape(256, n_max)
+    kq, nq, fl = desc & 63, desc >> 6 & 63, desc >> 18 & 63
+    frow, brow = desc >> 12 & 7, desc >> 15 & 7
+    lanes = np.arange(256)
+    flat = flat.numpy()
+
+    def entries(t, s):  # (register index, packed offset) of a thread's tile
+        k, n, pw, pb = layers[s]
+        for i in range(4):
+            for j in range(4):
+                kk, nn = 4 * kq[t, s] + i, 4 * nq[t, s] + j
+                if kk < k and nn < n:
+                    yield ("w", 4 * i + j), pw + kk * n + nn
+        if fl[t, s] & pkernel.PS_BIAS_OWNER:
+            for j in range(4):
+                if 4 * nq[t, s] + j < n:
+                    yield ("b", j), pb + 4 * nq[t, s] + j
+
+    held = [(t, s) for t in range(256) for s in range(n_layers)
+            if fl[t, s] & pkernel.PS_VALID]
+    w = np.zeros((256, n_max, 16), f32)
+    b = np.zeros((256, n_max, 4), f32)
+    for t, s in held:
+        for (kind, i), at in entries(t, s):
+            (w if kind == "w" else b)[t, s, i] = flat[at]
+    smem = np.zeros(smem_floats, f32)
+
+    def rows(at, n, stride):
+        v = [smem[at + r * stride:at + r * stride + 4] if r < n
+             else np.zeros(4, f32) for r in range(4)]
+        return (v[0] + v[1]) + (v[2] + v[3])
+
+    def join(acc, lo, hi):
+        for i in range(3):
+            if lo << i < hi:
+                acc = acc + acc[lanes ^ (lo << i)]
+        return acc
+
+    losses = []
+    for r in range(x.shape[0]):
+        xb, yb = xo[r % 2], yo[r % 2]
+        smem[xb:xb + d_in], smem[yb:yb + d_out] = x[r], y[r]
+        for p, (warps, src, n_rows, stride, act, hin, out, ostride, gk,
+                gn) in enumerate(phases):
+            s = p if p < n_layers else 2 * n_layers - 1 - p  # its layer
+            on = [t for t in range(256) if warps >> (t // 32) & 1]
+            acc = np.zeros((256, 4), f32)
+            writes = []
+            for t in on:
+                k4, n4, f = 4 * kq[t, s], 4 * nq[t, s], fl[t, s]
+                if p < n_layers:
+                    if s == 0:
+                        h = smem[xb + k4:xb + k4 + 4].copy()
+                    else:
+                        h = np.maximum(rows(src + k4, n_rows, stride), 0)
+                        if f & pkernel.PS_ACT_WRITER:
+                            writes.append((act + k4, h))
+                    a = b[t, s].copy() if f & pkernel.PS_BIAS_OWNER else \
+                        np.zeros(4, f32)
+                    for i in range(4):
+                        for j in range(4):
+                            a[j] = _fma(h[i], w[t, s, 4 * i + j], a[j])
+                    acc[t] = a
+                    continue
+                sv = rows(src + n4, n_rows, stride)
+                if s == n_layers - 1:
+                    dz = np.array([(f32(2) * (sv[j] - smem[yb + n4 + j]))
+                                   / f32(d_out) if n4 + j < d_out else 0
+                                   for j in range(4)], f32)
+                    if f & pkernel.PS_LOSS_OWNER:
+                        tot = f32(0)
+                        for c in range(out_chunks):
+                            z = rows(src + 4 * c, n_rows, stride)
+                            for j in range(4):
+                                if 4 * c + j < d_out:
+                                    diff = z[j] - smem[yb + 4 * c + j]
+                                    tot = tot + diff * diff
+                        losses.append(tot / f32(d_out))
+                else:
+                    dz = sv * (smem[act + n4:act + n4 + 4] > 0).astype(f32)
+                h = smem[xb + k4:xb + k4 + 4] if s == 0 else \
+                    smem[hin + k4:hin + k4 + 4]
+                a = np.zeros(4, f32)
+                for i in range(4):
+                    for j in range(4):
+                        a[i] = _fma(dz[j], w[t, s, 4 * i + j], a[i])
+                acc[t] = a
+                if f & pkernel.PS_VALID:
+                    w[t, s] = w[t, s] - f32(lr) * (
+                        h[:, None] * dz[None, :]).reshape(16)
+                    if f & pkernel.PS_BIAS_OWNER:
+                        b[t, s] = b[t, s] - f32(lr) * dz
+            fwd = p < n_layers
+            if fwd or s > 0:
+                acc = join(acc, 1, gk) if fwd else join(acc, gk, gk * gn)
+                for t in on:
+                    f = fl[t, s]
+                    if fwd and f & pkernel.PS_FWD_WRITER:
+                        writes.append((out + frow[t, s] * ostride
+                                       + 4 * nq[t, s], acc[t]))
+                    elif not fwd and f & pkernel.PS_BWD_WRITER:
+                        writes.append((out + brow[t, s] * ostride
+                                       + 4 * kq[t, s], acc[t]))
+            for at, v in writes:
+                smem[at:at + 4] = v
+    got = flat.copy()
+    for t, s in held:
+        for (kind, i), at in entries(t, s):
+            got[at] = (w if kind == "w" else b)[t, s, i]
+    return torch.from_numpy(got), torch.tensor(losses)
+
+
+@pytest.mark.parametrize("widths", [FPGA, RAGGED], ids=["mrf-fpga", "ragged"])
+def test_per_sample_schedule_trains_as_the_plain_version(widths):
+    """The kernel's schedule, followed in numpy phase by phase (reads,
+    lane joins, writes, the update fused into the backward), trains 6
+    samples as the plain version does (atol 1e-5)."""
+    rng = np.random.default_rng(4)
+    params = [{"w": (rng.uniform(-1, 1, (i, o)) * np.sqrt(6.0 / i)
+                     ).astype(np.float32),
+               "b": rng.normal(0, 0.05, (o,)).astype(np.float32)}
+              for i, o in zip(widths[:-1], widths[1:])]
+    flat, _ = pops.pack_params(params_from_numpy(params, "cpu"))
+    x = rng.normal(size=(6, widths[0])).astype(np.float32)
+    y = rng.uniform(size=(6, widths[-1])).astype(np.float32)
+    got_p, got_l = _emulate(widths, x, y, flat, 1e-2)
+    want_p, _, _, want_l = pref.fused_train_plain(
+        torch.from_numpy(x), torch.from_numpy(y), flat, widths, lr=1e-2,
+        tile_batch=1)
+    assert float((got_p - want_p).abs().max()) < 1e-5
+    np.testing.assert_allclose(got_l.numpy(), want_l.numpy(), atol=1e-5)
+    assert float((got_p - flat).abs().max()) > 1e-4  # it trained
