@@ -40,6 +40,8 @@ class ModelConfig:
                               # in the backward; "save_attn": its attention
                               # output kept, the rest recomputed
     decode_unroll: bool = False  # per-layer decode caches (else stacked)
+    tie_embeddings: bool = False  # the head is the embedding: logits
+                                  # h @ embed^T, one (V, d) parameter
     # --- MoE (family == "moe") ---
     n_experts: int = 0        # routed experts
     n_shared_experts: int = 0
@@ -124,6 +126,9 @@ class ModelConfig:
         if self.remat not in REMAT_MODES:
             raise ValueError(f"{self.name}: remat={self.remat!r} not in "
                              f"{REMAT_MODES}")
+        if self.tie_embeddings and self.family == "encdec":
+            raise ValueError(f"{self.name}: the encoder-decoder's head is "
+                             f"its own (models.encdec)")
         return self
 
     def _validate_attention(self) -> None:
@@ -176,7 +181,8 @@ def param_count(cfg: ModelConfig) -> int:
     ``ssm`` and ``hybrid`` it leaves out the conv taps, ``CONV_TAPS *
     (d_inner + 2 * ssm_state)`` a layer, and for ``ssm`` it counts two
     RMSNorm gains a layer where the layer holds one, as the reference
-    does."""
+    does.  A tied head (``tie_embeddings``; the reference has none) is
+    the embedding, counted once."""
     if cfg.family == "mrf":
         sizes = (2 * cfg.mrf_n_frames, *cfg.mrf_hidden, 2)
         return sum(i * o + o for i, o in zip(sizes[:-1], sizes[1:]))
@@ -203,7 +209,8 @@ def param_count(cfg: ModelConfig) -> int:
         per_layer += (cfg.n_experts + cfg.n_shared_experts) * ffn
     else:
         per_layer = 2 * d + attn + ffn
-    return cfg.vocab_size * d * 2 + cfg.n_layers * per_layer + d
+    tables = 1 if cfg.tie_embeddings else 2  # embedding [and head]
+    return cfg.vocab_size * d * tables + cfg.n_layers * per_layer + d
 
 
 def active_param_count(cfg: ModelConfig) -> int:

@@ -1,7 +1,9 @@
 """Reduced same-family smoke variants of the LM configs: tiny widths, two
 layers, small vocab, few experts, a small SSM state and chunk, a window of
 8, two encoder layers, 8 prefix embeddings (counterpart of
-``repro.configs.smoke``, field for field)."""
+``repro.configs.smoke``, field for field).  A smoke model's head is its
+own: the reference's smoke models, which the tests hold the port's
+against, have no tied head."""
 
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from repro_torch.configs.base import ModelConfig
 
 def smoke_of(cfg: ModelConfig) -> ModelConfig:
     kw = dict(name=cfg.name + "-smoke", n_layers=2, d_model=64, d_head=16,
-              d_ff=0 if cfg.d_ff == 0 else 128, vocab_size=256)
+              d_ff=0 if cfg.d_ff == 0 else 128, vocab_size=256,
+              tie_embeddings=False)
     if cfg.n_heads:
         kw.update(n_heads=4, n_kv_heads=2)
     if cfg.family == "moe":

@@ -82,6 +82,7 @@ import statistics
 import tempfile
 import time
 from functools import partial
+from typing import NamedTuple
 
 import torch
 
@@ -312,20 +313,108 @@ def warm_backward(device) -> None:
     torch.autograd.grad(torch.matmul(a, a).sum(), a)
 
 
-def train_lm(args, cfg) -> int:
-    """The LM branch: the reference's ``main`` past its MRF dispatch."""
-    from repro_torch.configs.base import param_count
+class LmRun(NamedTuple):
+    """What :func:`lm_job` hands back."""
+    state: object       # the TrainState after the last step
+    step: int           # the runner's last step
+    losses: dict        # step -> loss (a replayed step's last value)
+    grad_norms: dict    # step -> the global gradient norm before clipping
+    times: dict         # step -> the step's wall seconds
+    loss_log: list      # [step, loss] in logged order, replays included
+    calls: int          # train-step calls, replays included
+    balance: float | None  # the MoE balance term's last value
+    wall_s: float       # the runner's wall time
+
+
+def lm_job(cfg, *, batch: int, seq: int, steps: int, ckpt_dir: str,
+           ckpt_every: int = 100, lr: float = 3e-4, microbatches: int = 1,
+           grad_compress: bool = False, inject_fault_at: int | None = None,
+           device="cuda", rules=None, seed: int = 0, data_seed: int = 0,
+           on_step=None) -> LmRun:
+    """An LM training job to ``steps`` (module docstring): ``cfg``'s model
+    from weights drawn with ``seed`` (f32 masters, placed by
+    ``fns.param_axes()`` under ``rules``), ``TextPipeline`` batches of
+    ``batch`` x ``seq`` tokens seeded by ``data_seed``, Adam at ``lr``
+    with clipping at a global norm of 1.0, under the fault-tolerant runner
+    with its checkpoints in ``ckpt_dir`` (resumed from, when it holds one)
+    every ``ckpt_every`` steps, all under deterministic algorithms.
+    ``on_step(step, loss, grad_norm, seconds)`` after each step.  The
+    launcher's LM branch and the benchmark's LM harness both run this."""
     from repro_torch.data.lm_text import TextPipeline
     from repro_torch.dist.sharding import distribute_tree
-    from repro_torch.launch.input_specs import batch_axes
-    from repro_torch.ft.checkpoint import latest_step
     from repro_torch.ft.runner import RunnerConfig, run
-    from repro_torch.kernels.flash_attn.kernel import (
-        flash_attention_bwd_call, flash_attention_call)
+    from repro_torch.launch.input_specs import batch_axes
     from repro_torch.models import registry
-    from repro_torch.models.moe import group_of
     from repro_torch.optim import adam
     from repro_torch.train.step import init_train_state, make_train_step
+
+    device = resolve_device(device)
+    tp = 1 if rules is None else int(rules.mesh["model"].size())
+    with deterministic(), use_rules_of(rules):
+        fns = registry.build(cfg, tp)
+        terms = {}  # the MoE balance term of the last loss evaluated
+        loss_fn = partial(fns.loss, terms=terms) if cfg.family == "moe" \
+            else fns.loss
+        opt = adam(lr)
+        step_fn = make_train_step(loss_fn, opt, microbatches=microbatches,
+                                  max_grad_norm=1.0,
+                                  grad_compress=grad_compress)
+        calls = [0]
+
+        def counted_step(state, batch_):
+            calls[0] += 1
+            return step_fn(state, batch_)
+
+        pipe = TextPipeline(seq_len=seq, batch_size=batch,
+                            vocab_size=min(cfg.vocab_size, 256),
+                            seed=data_seed)
+        rcfg = RunnerConfig(total_steps=steps, ckpt_dir=ckpt_dir,
+                            ckpt_every=ckpt_every,
+                            inject_fault_at=inject_fault_at)
+        losses, norms, times, loss_log = {}, {}, {}, []
+
+        def log(step, metrics, dt):
+            losses[step] = _value(metrics["loss"])
+            norms[step] = _value(metrics["grad_norm"])
+            times[step] = dt
+            loss_log.append([step, losses[step]])
+            if on_step is not None:
+                on_step(step, losses[step], norms[step], dt)
+
+        def init_state():
+            params = fns.init(seed, device=device)
+            if rules is not None:
+                params = distribute_tree(params, fns.param_axes(), rules)
+            return init_train_state(params, opt,
+                                    grad_compress=grad_compress)
+
+        batches = lm_batches(cfg, pipe, device)
+        if rules is not None:  # each data rank keeps its rows
+            batches = _placed_lm_batches(batches, batch_axes(cfg), rules)
+
+        if device.type == "cuda":
+            warm_backward(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        # the runner makes the initial state and holds it no longer than
+        # it needs it: one state on the card, not two
+        state, step = run(counted_step, init_state, batches, rcfg,
+                          device=device, on_metrics=log)
+        wall = time.perf_counter() - t0
+    return LmRun(state=state, step=step, losses=losses, grad_norms=norms,
+                 times=times, loss_log=loss_log, calls=calls[0],
+                 balance=(_value(terms["balance"]) if "balance" in terms
+                          else None), wall_s=wall)
+
+
+def train_lm(args, cfg) -> int:
+    """The LM branch: the reference's ``main`` past its MRF dispatch, one
+    :func:`lm_job` and its report."""
+    from repro_torch.configs.base import param_count
+    from repro_torch.ft.checkpoint import latest_step
+    from repro_torch.kernels.flash_attn.kernel import (
+        flash_attention_bwd_call, flash_attention_call)
+    from repro_torch.models.moe import group_of
 
     if args.quant:
         cfg = dataclasses.replace(cfg, quant=args.quant)
@@ -345,73 +434,32 @@ def train_lm(args, cfg) -> int:
         print(f"resuming from checkpoint step {resume} in {ckpt_dir}")
     rules = mesh_rules(args, device)
     tp = 1 if rules is None else int(rules.mesh["model"].size())
-    with deterministic(), use_rules_of(rules):
-        fns = registry.build(cfg, tp)
-        terms = {}  # the MoE balance term of the last loss evaluated
-        loss_fn = partial(fns.loss, terms=terms) if cfg.family == "moe" \
-            else fns.loss
-        opt = adam(args.lr)
-        step_fn = make_train_step(loss_fn, opt,
-                                  microbatches=args.microbatches,
-                                  max_grad_norm=1.0,
-                                  grad_compress=args.grad_compress)
-        calls = [0]
+    print(f"arch={cfg.name} params={param_count(cfg):,} tp={tp} "
+          f"device={device} batch={args.batch} seq={args.seq} "
+          f"microbatches={args.microbatches} quant={cfg.quant} "
+          f"mesh={args.mesh}")
 
-        def counted_step(state, batch):
-            calls[0] += 1
-            return step_fn(state, batch)
+    def log(step, loss, gnorm, dt):
+        print(f"step {step:5d} loss {loss:.6f} gnorm {gnorm:.4f} "
+              f"{dt * 1e3:.1f} ms", flush=True)
 
-        print(f"arch={cfg.name} params={param_count(cfg):,} tp={tp} "
-              f"device={device} batch={args.batch} seq={args.seq} "
-              f"microbatches={args.microbatches} quant={cfg.quant} "
-              f"mesh={args.mesh}")
-        pipe = TextPipeline(seq_len=args.seq, batch_size=args.batch,
-                            vocab_size=min(cfg.vocab_size, 256))
-        rcfg = RunnerConfig(total_steps=args.steps, ckpt_dir=ckpt_dir,
-                            ckpt_every=args.ckpt_every,
-                            inject_fault_at=args.inject_fault_at)
-        losses, times, loss_log = {}, {}, []
-
-        def log(step, metrics, dt):
-            losses[step] = _value(metrics["loss"])
-            times[step] = dt
-            loss_log.append([step, losses[step]])
-            print(f"step {step:5d} loss {losses[step]:.6f} gnorm "
-                  f"{_value(metrics['grad_norm']):.4f} {dt * 1e3:.1f} ms",
-                  flush=True)
-
-        def init_state():
-            params = fns.init(0, device=device)
-            if rules is not None:
-                params = distribute_tree(params, fns.param_axes(), rules)
-            return init_train_state(params, opt,
-                                    grad_compress=args.grad_compress)
-
-        batches = lm_batches(cfg, pipe, device)
-        if rules is not None:  # each data rank keeps its rows
-            batches = _placed_lm_batches(batches, batch_axes(cfg), rules)
-
-        if device.type == "cuda":
-            warm_backward(device)
-            torch.cuda.reset_peak_memory_stats(device)
-        launches = (flash_attention_call.launches,
-                    flash_attention_bwd_call.launches)
-        t0 = time.perf_counter()
-        # the runner makes the initial state and holds it no longer than
-        # it needs it: one state on the card, not two
-        state, step = run(counted_step, init_state, batches, rcfg,
-                          device=device, on_metrics=log)
-        wall = time.perf_counter() - t0
-        mesh_info = _mesh_report(rules, state)
+    launches = (flash_attention_call.launches,
+                flash_attention_bwd_call.launches)
+    out = lm_job(cfg, batch=args.batch, seq=args.seq, steps=args.steps,
+                 ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every, lr=args.lr,
+                 microbatches=args.microbatches,
+                 grad_compress=args.grad_compress,
+                 inject_fault_at=args.inject_fault_at, device=device,
+                 rules=rules, on_step=log)
+    losses, times, step = out.losses, out.times, out.step
     steady = [times[s] for s in sorted(times)[1:]] or list(times.values())
     ms = statistics.median(steady) * 1e3 if steady else None
     report = {"arch": cfg.name, "device": str(device), "steps": step,
               "batch": args.batch, "seq": args.seq,
               "microbatches": args.microbatches, "quant": cfg.quant,
-              "balance_loss": (_value(terms["balance"]) if "balance" in terms
-                               else None),
+              "balance_loss": out.balance,
               "losses": {str(k): losses[k] for k in sorted(losses)},
-              "loss_log": loss_log,
+              "loss_log": out.loss_log,
               "first_loss": losses[min(losses)] if losses else None,
               "last_loss": losses[max(losses)] if losses else None,
               "ms_per_step": ms,
@@ -421,13 +469,14 @@ def train_lm(args, cfg) -> int:
               "peak_device_gib": (torch.cuda.max_memory_allocated(device)
                                   / 2 ** 30 if device.type == "cuda"
                                   else None),
-              "train_step_calls": calls[0],
-              "wall_s": wall,
+              "train_step_calls": out.calls,
+              "wall_s": out.wall_s,
               "flash_attn_launches": flash_attention_call.launches
               - launches[0],
               "flash_attn_bwd_launches": flash_attention_bwd_call.launches
               - launches[1],
-              "params_digest": params_digest(state.params), **mesh_info}
+              "params_digest": params_digest(out.state.params),
+              **_mesh_report(rules, out.state)}
     print(f"done at step {step}")
     print("train_report " + json.dumps(report))
     return 0

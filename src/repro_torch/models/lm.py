@@ -10,7 +10,9 @@ family).  Params are ``{"embed": (V, d), "layers": [{"ln1", "attn":
 AttentionParams, "ln2", "mlp": MlpParams | "moe": MoeParams, "ssm":
 Mamba2Params}, ...], "final_norm": (d,), "head": (d, V)}`` in fp32, the
 ``(in, out)`` layout of the reference; an SSM layer holds ``ln1`` and
-``ssm`` only, a hybrid layer all but ``moe``.
+``ssm`` only, a hybrid layer all but ``moe``.  With ``cfg.tie_embeddings``
+there is no ``"head"``: the logits are ``h @ embed^T``, and the embedding's
+gradient is the sum of its two uses.
 ``convert.lm_params_from_numpy`` carries the reference's stacked params
 across.  Activations are bf16 from the embedding on.  An MoE layer's FFN is
 ``models.moe.moe_block`` (attention stays on B6), whose load-balance term
@@ -162,10 +164,12 @@ def _layer_axes(cfg: ModelConfig) -> dict:
 def lm_axes(cfg: ModelConfig) -> dict:
     """The params' logical axes, one entry per layer (the reference's
     ``lm_param_axes``, whose name its dead-exports allowlist holds)."""
-    return {"embed": ("tp", "fsdp"),
+    axes = {"embed": ("tp", "fsdp"),
             "layers": [_layer_axes(cfg) for _ in range(cfg.n_layers)],
-            "final_norm": (None,),
-            "head": ("fsdp", "tp")}
+            "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        axes["head"] = ("fsdp", "tp")
+    return axes
 
 
 def lm_cache_axes(cfg: ModelConfig):
@@ -224,10 +228,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 
     layers = [cast_layer(_layer_init(cfg, gen, tp, dev))
               for _ in range(cfg.n_layers)]
-    return {"embed": cast(normal_init(gen, (vp, d), device=dev)),
-            "layers": layers,
-            "final_norm": torch.ones((d,), dtype=dtype, device=dev),
-            "head": cast(normal_init(gen, (d, vp), device=dev))}
+    params = {"embed": cast(normal_init(gen, (vp, d), device=dev)),
+              "layers": layers,
+              "final_norm": torch.ones((d,), dtype=dtype, device=dev)}
+    if not cfg.tie_embeddings:
+        params["head"] = cast(normal_init(gen, (d, vp), device=dev))
+    return params
 
 
 def _ffn(cfg: ModelConfig, lp, x):
@@ -396,10 +402,13 @@ def _stack_forward(cfg: ModelConfig, tp: int, params, h, *,
 
 
 def _logits(params, h):
-    """``h @ head``.  On a mesh of more than one rank the head's ``fsdp``
-    rows are gathered for the product (:class:`_GatheredHead`); the vocab
-    stays split over ``tp``."""
-    head = params["head"].to(h.dtype)
+    """``h @ head``, or ``h @ embed^T`` for a tied head (no ``"head"``
+    entry; the transposed table is placed as a head, ``("fsdp", "tp")``).
+    On a mesh of more than one rank the head's ``fsdp`` rows are gathered
+    for the product (:class:`_GatheredHead`); the vocab stays split over
+    ``tp``."""
+    head = params["head"] if "head" in params else params["embed"].t()
+    head = head.to(h.dtype)
     if isinstance(head, DTensor) and head.device_mesh.size() > 1:
         logits = _GatheredHead.apply(h, head)
     else:

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch import obs
 from repro_torch.dist.sharding import (grad_placed_as, grad_placements,
                                        rules_placements, shard)
 from repro_torch.models.common import COMPUTE, dense, normal_init, rms_norm
@@ -220,7 +221,9 @@ def _mixer_core(x_raw, bm_raw, cm_raw, dt_raw, conv_x, conv_B, conv_C,
     convs and SiLU, dt, the chunked scan over the heads of ``x_raw`` (B, L,
     H*P), the skip ``D``.  Returns (y (B, L, H*P) in ``x_raw``'s dtype, the
     final state (B, H, P, N)).  Each head is independent, so the block runs
-    per rank on a rank's own heads (:func:`ssm_block`)."""
+    per rank on a rank's own heads (:func:`ssm_block`).  The scan is the
+    span ``model.ssd`` (counter ``ssd_calls``), its backward the span
+    ``model.ssd_bwd`` (``obs.backward_span``)."""
     b, length, _ = x_raw.shape
     x = silu(_causal_conv(x_raw, conv_x.to(x_raw.dtype)))
     bm = silu(_causal_conv(bm_raw, conv_B.to(bm_raw.dtype)))
@@ -235,7 +238,13 @@ def _mixer_core(x_raw, bm_raw, cm_raw, dt_raw, conv_x, conv_B, conv_C,
         dt = dt * (torch.arange(length + pad, device=x.device)
                    < length)[None, :, None]
     xh = x.reshape(b, length + pad, -1, head_dim).float()
-    y, state = ssd_chunked(xh, dt, a, bm.float(), cm.float(), chunk)
+    obs.count("ssd_calls")
+    with obs.span("repro_torch.model.ssd"):
+        scan = obs.backward_span("repro_torch.model.ssd_bwd", xh, dt, a,
+                                 bm.float(), cm.float(),
+                                 counter="ssd_bwd_calls")
+        y, state = ssd_chunked(*scan.inputs, chunk)
+        scan.mark(y, state)
     y = y + D[None, None, :, None] * xh
     return y.reshape(b, length + pad, -1)[:, :length].to(x_raw.dtype), state
 

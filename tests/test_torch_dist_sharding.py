@@ -135,8 +135,11 @@ def _converted_param_axes(cfg, jaxes):
                                              cfg.n_layers),
                         "norm": jaxes["dec"]["norm"]},
                 "head": jaxes["head"]}
-    return {**_plain(jaxes), "layers": _per_layer(jaxes["layers"],
-                                                  cfg.n_layers)}
+    out = {**_plain(jaxes), "layers": _per_layer(jaxes["layers"],
+                                                 cfg.n_layers)}
+    if cfg.tie_embeddings:  # the embedding is the head (the reference's
+        del out["head"]     # has one of its own)
+    return out
 
 
 @pytest.mark.parametrize("arch", sorted(pconfigs.ARCHS))

@@ -95,21 +95,31 @@ FIELDS = ("name", "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_ssm_configs_match_jax(arch):
+    """Field for field and in count; the port ties mamba2-1.3b's head to
+    its embedding as the published model does (the reference keeps a head
+    of its own: one (V, d) table more), and its smoke models untie it."""
     for get, jget in ((pconfigs.get_config, jget_config),
                       (pconfigs.get_smoke, jget_smoke)):
         p, j = get(arch), jget(arch)
         assert [getattr(p, f) for f in FIELDS] == \
             [getattr(j, f) for f in FIELDS]
         assert p.padded_heads(1) == j.padded_heads(1)
-        assert pbase.param_count(p) == jbase.param_count(j)
-        assert pbase.active_param_count(p) == jbase.active_param_count(j)
+        tied = p.vocab_size * p.d_model if p.tie_embeddings else 0
+        assert pbase.param_count(p) == jbase.param_count(j) - tied
+        assert pbase.active_param_count(p) == \
+            jbase.active_param_count(j) - tied
+        untied = dataclasses.replace(p, tie_embeddings=False)
+        assert pbase.param_count(untied) == jbase.param_count(j)
+    assert pconfigs.get_config(arch).tie_embeddings == (arch == "mamba2-1.3b")
+    assert not pconfigs.get_smoke(arch).tie_embeddings
 
 
 def test_full_size_counts_and_refusals():
     mamba, hymba = (pconfigs.get_config(a) for a in ARCHS)
     assert (mamba.n_heads, mamba.d_ff, mamba.n_ssm_heads) == (0, 0, 64)
     assert (hymba.n_ssm_heads, hymba.d_inner) == (50, 3200)
-    assert pbase.param_count(mamba) == 1_445_768_192
+    # tied head: 48 x 25.9 M + the 103 M embedding (untied 1,445,768,192)
+    assert pbase.param_count(mamba) == 1_342_794_752
     assert pbase.param_count(hymba) == 1_640_355_200
     with pytest.raises(ValueError, match="positive ssm_state"):
         dataclasses.replace(mamba, ssm_state=0).validate()

@@ -171,3 +171,72 @@ def test_a_profiler_marker_inside_a_span_lies_inside_it_once_mapped():
     lo, hi = evs["marker"]
     assert outer.start_ns + off <= lo <= hi <= outer.end_ns + off
     assert abs(off) < 10_000_000  # both clocks are the Unix epoch's
+
+
+def _mamba2_grads(tokens: int = 24):
+    """The loss and gradients of mamba2's smoke model (2 layers, each
+    block recomputed in the backward) on one batch."""
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves, rebuild
+
+    fns = registry.build(get_smoke("mamba2-1.3b"))
+    params = fns.init(0, device=CPU)
+    live = [t.requires_grad_(True) for t in leaves(params)]
+    params = rebuild(params, live)
+    toks = torch.arange(2 * tokens).reshape(2, tokens) % 256
+    loss = fns.loss(params, {"tokens": toks, "labels": toks})
+    return loss, live
+
+
+def test_the_scan_is_a_span_a_call_and_its_backward_a_span_a_forward():
+    """``model.ssd`` a call of the scan (the forward's and the recompute's:
+    two a layer), as ``ssd_calls`` counts; ``model.ssd_bwd`` a forward
+    made under grad (one a layer), as ``ssd_bwd_calls`` counts, each after
+    its layer's recompute and in the backward's order of layers."""
+    with obs.recording() as rec:
+        loss, live = _mamba2_grads()
+        torch.autograd.grad(loss, live)
+    fwd, bwd = _names(rec, "model.ssd"), _names(rec, "model.ssd_bwd")
+    assert len(fwd) == rec.counters["ssd_calls"] == 4
+    assert len(bwd) == rec.counters["ssd_bwd_calls"] == 2
+    assert None not in rec.spans
+    recompute = sorted(fwd, key=lambda s: s.start_ns)[2:]
+    for r, b in zip(recompute, sorted(bwd, key=lambda s: s.start_ns)):
+        assert r.end_ns <= b.start_ns < b.end_ns
+
+
+def test_a_scan_without_a_recording_or_under_no_grad_sets_no_hook():
+    x = torch.ones(3, requires_grad=True)
+    before = obs.counters()
+    scan = obs.backward_span("repro_torch.model.ssd_bwd", x,
+                             counter="ssd_bwd_calls")
+    assert scan.inputs[0] is x  # no recording: the inputs themselves
+    assert obs.counters()["ssd_bwd_calls"] == before["ssd_bwd_calls"] + 1
+    with obs.recording() as rec, torch.no_grad():
+        loss, _ = _mamba2_grads()
+    assert rec.counters["ssd_calls"] == 2  # no recompute without grad
+    assert rec.counters["ssd_bwd_calls"] == 0
+    assert not _names(rec, "model.ssd_bwd")
+
+
+def test_a_backward_on_another_thread_records_its_spans_there():
+    """Autograd's device thread stands in: the backward runs on a thread
+    of its own while the caller's span is open; its spans have no parent
+    on the caller's thread and nest on their own."""
+    import threading
+
+    with obs.recording() as rec:
+        loss, live = _mamba2_grads()
+        with obs.span("repro_torch.caller", wait=True):
+            t = threading.Thread(target=lambda: torch.autograd.grad(
+                loss, live))
+            t.start()
+            t.join()
+    (caller,) = _names(rec, "caller")
+    bwd = _names(rec, "model.ssd_bwd")
+    assert len(bwd) == 2 and all(s.parent == -1 for s in bwd)
+    assert all(caller.start_ns < s.start_ns < s.end_ns < caller.end_ns
+               for s in bwd)
+    recompute = [s for s in _names(rec, "model.ssd")
+                 if s.start_ns > caller.start_ns]
+    assert len(recompute) == 2 and all(s.parent == -1 for s in recompute)
