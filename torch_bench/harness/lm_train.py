@@ -13,7 +13,9 @@ before left in the job's directory (under the run's ``TMPDIR``):
 
 1. set-up, the compared steps: ``compared_steps`` calls of one step each
    (``limits/<cell>.json``), each ending on a checkpoint; step 1 starts
-   from the program's initial weights;
+   from the program's initial weights.  Each call hands back its state,
+   and the first call of the SSD scan is taken as the program made it
+   (:func:`scan_taken`);
 2. the window's call: resumed from there, one step to warm up, then as
    many steps as fill ``--seconds`` at the compared steps' pace, with the
    traffic's checkpoint period.  The window runs from the end of the
@@ -21,12 +23,13 @@ before left in the job's directory (under the run's ``TMPDIR``):
 
 After the window, once the peak memory has been read, the compared numbers
 (``yardstick.lm_compare``) hold each compared step's loss, its gradient
-norm and step 1's update against the plain reference
-(``yardstick.mamba2_ref``, float32, TF32 off), computed at the parameters
-the program held when the step began (the program's initial weights, then
-what each call handed back), on the tokens the reference draws itself
-(``yardstick.lm_data``), one sequence at a time with each layer
-recomputed in its backward.
+norm, its update of every parameter and its scan against the plain
+reference (``yardstick.mamba2_ref``, float32, TF32 off), on the tokens
+the reference draws itself (``yardstick.lm_data``).  The reference starts
+step 1 from the initial weights it draws itself (``yardstick.lm_init``)
+and each later step from the parameters and Adam moments the program
+handed back from the step before; it computes one sequence at a time,
+each layer recomputed in its backward.
 
 With ``--trace 1`` the window's call runs under the profiler and an
 ``obs`` recording; the readers get the device time of the kernels the SSD
@@ -47,7 +50,7 @@ import torch
 
 from torch_bench.harness import spec as spec_mod
 from torch_bench.harness.mrf_train import seeds_of
-from torch_bench.yardstick import lm_compare, lm_data
+from torch_bench.yardstick import lm_compare, lm_data, lm_init
 from torch_bench.yardstick import mamba2_ref as ref
 
 #: what the launcher sets before CUDA starts: deterministic cuBLAS
@@ -61,7 +64,8 @@ WIDTHS = {"d_model": "d_model", "d_inner": "d_inner",
           "d_state": "ssm_state", "chunk_size": "ssm_chunk",
           "vocab_rows": "vocab_size", "tie_embeddings": "tie_embeddings"}
 #: the planted faults of ``readings.py`` (:func:`planted`)
-FAULTS = ("scan_bf16", "no_inter_chunk", "no_D", "half_batch")
+FAULTS = ("scan_bf16", "no_inter_chunk", "no_D", "half_batch", "wrong_init",
+          "frozen_after_first", "moments_lost")
 
 
 @dataclasses.dataclass
@@ -108,6 +112,7 @@ class Job:
                 or int(t["microbatches"]) != 1:
             raise ValueError(f"{cell.name}: the job trains with Adam, "
                              f"clipping at 1.0 and one microbatch")
+        self.config = cell.config
         self.cfg = model_config(cell.config)
         self.launcher = launcher
         self.traffic = t
@@ -122,12 +127,6 @@ class Job:
             ckpt_dir=self.ckpt_dir, ckpt_every=ckpt_every,
             lr=float(self.traffic["lr"]), device=self.device,
             seed=self.init_seed, data_seed=self.data_seed, on_step=on_step)
-
-    def initial_params(self):
-        """The program's initial weights, on the host."""
-        from repro_torch.models import registry
-        return _host(registry.build(self.cfg).init(self.init_seed,
-                                                   device=self.device))
 
 
 def _keep_latest(ckpt_dir: str) -> None:
@@ -156,32 +155,66 @@ def _sync(device):
 def checked_steps(job: Job, n: int) -> dict:
     """The set-up calls: ``n`` calls of one step, each resuming from the
     checkpoint the one before ended on.  The program's side of the
-    comparison: each step's loss, gradient norm and seconds, the
-    parameters each step began from and those step 1 ended on (on the
-    host), and the step counters' gap."""
-    starts = [job.initial_params()]
-    losses, norms, secs = [], [], []
+    comparison, on the host: each step's loss, gradient norm and seconds;
+    the parameters each step ended on (``ends``) and, for each step but
+    the last, the Adam moments it handed back with them (``moments``,
+    ``(mu, nu)``); the first scan of each step (:func:`scan_taken`); and
+    the step counters' gap."""
+    losses, norms, secs, ends, moments, scans = [], [], [], [], [], []
     for k in range(1, n + 1):
-        out = job.train(k, k)
+        with scan_taken() as scan:
+            out = job.train(k, k)
         _keep_latest(job.ckpt_dir)
         losses.append(out.losses[k])
         norms.append(out.grad_norms[k])
         secs.append(out.times[k])
-        if k == 1:
-            after_first = _host(out.state.params)
+        ends.append(_host(out.state.params))
         if k < n:
-            starts.append(after_first if k == 1 else _host(out.state.params))
+            opt = out.state.opt_state
+            moments.append((_host(opt.mu), _host(opt.nu)))
+        scans.append(scan)
     state, step = out.state, out.step
     count_gap = abs(int(state.step) - n) + abs(step - n) + abs(
         int(state.opt_state.step) - n)
     del out, state
     return {"losses": losses, "grad_norms": norms, "step_s": secs,
-            "starts": starts, "after_first": after_first,
+            "ends": ends, "moments": moments, "scans": scans,
             "count_gap": count_gap}
 
 
+@contextlib.contextmanager
+def scan_taken():
+    """``with scan_taken() as got:`` the first call of the program's SSD
+    scan (``models.ssm.ssd_chunked``, as ``_mixer_core`` calls it) inside
+    the block, on its first sequence, copied to the host: ``got["inputs"]``
+    (x (L, H, P), dt (L, H), A (H,), B, C (L, N)) and ``got["y"]`` (L, H,
+    P)."""
+    from repro_torch.models import ssm
+
+    real = ssm.ssd_chunked
+    got = {}
+
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    def taking(x, dt, A, Bmat, Cmat, chunk):
+        y, state = real(x, dt, A, Bmat, Cmat, chunk)
+        if not got:
+            got["inputs"] = [host(t if t is A else t[0])
+                             for t in (x, dt, A, Bmat, Cmat)]
+            got["y"] = host(y[0])
+        return y, state
+
+    ssm.ssd_chunked = taking
+    try:
+        yield got
+    finally:
+        ssm.ssd_chunked = real
+
+
 def _plain(params, device) -> dict:
-    """The port's parameters in the reference's layout, on ``device``."""
+    """The port's parameters (or a tree shaped as them, such as Adam's
+    moments) in the reference's layout, on ``device``."""
     out = {"embed": params["embed"].to(device),
            "final_norm": params["final_norm"].to(device),
            "layers": [{"norm": lp["ln1"].to(device),
@@ -213,39 +246,70 @@ def _float32_products():
          torch.backends.cudnn.allow_tf32) = before
 
 
+def _pool(counts) -> dict:
+    """``[(kind, part, whole, entries)]`` summed by kind."""
+    kinds = {}
+    for kind, part, whole, n in counts:
+        p0, w0, n0 = kinds.get(kind, (0.0, 0.0, 0))
+        kinds[kind] = (p0 + part, w0 + whole, n0 + n)
+    return kinds
+
+
 def judge_side(job: Job, side: dict) -> dict:
     """The compared numbers of ``side`` (:func:`checked_steps`) against
-    the reference following it step by step."""
-    dev = job.device
-    losses, norms, shares = [], [], []
+    the reference following it step by step (``yardstick.lm_compare``):
+    step 1 from the reference's own initial weights (``yardstick.lm_init``)
+    and zero moments, each later step from the parameters and moments the
+    program handed back."""
+    dev, lr = job.device, float(job.traffic["lr"])
+    losses, norms, updates, scan_gaps = [], [], [], []
     with _float32_products():
-        for k, start in enumerate(side["starts"]):
+        for k, end in enumerate(side["ends"]):
             tokens, labels = lm_data.batch(
                 job.data_seed, k, job.batch, job.seq,
                 min(job.cfg.vocab_size, 256), device=dev)
-            p = _plain(start, dev)
+            p = (lm_init.init_params(job.config, job.init_seed, dev)
+                 if k == 0 else _plain(side["ends"][k - 1], dev))
             loss, grads = ref.loss_and_grads(p, tokens, labels)
             g = _leaves(grads)
             losses.append(float(loss))
             norms.append(lm_compare.global_norm([t for _, t in g]))
+            scale = lm_compare.clip_scale(norms[-1])
+            moved = [(kind, a - b) for (kind, a), (_, b) in zip(
+                _leaves(_plain(end, dev)), _leaves(p), strict=True)]
             if k == 0:
-                moved = _leaves(_plain(side["after_first"], dev))
-                counts = [(kind, *lm_compare.sign_counts(a - b, w), w.numel())
-                          for (kind, a), (_, b), (_, w) in
-                          zip(moved, _leaves(p), g, strict=True)]
-            del p, grads, g
-    kinds = {}
-    for kind, wrong, total, n in counts:
-        w0, t0, n0 = kinds.get(kind, (0.0, 0.0, 0))
-        kinds[kind] = (w0 + wrong, t0 + total, n0 + n)
-    nums = lm_compare.numbers({**side, "sign_kinds": kinds},
-                              {"losses": losses, "grad_norms": norms})
+                signs = [(kind, *lm_compare.sign_counts(d, w), w.numel())
+                         for (kind, d), (_, w) in zip(moved, g, strict=True)]
+                init_move = max(float(d.abs().max()) for _, d in moved) / lr
+            else:
+                mu, nu = (_leaves(_plain(t, dev))
+                          for t in side["moments"][k - 1])
+                counts = []
+                for (kind, d), (_, w), (_, m), (_, v) in zip(
+                        moved, g, mu, nu, strict=True):
+                    want, m_new = lm_compare.adam_update(w * scale, m, v,
+                                                         k + 1, lr)
+                    counts.append((kind, *lm_compare.update_counts(
+                        d, want, m_new), d.numel()))
+                    del want, m_new
+                updates.append(_pool(counts))
+                del mu, nu
+            scan = side["scans"][k]
+            want = ref.ssm(*(t.to(dev) for t in scan["inputs"]))
+            scan_gaps.append(lm_compare.scan_gap(scan["y"].to(dev), want))
+            del p, grads, g, moved, want
+    nums = lm_compare.numbers(
+        {**side, "sign_kinds": _pool(signs), "update_kinds": updates,
+         "init_move": init_move, "scan_gaps": scan_gaps},
+        {"losses": losses, "grad_norms": norms})
     # what the numbers are read from, for the readings of the limits: each
-    # leaf's (kind, wrong weight, weight, entries) and each step's (loss,
-    # reference loss, norm, reference norm)
-    nums["leaves"] = [list(c) for c in counts]
+    # step's (loss, reference loss, norm, reference norm, scan gap) and
+    # each later step's pooled update gap by kind
     nums["steps"] = [list(x) for x in zip(side["losses"], losses,
-                                          side["grad_norms"], norms)]
+                                          side["grad_norms"], norms,
+                                          scan_gaps)]
+    nums["update_kinds"] = [{kind: part / whole for kind, (part, whole, _)
+                             in u.items() if whole > 0} for u in updates]
     return nums
 
 
@@ -281,12 +345,19 @@ def planted(fault: str):
     products in bf16 (the configuration states a float32 scan);
     ``no_inter_chunk``: each chunk scanned as a sequence of its own, no
     state carried between chunks; ``no_D``: the skip ``D x`` left out;
-    ``half_batch``: each step trains on the first half of its batch."""
+    ``half_batch``: each step trains on the first half of its batch;
+    ``wrong_init``: ``A_log`` drawn over log 1..8, not 1..16;
+    ``frozen_after_first``: Adam leaves the parameters as they are after
+    its first step; ``moments_lost``: each call's first step starts from
+    zero moments, the step count kept (a resume that restores no
+    moments)."""
+    from repro_torch import optim
     from repro_torch.launch import train as launcher
     from repro_torch.models import ssm
 
     real_ssd, real_core = ssm.ssd_chunked, ssm._mixer_core
-    real_batches = launcher.lm_batches
+    real_batches, real_init, real_adam = (launcher.lm_batches, ssm.init_ssm,
+                                          optim.adam)
 
     def scan_bf16(x, dt, A, B, C, chunk):
         with torch.autocast(device_type=x.device.type, dtype=torch.bfloat16):
@@ -313,17 +384,47 @@ def planted(fault: str):
         return lambda step: {k: v[:v.shape[0] // 2]
                              for k, v in at(step).items()}
 
+    def wrong_init(*args, **kw):
+        p = real_init(*args, **kw)
+        return p._replace(A_log=torch.log(torch.linspace(
+            1.0, 8.0, p.A_log.shape[0], dtype=torch.float32,
+            device=p.A_log.device)))
+
+    def frozen_after_first(*args, **kw):
+        opt = real_adam(*args, **kw)
+
+        def update(grads, state, params):
+            new, after = opt.update(grads, state, params)
+            return (params if int(state.step) >= 1 else new), after
+        return dataclasses.replace(opt, update=update)
+
+    def moments_lost(*args, **kw):
+        from repro_torch.tree import tree_map
+        opt, first = real_adam(*args, **kw), [True]
+
+        def update(grads, state, params):
+            if first[0]:
+                first[0] = False
+                state = state._replace(mu=tree_map(torch.zeros_like, state.mu),
+                                       nu=tree_map(torch.zeros_like, state.nu))
+            return opt.update(grads, state, params)
+        return dataclasses.replace(opt, update=update)
+
     patch = {"program": {}, "scan_bf16": {(ssm, "ssd_chunked"): scan_bf16},
              "no_inter_chunk": {(ssm, "ssd_chunked"): no_inter_chunk},
              "no_D": {(ssm, "_mixer_core"): no_D},
-             "half_batch": {(launcher, "lm_batches"): half_batch}}[fault]
+             "half_batch": {(launcher, "lm_batches"): half_batch},
+             "wrong_init": {(ssm, "init_ssm"): wrong_init},
+             "frozen_after_first": {(optim, "adam"): frozen_after_first},
+             "moments_lost": {(optim, "adam"): moments_lost}}[fault]
     for (mod, name), fn in patch.items():
         setattr(mod, name, fn)
     try:
         yield
     finally:
         ssm.ssd_chunked, ssm._mixer_core = real_ssd, real_core
-        launcher.lm_batches = real_batches
+        launcher.lm_batches, ssm.init_ssm, optim.adam = (
+            real_batches, real_init, real_adam)
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device, log,

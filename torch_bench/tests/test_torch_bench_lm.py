@@ -1,12 +1,14 @@
 """The LM cell's files on the CPU (``mamba2-1.3b.train``): the cell loads
 with its harness and limits, the configuration is the program's mamba2 at
 its published widths, the two copies of the plain reference are one file,
-the frozen token stream and work count are the port's; the readers read
-nothing without spans or where a span count differs from its counter, and
-read the hand-counted values of a synthetic trace; the cell driven at the
-smoke size gives ``correct`` true, and false with the program broken
-underneath (the inter-chunk term or D dropped, half of each batch, each
-loss altered by 1%)."""
+the frozen token stream, initial weights and work count are the port's,
+the reference's Adam is the port's; the readers read nothing without
+spans or where a span count differs from its counter, and read the
+hand-counted values of a synthetic trace; the cell driven at the smoke
+size gives ``correct`` true, and false with the program broken underneath
+(the scan in bf16, the inter-chunk term or D dropped, half of each batch,
+another init, a state left unchanged after step 1, the moments lost on
+resume, each loss altered by 1%)."""
 
 import dataclasses
 import json
@@ -21,7 +23,8 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from torch_bench import run  # noqa: E402
 from torch_bench.harness import lm_trace, lm_train, spec  # noqa: E402
-from torch_bench.yardstick import lm_compare, lm_data, lm_work  # noqa: E402
+from torch_bench.yardstick import (lm_compare, lm_data, lm_init,  # noqa: E402
+                                   lm_work)
 
 CELL = "mamba2-1.3b.train"
 METRICS = ("ssd_scan_ms_per_step", "ssd_scan_roofline", "lm_train_mfu_pct")
@@ -216,8 +219,7 @@ def _altered(real):
     return job
 
 
-@pytest.mark.parametrize("fault", ["no_inter_chunk", "no_D", "half_batch",
-                                   "altered_loss"])
+@pytest.mark.parametrize("fault", [*lm_train.FAULTS, "altered_loss"])
 def test_a_broken_program_is_not_correct(fault, monkeypatch):
     if fault == "altered_loss":
         from repro_torch.launch import train as launcher
@@ -250,16 +252,82 @@ def test_the_harness_path_trains_the_tied_head_as_one_leaf(tmp_path):
 
     job = lm_train.Job(small(), 9, CPU, str(tmp_path / "ckpt"))
     side = lm_train.checked_steps(job, 1)
-    p0, p1 = side["starts"][0], side["after_first"]
-    assert "head" not in p0 and "head" not in p1
+    assert "head" not in side["ends"][0]
+    tied = lm_init.init_params(job.config, job.init_seed, CPU)
+    assert "head" not in tied
     tokens, labels = lm_data.batch(job.data_seed, 0, job.batch, job.seq)
-    tied = lm_train._plain(p0, CPU)
     _, both = mamba2_ref.loss_and_grads(tied, tokens, labels)
     _, apart = mamba2_ref.loss_and_grads(
         {**tied, "head": tied["embed"].t().clone()}, tokens, labels)
-    moved = p1["embed"] - p0["embed"]
+    moved = side["ends"][0]["embed"] - tied["embed"]
     # measured at seeds 9-11: 9.4e-6-5.8e-5 against the sum, 0.052-0.061
     # against the lookup's use, 0.18-0.23 against the head's
     assert lm_compare.sign_share(moved, both["embed"]) < 1e-3
     assert lm_compare.sign_share(moved, apart["embed"]) > 0.02
     assert lm_compare.sign_share(moved, apart["head"].t()) > 0.1
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_the_frozen_init_is_the_ports(tied):
+    """The reference's initial weights are the port's, bit for bit: the
+    smoke widths tied and untied, and one layer at the cell's widths."""
+    from repro_torch.models import registry
+    c = {**small().config, "tie_embeddings": tied}
+    full = {**spec.load_cell(CELL).config, "n_layers": 1}
+    for config, seed in ((c, 0), (c, 2 ** 31 - 1), (full, 123457)):
+        cfg = lm_train.model_config(config)
+        port = lm_train._plain(registry.build(cfg).init(seed, device=CPU),
+                               CPU)
+        ours = lm_init.init_params(config, seed, CPU)
+        got, want = lm_train._leaves(ours), lm_train._leaves(port)
+        assert [k for k, _ in got] == [k for k, _ in want]
+        for (_, a), (_, b) in zip(got, want, strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        if config is full:
+            break
+
+
+def test_the_scan_is_taken_as_the_program_ran_it(tmp_path):
+    """The first scan of a call, taken on its first sequence, is the
+    program's: the reference agrees with it to float32 round-off, and
+    the scan planted in bf16 reads a thousandfold more."""
+    from torch_bench.yardstick import mamba2_ref
+    gaps = {}
+    for fault in ("program", "scan_bf16"):
+        job = lm_train.Job(small(), 4, CPU, str(tmp_path / fault))
+        with lm_train.planted(fault), lm_train.scan_taken() as got:
+            job.train(1, 0)
+        x, dt, A, B, C = got["inputs"]
+        assert x.shape == (job.seq, 8, 16) and B.shape == (job.seq, 8)
+        assert got["y"].shape == x.shape and got["y"].dtype == torch.float32
+        gaps[fault] = lm_compare.scan_gap(got["y"],
+                                          mamba2_ref.ssm(*got["inputs"]))
+    assert gaps["program"] < 1e-6 and gaps["scan_bf16"] > 1e3 * gaps[
+        "program"]
+
+
+def test_the_references_adam_is_the_ports():
+    """Three steps of the reference's Adam (float64) against the port's
+    (float32) on random leaves, the moments carried as the port hands them
+    back; an unchanged leaf reads an update gap of 1, a reversed one 2."""
+    from repro_torch.optim import adam
+    gen = torch.Generator().manual_seed(3)
+    p = {"a": torch.randn(4096, generator=gen)}
+    opt = adam(3e-4)
+    state = opt.init(p)
+    for step in (1, 2, 3):
+        g = {"a": torch.randn(4096, generator=gen)}
+        new, after = opt.update(g, state, p)
+        want, m = lm_compare.adam_update(g["a"], state.mu["a"], state.nu["a"],
+                                         step, 3e-4)
+        got = new["a"] - p["a"]
+        part, whole = lm_compare.update_counts(got, want, m)
+        assert part / whole < 1e-4
+        # float32 round-off of b1 m + (1 - b1) g, where the two cancel
+        assert torch.allclose(m.float(), after.mu["a"], rtol=1e-6,
+                              atol=1e-7)
+        zero, whole = lm_compare.update_counts(torch.zeros_like(got), want, m)
+        assert zero / whole == pytest.approx(1.0)
+        back, whole = lm_compare.update_counts(-want, want, m)
+        assert back / whole == pytest.approx(2.0)
+        p, state = new, after
